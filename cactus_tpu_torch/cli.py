@@ -2,9 +2,9 @@
 
 The PyTorch/CUDA port carries the two verbs of a default run so far:
 `align` (progressive alignment of a seqfile into an alignment store, with
-optional MAF export) and `hal2maf` (MAF export from a store).  The other
-verbs of the JAX package's CLI (cactus_tpu/cli.py) and the `--hal` and
-`--mask` options of `align` exit with a "not ported yet" message; they
+optional HAL archive and MAF export) and `hal2maf` (MAF export from a
+store).  The other verbs of the JAX package's CLI (cactus_tpu/cli.py) and
+the `--mask` option of `align` exit with a "not ported yet" message; they
 are queued in ROADMAP.md.
 
 Device work runs on the current CUDA device unless `--device cpu` is
@@ -56,8 +56,6 @@ def load_genomes_from_seqfile(sf: SeqFile, only: set[str] | None = None,
 
 
 def cmd_align(args) -> int:
-    if args.hal:
-        raise _not_ported("align --hal (the HAL archive writer)")
     if args.mask:
         raise _not_ported("align --mask (repeat masking)")
     sf = SeqFile.parse(args.seqfile)
@@ -93,6 +91,10 @@ def cmd_align(args) -> int:
              "for finished steps only")
     from .phases import hal as hal_phase
     hal_phase.write_result_c2h(result, args.outdir + "/c2h")
+    if args.hal:
+        from .hal_archive import HalArchive
+        HalArchive.from_result(args.hal, result)
+        _log(f"wrote HAL archive {args.hal}")
     if args.maf:
         hal_phase.write_hal2maf(args.maf, result, args.ref_genome)
         _log(f"wrote {args.maf}")
@@ -147,7 +149,7 @@ def main(argv=None) -> int:
     pa.add_argument("--root", default=None,
                     help="align only the subtree rooted at this event "
                          "(reference `cactus --root`)")
-    pa.add_argument("--hal", help="(not ported yet) write a .hal archive")
+    pa.add_argument("--hal", help="also write a durable .hal archive")
     pa.add_argument("--ref-genome", default=None)
     pa.add_argument("--min-chain", type=int, default=None,
                     help="override the melting minimum chain length")

@@ -465,3 +465,10 @@ def config_from_numpy(d: dict) -> Config:
     package's Config, whose leaves may be numpy arrays or lists
     (substitution matrices, gap and HMM parameters, preset tables)."""
     return _from_dict(Config, d)
+
+
+def params_from_numpy(cls, d: dict):
+    """An instance of the dataclass `cls` of this package (PecanParams,
+    ops.pairhmm5.Hmm5Params, ...) from the `dataclasses.asdict()` form
+    of another package's twin, as config_from_numpy does for a Config."""
+    return _from_dict(cls, d)

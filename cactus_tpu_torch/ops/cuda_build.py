@@ -22,19 +22,20 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-SOURCES = ("banded", "pairhmm")
+SOURCES = ("banded", "pairhmm", "pairhmm5")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# the pair-HMM keeps each float32 multiply and add separately rounded, as
-# the plain PyTorch version does, instead of contracting them into FMAs
-EXTRA_FLAGS = {"pairhmm": ("-fmad=false",)}
+# the pair-HMMs keep each float32 multiply and add separately rounded, as
+# the plain PyTorch versions do, instead of contracting them into FMAs
+EXTRA_FLAGS = {"pairhmm": ("-fmad=false",), "pairhmm5": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BOUND: set[str] = set()
 
 # launches of each kernel, counted by its wrapper where it launches it
-KERNELS = ("banded_dp", "banded_traceback", "pairhmm_fwd", "pairhmm_bwd")
+KERNELS = ("banded_dp", "banded_traceback", "pairhmm_fwd", "pairhmm_bwd",
+           "pairhmm5_fwd", "pairhmm5_bwd")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

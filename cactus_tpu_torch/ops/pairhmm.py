@@ -280,47 +280,40 @@ def length_bins(pairs, min_rows: int = 256) -> dict[int, list[int]]:
     return bins
 
 
-def posterior_pairs_banded(pairs, params: HmmParams, band: int = 128,
-                           gamma: float = 0.5, min_batch: int = 8,
-                           min_rows_bin: int = 256, max_batch: int = 0,
-                           max_batch_bytes: int = 1 << 30, device=None):
-    """Aligned (qpos, tpos, posterior) per pair via the batched kernels.
-
-    Pairs are dispatched in pow2 query-length bins (see length_bins);
-    max_batch>0 caps a dispatch's pair count, and max_batch_bytes caps
-    its two (P, rows, band) float32 tensors.  A pair's hits do not
-    depend on the rest of its batch."""
-    if not pairs:
-        return []
-    dev = resolve_device(device)
-    bins = length_bins(pairs, min_rows=min_rows_bin)
+def dispatch_by_length(pairs, band: int, run, min_rows: int = 256,
+                       max_batch: int = 0, max_batch_bytes: int = 1 << 30):
+    """run(list of pairs) -> one result per pair, called on the pow2
+    query-length bins of `pairs` (length_bins), each bin split so that
+    max_batch>0 caps a dispatch's pair count and max_batch_bytes its two
+    (P, rows, band) float32 tensors.  Results in the order of `pairs`."""
     out: list = [None] * len(pairs)
-    for rows, idxs in sorted(bins.items()):
+    for rows, idxs in sorted(length_bins(pairs, min_rows=min_rows).items()):
         step = max_batch if max_batch > 0 else len(idxs)
         step = max(1, min(step, max_batch_bytes // (8 * rows * band)))
         for c in range(0, len(idxs), step):
             chunk = idxs[c:c + step]
-            sub = _posterior_pairs_banded_one(
-                [pairs[i] for i in chunk], params, band, gamma,
-                min_batch=min_batch, min_rows=min_rows_bin, dev=dev)
-            for i, r in zip(chunk, sub):
+            for i, r in zip(chunk, run([pairs[i] for i in chunk])):
                 out[i] = r
     return out
 
 
-def _posterior_pairs_banded_one(pairs, params: HmmParams, band: int,
-                                gamma: float, min_batch: int = 8,
-                                min_rows: int = 32, dev=None):
-    from .banded import pack_band_batch
+def pack_to_device(pairs, band: int, dev, min_batch: int = 8,
+                   min_rows: int = 256):
+    """pack_band_batch of the pairs: (the numpy dict, its q, t_shift,
+    m_len, n_len and lo on dev without the padding pairs)."""
+    from .banded import _to_device, pack_band_batch
     packed = pack_band_batch(pairs, band, min_batch=min_batch,
                              min_rows=min_rows)
-    n = len(pairs)
-    t = {k: torch.from_numpy(np.ascontiguousarray(v[:n])).to(dev)
-         for k, v in packed.items()}
-    em = torch.from_numpy(params.emissions()).to(dev)
-    post = posterior_banded_batch(
-        t["q"], t["t_shift"], t["m_len"], t["n_len"], t["lo"], em,
-        band=band, delta=params.delta, epsilon=params.epsilon)
+    t = _to_device(packed, len(pairs), dev)
+    return packed, [t[k] for k in ("q", "t_shift", "m_len", "n_len", "lo")]
+
+
+def banded_hits(post, pairs, lo, gamma: float):
+    """(qpos, tpos, posterior) per pair from a (P, Mmax, B) posterior: each
+    query row's first band argmax, kept where its posterior reaches gamma
+    and it lands inside the target.  The band reduction runs on the
+    device; only the (P, Mmax) rows leave it.  lo: the pairs' band
+    offsets (numpy)."""
     best_b_all, pr_all = _row_argmax(post)
     del post
     best_b_all = best_b_all.cpu().numpy()
@@ -328,11 +321,38 @@ def _posterior_pairs_banded_one(pairs, params: HmmParams, band: int,
     out = []
     for p, (qs, ts) in enumerate(pairs):
         m = len(qs)
-        lo_p = int(packed["lo"][p])
         best_b = best_b_all[p, :m]
         pr = pr_all[p, :m]
-        j = np.arange(1, m + 1) + lo_p + best_b     # 1-based target pos
+        j = np.arange(1, m + 1) + int(lo[p]) + best_b     # 1-based target
         keep = (pr >= gamma) & (j >= 1) & (j <= len(ts))
         idx = np.flatnonzero(keep)
         out.append([(int(i), int(j[i] - 1), float(pr[i])) for i in idx])
     return out
+
+
+def posterior_pairs_banded(pairs, params: HmmParams, band: int = 128,
+                           gamma: float = 0.5, min_batch: int = 8,
+                           min_rows_bin: int = 256, max_batch: int = 0,
+                           max_batch_bytes: int = 1 << 30, device=None):
+    """Aligned (qpos, tpos, posterior) per pair via the batched kernels.
+
+    Pairs are dispatched in pow2 query-length bins (dispatch_by_length);
+    max_batch>0 caps a dispatch's pair count, and max_batch_bytes caps
+    its two (P, rows, band) float32 tensors.  A pair's hits do not
+    depend on the rest of its batch."""
+    if not pairs:
+        return []
+    dev = resolve_device(device)
+    em = torch.from_numpy(params.emissions()).to(dev)
+
+    def run(chunk):
+        packed, t = pack_to_device(chunk, band, dev, min_batch=min_batch,
+                                   min_rows=min_rows_bin)
+        return banded_hits(
+            posterior_banded_batch(*t, em, band=band, delta=params.delta,
+                                   epsilon=params.epsilon),
+            chunk, packed["lo"], gamma)
+
+    return dispatch_by_length(pairs, band, run, min_rows=min_rows_bin,
+                              max_batch=max_batch,
+                              max_batch_bytes=max_batch_bytes)

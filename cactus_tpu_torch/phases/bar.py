@@ -30,10 +30,14 @@ Design here:
    rebuilt in one vectorized pass (graph/columns.py), replacing the
    reference's incremental re-pinching.
 
-The partial-order ("poa") and pair-HMM ("pecan") engines of the JAX
-package (cactus_tpu/phases/bar.py:412-596) are not ported yet: their
-kernels (the 5-state pair-HMM and the POA DPs) are queued in ROADMAP.md.
-Selecting either raises NotImplementedError.
+ - the pecan engine (partialOrderAlignment=0, or msa_engine='pecan')
+   replaces the star's member-vs-backbone jobs with spanning-tree pair
+   selection and aligns each pair, split at MUM anchors, by pair-HMM
+   posteriors (ops/pairhmm5.py, the 5-state CUDA kernels on a GPU).
+
+The partial-order ("poa") engine of the JAX package
+(cactus_tpu/phases/bar.py:412-448) is not ported yet: its POA kernels are
+queued in ROADMAP.md, and selecting it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -50,6 +54,172 @@ from ..ops.banded import GapParams, align_pairs_banded, score_matrix_6
 from .caf import CafResult, blocks_to_match_edges, filter_blocks_by_events, event_of
 
 BOUNDARY = chain_graph.BOUNDARY
+
+_warned: set[str] = set()
+
+
+def _warn_once(msg: str) -> None:
+    if msg not in _warned:
+        _warned.add(msg)
+        import logging
+        logging.getLogger("cactus_tpu_torch").warning(msg)
+
+
+def _check_pecan_knobs(pec) -> None:
+    """Flag the one pecan knob this engine cannot honor (never a
+    silent no-op).  spanningTrees / useProgressiveMerging / gapGamma /
+    diagonalExpansion are honored since round 4 (poset pair selection,
+    MEA threshold, band floor — see spanning_tree_pairs and the pecan
+    branch of star_align_ends)."""
+    from ..config import PecanParams
+    ref = PecanParams()
+    if pec.constraint_diagonal_trim != ref.constraint_diagonal_trim:
+        _warn_once("pecan constraintDiagonalTrim is n/a to the "
+                   "MUM-split banded design (no per-anchor constraint "
+                   "diagonals to trim); value ignored")
+
+
+def _minhash_sim(codes_list, k: int = 12, n_hash: int = 48):
+    """Pairwise Jaccard-ish similarity via per-string minhash sketches
+    (the cheap stand-in for cPecan's pairwise-alignment-score spanning
+    trees).  Returns a (m, m) float matrix."""
+    sketches = []
+    mod = (1 << 61) - 1
+    short = np.zeros(len(codes_list), dtype=bool)
+    for idx, c in enumerate(codes_list):
+        c = np.asarray(c, np.int64)
+        if len(c) < k:
+            # below-k members get a DISTINCT sentinel sketch (index
+            # salt): an all-zeros sketch made every short-short pair
+            # similarity 1.0 and biased spanning-tree-0 edges toward
+            # degenerate short pairs (round-5 advisor finding — and the
+            # measured mechanism of the pecan cross-clade collapse:
+            # ancestor-refinement members are mostly short gap strings)
+            short[idx] = True
+            sketches.append(np.full(n_hash, -(idx + 1), np.int64))
+            continue
+        h = np.zeros(len(c) - k + 1, np.int64)
+        for j in range(k):
+            h = (h * 4 + np.clip(c[j:j + len(c) - k + 1], 0, 3)) % mod
+        # n_hash independent permutations via multiply-shift
+        rng = np.random.default_rng(12345)
+        a = rng.integers(1, mod, n_hash)
+        sk = ((h[None, :] * a[:, None]) % mod).min(axis=1)
+        sketches.append(sk)
+    S = np.stack(sketches)
+    m = len(codes_list)
+    sim = np.zeros((m, m))
+    for i in range(m):
+        sim[i, i + 1:] = (S[i] == S[i + 1:]).mean(axis=1)
+        sim[i + 1:, i] = sim[i, i + 1:]
+    return sim
+
+
+def spanning_tree_pairs(codes_list, n_trees: int,
+                        progressive: bool = True) -> list[tuple[int, int]]:
+    """Pair selection for the pecan poset MSA: `n_trees` EDGE-DISJOINT
+    spanning trees over the end's members (reference: cPecan
+    makeAlignment's spanningTrees parameter, consumed at
+    bar/impl/endAligner.c:87; config XML :272 spanningTrees=5).
+
+    Tree 0 is the MAXIMUM-similarity spanning tree — with
+    useProgressiveMerging (config :283) this is the progressive merge
+    order (closest members pair first); subsequent trees exclude used
+    edges so the pair set covers diverse member combinations, which is
+    what lets the transitive poset (pinch) columns capture
+    non-backbone homology a star misses.  Falls back to all pairs when
+    that is no more work."""
+    m = len(codes_list)
+    if m < 2:
+        return []
+    all_pairs = [(i, j) for i in range(m) for j in range(i + 1, m)]
+    if len(all_pairs) <= n_trees * (m - 1):
+        return all_pairs
+    sim = _minhash_sim(codes_list)
+    if not progressive:
+        # non-progressive: same edge-disjoint construction but from an
+        # arbitrary (index) order rather than similarity
+        sim = -np.abs(np.subtract.outer(np.arange(m), np.arange(m))) \
+            .astype(float)
+    used: set[tuple[int, int]] = set()
+    for _t in range(n_trees):
+        cands = sorted(((i, j) for i, j in all_pairs
+                        if (i, j) not in used),
+                       key=lambda p: -sim[p[0], p[1]])
+        parent = list(range(m))
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        added = 0
+        for i, j in cands:
+            ri, rj = find(i), find(j)
+            if ri == rj:
+                continue
+            parent[ri] = rj
+            used.add((i, j))
+            added += 1
+            if added == m - 1:
+                break
+        if added == 0:
+            break
+    return sorted(used)
+
+
+def estimate_block_identity(caf: CafResult, gcodes: np.ndarray,
+                            max_bases: int = 200_000) -> float | None:
+    """Observed per-column member agreement over sampled live blocks —
+    the last-train role (reference: last-train via paf/last_scoring.py
+    trains the scoring/HMM on the data's own divergence; cPecan's HMM
+    is likewise divergence-trained).  Drives the pecan pair-HMM's
+    emission p_match so posteriors stay confident at high divergence
+    (measured: the stock p_match=0.94 emission collapses posterior
+    recall to 0.41 on a divergence-0.4 ancestor pair)."""
+    blocks, alive = caf.blocks, caf.alive
+    sel = np.flatnonzero(alive[blocks.seg_block])
+    if not len(sel):
+        return None
+    blk = blocks.seg_block[sel]
+    order = np.argsort(blk, kind="stable")
+    sel, blk = sel[order], blk[order]
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(blk)) + 1])
+    counts = np.diff(np.concatenate([starts, [len(blk)]]))
+    two = counts >= 2
+    if not two.any():
+        return None
+    first = sel[starts[two]]
+    second = sel[starts[two] + 1]
+    ln = blocks.seg_len[first].astype(np.int64)
+    # cap total sampled bases
+    cum = np.cumsum(ln)
+    n_blocks = int(np.searchsorted(cum, max_bases)) + 1
+    first, second, ln = first[:n_blocks], second[:n_blocks], ln[:n_blocks]
+    n = int(ln.sum())
+    if n == 0:
+        return None
+    seg_of = np.repeat(np.arange(len(ln)), ln)
+    k = np.arange(n) - np.repeat(np.cumsum(ln) - ln, ln)
+    table = caf.table
+
+    def base_at(seg_idx):
+        s = seg_idx[seg_of]
+        st = blocks.seg_strand[s].astype(np.int64)
+        pos = np.where(st == 1, k, ln[seg_of] - 1 - k)
+        g = (table.offsets[blocks.seg_seq[s]]
+             + blocks.seg_start[s] + pos)
+        from ..io.fasta import complement
+        raw = gcodes[g]
+        return np.where(st == 1, raw, complement(raw))
+
+    b1, b2 = base_at(first), base_at(second)
+    ok = (b1 < 4) & (b2 < 4)
+    if not ok.any():
+        return None
+    return float((b1[ok] == b2[ok]).mean())
+
 
 def global_codes(table: SeqTable, seqs: dict[str, Sequence]) -> np.ndarray:
     """Concatenate per-sequence codes into the table's global index space."""
@@ -178,6 +348,7 @@ def star_align_ends(per_end: dict[int, list[EndString]],
                     max_band: int = 2048,
                     ingroup_seqs: np.ndarray | None = None,
                     gap_pairs: list[GapPair] | None = None,
+                    est_identity: float | None = None,
                     device=None):
     """Batched star MSA over all ends → global match runs.
 
@@ -200,17 +371,22 @@ def star_align_ends(per_end: dict[int, list[EndString]],
     clipped to their strings' allowed intervals so every base is claimed
     by exactly one end (poaBarAligner.c:751-806).
 
-    device: where the banded DP runs (None = the current CUDA device).
+    est_identity: the pecan engine's divergence-trained emission
+    p_match (estimate_block_identity), clipped to [0.60, 0.95].
+
+    device: where the banded DP and the pair-HMM run (None = the current
+    CUDA device).
     """
     engine = cfg.msa_engine
     if not cfg.partial_order_alignment and engine == "star":
         engine = "pecan"   # reference semantics: POA off → cPecan path
-    if engine != "star":
+    if engine == "poa":
         raise NotImplementedError(
-            f"BAR msa engine {engine!r} (cactus_tpu/phases/bar.py:412-596) "
-            "is not ported to cactus_tpu_torch yet: see ROADMAP.md "
-            "(pair-HMM 5-state and POA kernels); use msa_engine='star' "
-            "with partial_order_alignment=True")
+            "BAR msa engine 'poa' (cactus_tpu/phases/bar.py:412-448) is not "
+            "ported to cactus_tpu_torch yet: see ROADMAP.md (the POA "
+            "kernels with ops/poa.py and the poa engine); use "
+            "msa_engine='star', or partial_order_alignment=False for the "
+            "pecan engine")
     poa: PoaParams = cfg.poa
     submat = score_matrix_6(poa.sub_matrix)
     gap = GapParams(poa.gap_open1, poa.gap_extend1)
@@ -256,6 +432,42 @@ def star_align_ends(per_end: dict[int, list[EndString]],
     def emit(m: EndString, b: EndString, i0: int, j0: int, ln: int):
         raw.append((m, b, i0, j0, ln))
 
+    pecan_pairs = []      # (member, member, t_len)
+    if engine == "pecan":
+        # poset MSA pair selection (reference makeFlowerAlignment ->
+        # cPecan makeAlignment, endAligner.c:87): spanningTrees
+        # edge-disjoint trees per end replace the star's
+        # member-vs-backbone jobs; every selected pair emits match
+        # runs, and the pinch graph's transitive column merge IS the
+        # poset combine — homology between non-backbone members no
+        # longer has to transit two backbone alignments
+        pec = cfg.pecan
+        by_band = {}
+        # members up to bandingLimit pecan-align when MUM anchoring can
+        # split their matrices (reference: adjacency sequences trimmed
+        # to bandingLimit=1e6 feed cPecan, flowerAligner.c;
+        # config :245); without anchors the full-matrix band explodes,
+        # so the POA-window cap stays
+        mcap = (min(cfg.banding_limit, cfg.max_end_string)
+                if pec.use_mum_anchors else poa.window)
+        for end, members in per_end.items():
+            if len(members) < 2:
+                continue
+            members = sorted(members,
+                             key=lambda e: (not is_ingroup(e),
+                                            -e.length()))
+            elig = [m for m in members if m.length() <= mcap]
+            if len(elig) < 2:
+                continue
+            for i, j in spanning_tree_pairs(
+                    [m.codes(gcodes) for m in elig],
+                    pec.spanning_trees,
+                    progressive=pec.use_progressive_merging):
+                a, b = elig[i], elig[j]
+                t_len = min(b.length(),
+                            a.length() + poa.band_constant // 4)
+                pecan_pairs.append((a, b, t_len))
+
     for band, group in by_band.items():
         pairs = [(m.codes(gcodes), b.codes(gcodes)[:t_len])
                  for m, b, t_len, _ in group]
@@ -272,6 +484,10 @@ def star_align_ends(per_end: dict[int, list[EndString]],
                     i += ln
                 else:
                     j += ln
+
+    if pecan_pairs:
+        _pecan_align(pecan_pairs, gcodes, cfg, max_band, est_identity, emit,
+                     device)
 
     if long_jobs:
         # strings beyond the POA window: banded windows with carry-over
@@ -306,6 +522,100 @@ def star_align_ends(per_end: dict[int, list[EndString]],
             # both reversed: forward pairing of the reversed intervals
             runs.append((ga, gb, ln, 1))
     return runs
+
+
+def _pecan_align(pecan_pairs, gcodes: np.ndarray, cfg: BarParams,
+                 max_band: int, est_identity: float | None, emit,
+                 device) -> None:
+    """The pecan engine's pair-HMM posterior matches (bar.c cPecan
+    branch), emitted as oriented runs.
+
+    Five-state machine by default (stateMachine5, bar.c:65); big matrices
+    split at MUM-chain anchors first (useMumAnchors /
+    splitMatrixBiggerThanThis semantics, config:276-285), then PIECES bin
+    by their own band requirement — so a 500 kb member costs narrow
+    anchored strips, never a member-sized band (reference pecan handles
+    adjacency sequences up to bandingLimit = 1 Mb)."""
+    pec = cfg.pecan
+    poa = cfg.poa
+    _check_pecan_knobs(pec)
+    pairs = [(m.codes(gcodes), b.codes(gcodes)[:t_len])
+             for m, b, t_len in pecan_pairs]
+    if pec.use_mum_anchors:
+        from ..ops.anchors import split_pair_by_mums
+        pieces = []      # (pair idx, q0, t0, qs, ts)
+        for gi, (qc, tc) in enumerate(pairs):
+            # matrices under anchorMatrixBiggerThanThis run without
+            # anchoring (cPecan semantics, config :278)
+            if max(len(qc), len(tc)) <= pec.anchor_matrix_bigger_than_this:
+                pieces.append((gi, 0, 0, qc, tc))
+                continue
+            for q0, t0, qs, ts in split_pair_by_mums(
+                    qc, tc, max_span=pec.split_matrix_bigger_than_this,
+                    recursive=pec.recursive_mums):
+                pieces.append((gi, q0, t0, qs, ts))
+    else:
+        pieces = [(gi, 0, 0, qc, tc) for gi, (qc, tc) in enumerate(pairs)]
+    # MEA acceptance honoring gapGamma (config :272): the decoder picks
+    # match over gap when p >= gapGamma*(1-p), i.e. p >=
+    # gapGamma/(1+gapGamma); matchGamma floors it
+    gamma_eff = max(pec.match_gamma, pec.gap_gamma / (1.0 + pec.gap_gamma))
+    # divergence-trained emissions (the last-train role,
+    # estimate_block_identity): the stock p_match=0.94 is a low-divergence
+    # model and its posteriors collapse at divergence ~0.4
+    pm = (float(np.clip(est_identity, 0.60, 0.95))
+          if est_identity is not None else 0.94)
+    piece_bins: dict[int, list] = {}
+    for gi, q0, t0, qs, ts in pieces:
+        la = len(qs)
+        if pec.use_banding:
+            need = abs(len(ts) - la) + max(
+                2 * pec.diagonal_expansion,
+                min(poa.band_constant + int(poa.band_fraction * la),
+                    max_band))
+        else:
+            need = max(len(qs), len(ts)) + 8
+        pband = 128
+        while pband <= need:
+            pband *= 2
+        piece_bins.setdefault(pband, []).append((gi, q0, t0, qs, ts))
+    hits = [[] for _ in pairs]
+    for pband, bin_pieces in piece_bins.items():
+        piece_pairs = [(qs, ts) for _g, _q, _t, qs, ts in bin_pieces]
+        if pec.five_state:
+            from ..ops.pairhmm5 import Hmm5Params, posterior_pairs_banded5
+            piece_hits = posterior_pairs_banded5(
+                piece_pairs, Hmm5Params(p_match=pm), band=pband,
+                gamma=gamma_eff, device=device)
+        else:
+            from ..ops.pairhmm import HmmParams, posterior_pairs_banded
+            piece_hits = posterior_pairs_banded(
+                piece_pairs, HmmParams(p_match=pm), band=pband,
+                gamma=gamma_eff, device=device)
+        for (gi, q0, t0, _qs, _ts), ph in zip(bin_pieces, piece_hits):
+            hits[gi].extend((i + q0, j + t0, p) for i, j, p in ph)
+    for h in hits:
+        h.sort()
+    if not pec.align_ambiguity_characters:
+        # drop pairs touching an N (alignAmbiguityCharacters=0)
+        hits = [[(i, j, p) for i, j, p in h
+                 if pairs[gi][0][i] < 4 and pairs[gi][1][j] < 4]
+                for gi, h in enumerate(hits)]
+    for (m, b, _t_len), matched in zip(pecan_pairs, hits):
+        # merge consecutive (i,j) hits into runs
+        start = None
+        for k, (i, j, _p) in enumerate(matched):
+            if (start is not None
+                    and i == matched[k - 1][0] + 1
+                    and j == matched[k - 1][1] + 1):
+                continue
+            if start is not None:
+                i0, j0 = matched[start][:2]
+                emit(m, b, i0, j0, matched[k - 1][0] - i0 + 1)
+            start = k
+        if start is not None:
+            i0, j0 = matched[start][:2]
+            emit(m, b, i0, j0, matched[-1][0] - i0 + 1)
 
 
 def _apply_best_cuts(raw, gap_pairs: list[GapPair]) -> None:
@@ -370,10 +680,13 @@ def run_bar(caf: CafResult, seqs: dict[str, Sequence],
             if name.split(".", 1)[0] in ingroup_events:
                 o = int(caf.table.offsets[i])
                 ingroup_seqs[o:o + int(caf.table.lengths[i])] = True
+    est_identity = None
+    if cfg.msa_engine == "pecan" or not cfg.partial_order_alignment:
+        est_identity = estimate_block_identity(caf, gcodes)
     bar_runs = star_align_ends(per_end, gcodes, cfg,
                                ingroup_seqs=ingroup_seqs,
                                gap_pairs=gaps if cfg.best_cut else None,
-                               device=device)
+                               est_identity=est_identity, device=device)
     caf_runs = blocks_to_match_edges(caf.blocks, caf.alive)
     bar_arr = (np.asarray(bar_runs, np.int64).reshape(-1, 4)
                if len(bar_runs) else np.zeros((0, 4), np.int64))

@@ -7,14 +7,16 @@ Run from the root of a checkout on a machine with one CUDA GPU and the
 CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
 
 1. Prints the card's name and power limit (nvidia-smi), builds every
-   CUDA kernel of the default `align` path from cactus_tpu_torch/csrc/
-   (one nvcc per source, in parallel) and the native C++ host kernels.
+   CUDA kernel of the port from cactus_tpu_torch/csrc/ (one nvcc per
+   source, in parallel) and the native C++ host kernels.
 2. Holds each kernel against its plain PyTorch version on the card:
    banded_dp at bands 128, 512, 2048 and 16384 with ragged pairs
    (bit-equal), banded_traceback against the host traceback_band
-   (equal), and pairhmm_fwd/pairhmm_bwd at bands 512 and 2048 with 4096
-   rows (posterior max |diff| <= HMM_ATOL).
-3. Runs the main path: the evolverMammals-scale regression of
+   (equal), pairhmm_fwd/pairhmm_bwd at bands 512 and 2048 with 4096
+   rows, and pairhmm5_fwd/pairhmm5_bwd at bands 1024, 2048 and 4096 with
+   pieces of up to 3000 rows and at band 16384 (posterior max |diff| <=
+   HMM_ATOL).
+3. Runs the default path: the evolverMammals-scale regression of
    tests/test_evolver_gate.py (the same 5-genome tree, root_len 600 kb,
    seed 41, tree_workers=2, default Config) through the port's
    ProgressiveAligner and MAF export, holds it to the gate's accuracy
@@ -22,10 +24,22 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    and checks that banded_dp, banded_traceback, pairhmm_fwd and
    pairhmm_bwd were launched.  The launch counts are set to 0 just before
    the run and read just after it.  Then it times each kernel and its
-   plain version with CUDA events on the largest inputs the main path
-   gave that kernel, beside the bound for the same work.
-4. Runs `python -m cactus_tpu_torch align` on a small two-genome seqfile
-   in a subprocess and checks that it writes a non-empty MAF.
+   plain version with CUDA events on the largest inputs the path gave
+   that kernel, beside the bound for the same work.
+4. Runs the pecan path (partialOrderAlignment off: the cPecan BAR engine
+   with the 5-state pair-HMM) on the human-dog leaf pair of the same
+   tree, seed 41: first at root_len 60 kb, held within PECAN_TOL of the
+   JAX package's CPU accuracy reading there, then at 600 kb, held to the
+   gate's per-pair floors (recall > 0.80, precision > 0.85).  Each run
+   sets the launch counts to 0 just before it and reads them just after,
+   and must have launched pairhmm5_fwd and pairhmm5_bwd; it prints the
+   wall, the per-phase split, the device's peak memory, the pair-HMM
+   cells and the widest band.  Then it times the two 5-state kernels and
+   their plain versions on the 600 kb run's largest inputs.
+5. Runs `python -m cactus_tpu_torch align` on a small two-genome seqfile
+   in subprocesses, with the default config and --maf, then with a pecan
+   config XML and --hal and --maf, and checks the MAFs and that the
+   port's HalArchive reads the HAL back and validates it.
 
 Prints one `{"kernels": [...]}` JSON line, and as its last line
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero without
@@ -51,6 +65,24 @@ EVOLVER_MAMMALS_NEWICK = (
     "((simHuman_chr6:0.144018,(simMouse_chr6:0.084509,"
     "simRat_chr6:0.091589)mr:0.271974)anc1:0.020593,"
     "(simCow_chr6:0.18908,simDog_chr6:0.16303)anc2:0.032898)root;")
+# the pecan path's input: the human-dog leaf pair of that tree (divergence
+# ~0.36, the regime where the reference prescribes cPecan)
+PECAN_NEWICK = "(simHuman_chr6:0.164611,simDog_chr6:0.195928)root;"
+PECAN_SMALL_LEN = 60_000
+PECAN_ROOT_LEN = 600_000
+# a CPU accuracy reading of the JAX package cactus_tpu, not of this port:
+# (recall, precision) of the pecan engine on PECAN_NEWICK at root_len
+# 60 kb, seed 41, default Config with partialOrderAlignment off
+# (`JAX_PLATFORMS=cpu python tests/pecan_accuracy_report.py 60000`)
+JAX_CPU_PECAN_60K = (0.9880, 0.9841)
+PECAN_TOL = 0.005
+PECAN_XML = ('<cactusWorkflowConfig>\n  <bar partialOrderAlignment="0"/>\n'
+             '</cactusWorkflowConfig>\n')
+# the kernels the default path launches (the 5-state ones run on the
+# pecan path)
+DEFAULT_KERNELS = ("banded_dp", "banded_traceback", "pairhmm_fwd",
+                   "pairhmm_bwd")
+PECAN_KERNELS = ("pairhmm5_fwd", "pairhmm5_bwd")
 # posterior tolerance: the posterior is exp(lsF + lsB - logZ), a
 # difference of float32 sums of per-row log-scales that reach ~1e4 over
 # 4096 rows, where one float32 ulp is ~1e-3; the kernels also sum the
@@ -88,7 +120,7 @@ def mutate(rng, q, sub=0.1, indel=0.04):
     return np.insert(out, ins, rng.integers(0, 4, len(ins))).astype(np.uint8)
 
 
-def ragged_pairs(seed, n, lo_len, hi_len, band):
+def ragged_pairs(seed, n, lo_len, hi_len, band, sub=0.1, indel=0.04):
     """Homologous pairs of ragged lengths whose length difference fits
     the band."""
     import numpy as np
@@ -97,7 +129,7 @@ def ragged_pairs(seed, n, lo_len, hi_len, band):
     while len(pairs) < n:
         q = rng.integers(0, 4, int(rng.integers(lo_len, hi_len))) \
             .astype(np.uint8)
-        t = mutate(rng, q)
+        t = mutate(rng, q, sub, indel)
         if abs(len(t) - len(q)) < band // 2:
             pairs.append((q, t))
     return pairs
@@ -111,11 +143,13 @@ def to_device(packed, dev):
 
 # ---------------------------------------------------------------- timing
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, warmup: bool = True) -> float:
     """Mean milliseconds of fn() over reps runs, by CUDA events, after one
-    warm-up run."""
+    warm-up run (warmup=False: none, for plain versions that take tens of
+    seconds and whose launches were warmed up before)."""
     import torch
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -208,8 +242,9 @@ def phase_kernels_vs_plain(dev, errs):
     import torch
     from cactus_tpu_torch.config import PoaParams
     from cactus_tpu_torch.ops import banded as tb
-    from cactus_tpu_torch.ops import banded_cuda, pairhmm_cuda
+    from cactus_tpu_torch.ops import banded_cuda, pairhmm5_cuda, pairhmm_cuda
     from cactus_tpu_torch.ops import pairhmm as tp
+    from cactus_tpu_torch.ops import pairhmm5 as tp5
 
     sub = tb.score_matrix_6(PoaParams().sub_matrix)
     sub_d = torch.from_numpy(sub).to(dev)
@@ -272,6 +307,42 @@ def phase_kernels_vs_plain(dev, errs):
         errs["pairhmm_fwd"] = max(errs.get("pairhmm_fwd", 0.0),
                                   float((fM - fM_r).abs().max()))
         errs["pairhmm_bwd"] = max(errs.get("pairhmm_bwd", 0.0), d_post)
+
+    # pecan pieces: a divergence-trained p_match, MUM-split pieces of up
+    # to 3000 rows at bands 1024-4096, and band 16384 (use_banding off)
+    p5 = tp5.Hmm5Params(p_match=0.7)
+    em5 = torch.from_numpy(p5.emissions()).to(dev)
+    for band, n, lo_len, hi_len in ((1024, 4, 1500, 3000),
+                                    (2048, 2, 2000, 3000),
+                                    (4096, 2, 2500, 3000),
+                                    (16384, 2, 600, 1000)):
+        pairs = ragged_pairs(band + 11, n, lo_len, hi_len, band,
+                             sub=0.2, indel=0.06)
+        packed = tb.pack_band_batch(pairs, band, min_batch=1)
+        args = to_device(packed, dev)
+        hk = dict(band=band, params=p5)
+        fM, lsF, logZ = pairhmm5_cuda.pairhmm5_fwd(*args, em5, **hk)
+        post = pairhmm5_cuda.pairhmm5_bwd(fM, lsF, logZ, *args, em5, **hk)
+        torch.cuda.synchronize()
+        fM_r, lsF_r, logZ_r = tp5.forward_banded5(*args, em5, **hk)
+        post_r = tp5.backward_posterior5(fM_r, lsF_r, logZ_r, *args, em5,
+                                         **hk)
+        if not bool(torch.isfinite(post).all()):
+            raise AssertionError(f"pairhmm5 band {band}: non-finite "
+                                 "posterior")
+        d_post = float((post - post_r).abs().max())
+        d_ls = float((lsF - lsF_r).abs().max())
+        log(f"pairhmm5 band {band} ({args[0].shape[0]} pairs x "
+            f"{args[0].shape[1]} rows, longest {int(args[2].max())}): "
+            f"posterior max|diff| {d_post:.3g} (tolerance {HMM_ATOL}), "
+            f"lsF max|diff| {d_ls:.3g}, max posterior "
+            f"{float(post.max()):.4f}")
+        if d_post > HMM_ATOL:
+            raise AssertionError(f"pairhmm5 band {band}: posterior differs "
+                                 f"by {d_post} > {HMM_ATOL}")
+        errs["pairhmm5_fwd"] = max(errs.get("pairhmm5_fwd", 0.0),
+                                   float((fM - fM_r).abs().max()))
+        errs["pairhmm5_bwd"] = max(errs.get("pairhmm5_bwd", 0.0), d_post)
 
 
 def phase_main_path(dev):
@@ -360,7 +431,7 @@ def phase_main_path(dev):
     log(f"banded cells (sum of query rows x band): {kernel_cells[0]} through "
         f"banded_dp, {native_cells[0]} through native C++; kernel share "
         f"{share:.4f}")
-    for name in cuda_build.KERNELS:
+    for name in DEFAULT_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
     if native_cells[0]:
@@ -408,6 +479,23 @@ def phase_main_path(dev):
     return launches, {r.name: r for r in recorders}
 
 
+def kernel_row(name, source, replaces, launches, errs, ms, plain_ms, bytes_,
+               ops, ops_rate, shape) -> dict:
+    """One entry of the kernels line; the bound is the larger of the bytes
+    over the memory rate and the operations over their peak rate."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    out = dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches[name], max_abs_err=errs.get(name, 0.0),
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, shape=shape)
+    log(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
 def measure(recorders, launches, errs, dev):
     """Each kernel and its plain version on the main path's largest
     inputs for it, beside the bound for the same work."""
@@ -420,17 +508,8 @@ def measure(recorders, launches, errs, dev):
 
     def row(name, source, replaces, ms, plain_ms, bytes_, ops, ops_rate,
             shape):
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / ops_rate * 1e3
-        rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=errs.get(name, 0.0),
-            ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, shape=shape))
-        log(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {max(t_bytes, t_ops):.4f} ms "
-            f"({rows[-1]['bound_by']})")
+        rows.append(kernel_row(name, source, replaces, launches, errs, ms,
+                               plain_ms, bytes_, ops, ops_rate, shape))
 
     # banded_dp
     (q, t, m, n, lo, sub), kw = recorders["banded_dp"].best
@@ -520,8 +599,184 @@ def measure(recorders, launches, errs, dev):
     return rows
 
 
+def phase_pecan(dev):
+    """The pecan path on the human-dog pair: 60 kb against the JAX
+    package's CPU reading, then 600 kb against the gate's floors."""
+    import torch
+    from cactus_tpu_torch import progressive
+    from cactus_tpu_torch.config import Config
+    from cactus_tpu_torch.io.fasta import Sequence
+    from cactus_tpu_torch.ops import cuda_build, pairhmm5_cuda
+    from cactus_tpu_torch.testutil import evolver
+    from cactus_tpu_torch.testutil.comparator import score_pairs
+    from cactus_tpu_torch.utils.trees import parse_newick
+
+    def run(root_len):
+        tree = parse_newick(PECAN_NEWICK)
+        t0 = time.time()
+        sim = evolver.simulate(tree, root_len=root_len, seed=41)
+        a, b = tree.leaf_names()
+        genomes = {ev: {f"{ev}.c": Sequence(f"{ev}.c", sim.genomes[ev].codes)}
+                   for ev in (a, b)}
+        log(f"pecan {root_len} bp: simulated {a} ({len(sim.genomes[a].codes)}"
+            f" bp) and {b} ({len(sim.genomes[b].codes)} bp) in "
+            f"{time.time() - t0:.1f} s")
+        cfg = Config.default()
+        cfg.bar.partial_order_alignment = False
+        work = {"cells": 0, "padded": 0, "band": 0, "calls": 0}
+        lock = threading.Lock()
+
+        def cells5(args, kw):
+            q, m = args[0], args[2]
+            with lock:
+                work["cells"] += int(m.sum()) * kw["band"]
+                work["padded"] += q.shape[0] * q.shape[1] * kw["band"]
+                work["band"] = max(work["band"], kw["band"])
+                work["calls"] += 1
+            return q.shape[0] * q.shape[1] * kw["band"]
+
+        recorders = [Recorder(pairhmm5_cuda, "pairhmm5_fwd", cells5),
+                     Recorder(pairhmm5_cuda, "pairhmm5_bwd",
+                              lambda a_, kw: a_[0].numel())]
+        for rec in recorders:
+            rec.install()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the counts go to 0 just before the path and are read just after
+        cuda_build.reset_launches()
+        t0 = time.time()
+        try:
+            result = progressive.ProgressiveAligner(
+                tree, genomes, config=cfg, device=dev,
+                log=lambda msg: print(f"  [pecan] {msg}", file=sys.stderr,
+                                      flush=True)).run()
+            torch.cuda.synchronize()
+        finally:
+            launches = cuda_build.launches()
+            for rec in recorders:
+                rec.remove()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        tm = result.steps["root"].timings
+        s = score_pairs(sim.truth_pairs_arr(a, b),
+                        progressive.leaf_pairs_arr(result, a, b))
+        kernel_ms = {r.name: r.device_ms() for r in recorders}
+        log(f"pecan {root_len} bp: ProgressiveAligner.run {wall:.1f} s wall "
+            "(blast/caf/bar/reference " + "/".join(
+                f"{tm[k]:.1f}" for k in ("blast", "caf", "bar", "reference"))
+            + f" s), device peak {peak / 1e6:.0f} MB allocated; recall "
+            f"{s.recall:.4f} precision {s.precision:.4f}")
+        log(f"pecan {root_len} bp: kernel launches {launches}; 5-state "
+            f"pair-HMM: {work['calls']} batches, {work['cells']} query-row x "
+            f"band cells ({work['padded']} padded), widest band "
+            f"{work['band']}; device time in the calls "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in kernel_ms.items()))
+        for name in PECAN_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"the pecan path at {root_len} bp never "
+                                     f"launched {name}")
+        return launches, {r.name: r for r in recorders}, s
+
+    _l, _r, s = run(PECAN_SMALL_LEN)
+    ref_r, ref_p = JAX_CPU_PECAN_60K
+    log(f"pecan {PECAN_SMALL_LEN} bp against the JAX package's CPU reading "
+        f"{ref_r:.4f} / {ref_p:.4f}: recall {s.recall - ref_r:+.4f}, "
+        f"precision {s.precision - ref_p:+.4f} (tolerance {PECAN_TOL})")
+    if (abs(s.recall - ref_r) > PECAN_TOL
+            or abs(s.precision - ref_p) > PECAN_TOL):
+        raise AssertionError(f"pecan {PECAN_SMALL_LEN} bp: {s} is not within "
+                             f"{PECAN_TOL} of the JAX package's CPU reading")
+    launches, recorders, s = run(PECAN_ROOT_LEN)
+    if not (s.recall > 0.80 and s.precision > 0.85):
+        raise AssertionError(f"pecan {PECAN_ROOT_LEN} bp below the gate's "
+                             f"per-pair floors: {s}")
+    return launches, recorders
+
+
+def hmm5_bytes(args, B):
+    """Bytes a 5-state pass reads and writes for the rows the pairs use:
+    q and the t_shift window of each used row, the per-pair scalars and
+    the emissions in; fM (fwd out, bwd in), lsF and logZ."""
+    q, m = args[0], args[2]
+    P = q.shape[0]
+    rows_, live = int(m.sum()), int((m > 0).sum())
+    return (rows_ + rows_ + live * B + 12 * P + 144, rows_ * B,
+            4 * rows_ + 4 * P)
+
+
+def measure_pecan(recorders, launches, errs):
+    """The 5-state kernels and their plain versions on the pecan path's
+    largest inputs, beside the bound for the same work."""
+    from cactus_tpu_torch.ops import pairhmm5 as tp5
+    from cactus_tpu_torch.ops import pairhmm5_cuda
+
+    args, kw = recorders["pairhmm5_fwd"].best
+    P, M = args[0].shape
+    B = kw["band"]
+    fwd = recorders["pairhmm5_fwd"].fn
+    bwd = recorders["pairhmm5_bwd"].fn
+    fM, lsF, logZ = fwd(*args, **kw)
+    post = bwd(fM, lsF, logZ, *args, **kw)
+    # the plain versions take tens of seconds here: each is run and timed
+    # once, and its output is the reference
+    plain = {}
+    plain_fwd_ms = time_ms(
+        lambda: plain.update(f=tp5.forward_banded5(*args, **kw)), 1,
+        warmup=False)
+    fM_r, lsF_r, logZ_r = plain["f"]
+    plain_bwd_ms = time_ms(
+        lambda: plain.update(b=tp5.backward_posterior5(fM_r, lsF_r, logZ_r,
+                                                       *args, **kw)), 1,
+        warmup=False)
+    d_post = float((post - plain["b"]).abs().max())
+    log(f"pairhmm5 on the pecan path's largest inputs ({P} pairs x {M} "
+        f"rows, band {B}): posterior max|diff| {d_post:.3g} (tolerance "
+        f"{HMM_ATOL})")
+    if d_post > HMM_ATOL:
+        raise AssertionError(f"pairhmm5 posterior differs by {d_post} on the "
+                             "pecan path's inputs")
+    errs["pairhmm5_bwd"] = max(errs.get("pairhmm5_bwd", 0.0), d_post)
+    errs["pairhmm5_fwd"] = max(errs.get("pairhmm5_fwd", 0.0),
+                               float((fM - fM_r).abs().max()))
+    del fM_r, lsF_r, logZ_r, post, plain
+    in_bytes, cells, scal = hmm5_bytes(args, B)
+    ms = time_ms(lambda: fwd(*args, **kw), 5)
+    rows = [kernel_row(
+        "pairhmm5_fwd", "cactus_tpu_torch/csrc/pairhmm5.cu",
+        "cactus_tpu/ops/pairhmm5_pallas.py:56", launches, errs, ms,
+        plain_fwd_ms, in_bytes + 4 * cells + scal,
+        pairhmm5_cuda.PAIRHMM5_FWD_FLOPS_PER_CELL * cells, FP32_OPS_PER_S,
+        [P, M, B])]
+    ms = time_ms(lambda: bwd(fM, lsF, logZ, *args, **kw), 5)
+    rows.append(kernel_row(
+        "pairhmm5_bwd", "cactus_tpu_torch/csrc/pairhmm5.cu",
+        "cactus_tpu/ops/pairhmm5_pallas.py:143", launches, errs, ms,
+        plain_bwd_ms, in_bytes + 4 * cells + scal + 4 * cells,
+        pairhmm5_cuda.PAIRHMM5_BWD_FLOPS_PER_CELL * cells, FP32_OPS_PER_S,
+        [P, M, B]))
+    log("no single PyTorch call computes the 5-state pair-HMM passes: "
+        "library_ms is null")
+    return rows
+
+
+def run_cli(argv, what):
+    """One `python -m cactus_tpu_torch` subprocess; raises unless it
+    exits 0."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "cactus_tpu_torch", *argv],
+                          cwd=HERE, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return time.time() - t0
+
+
 def phase_cli():
-    """`python -m cactus_tpu_torch align` on a two-genome seqfile."""
+    """`python -m cactus_tpu_torch align` on a two-genome seqfile: the
+    default config with --maf, then a pecan config XML with --hal and
+    --maf."""
+    from cactus_tpu_torch.hal_archive import HalArchive
     from cactus_tpu_torch.testutil import evolver
     from cactus_tpu_torch.utils.trees import parse_newick
     work = tempfile.mkdtemp(prefix="smoke_cli_",
@@ -532,19 +787,34 @@ def phase_cli():
                                root_len=20_000, seed=7)
         seqfile = evolver.write_seqfile(sim, work)
         maf = os.path.join(work, "out", "aln.maf")
-        t0 = time.time()
-        proc = subprocess.run(
-            [sys.executable, "-m", "cactus_tpu_torch", "align", seqfile,
-             os.path.join(work, "out"), "--maf", maf],
-            cwd=HERE, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"align exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-4000:]}")
+        secs = run_cli(["align", seqfile, os.path.join(work, "out"), "--maf",
+                        maf], "align")
         size = os.path.getsize(maf)
         if size <= 0:
             raise AssertionError("align wrote an empty MAF")
         log(f"python -m cactus_tpu_torch align: exit 0, {size} byte MAF, "
-            f"{time.time() - t0:.1f} s")
+            f"{secs:.1f} s")
+        xml = os.path.join(work, "pecan.xml")
+        with open(xml, "w") as fh:
+            fh.write(PECAN_XML)
+        out = os.path.join(work, "pecan")
+        maf = os.path.join(out, "aln.maf")
+        hal = os.path.join(out, "aln.hal")
+        secs = run_cli(["align", seqfile, out, "--config", xml, "--hal", hal,
+                        "--maf", maf], "align --config pecan.xml --hal")
+        size = os.path.getsize(maf)
+        if size <= 0:
+            raise AssertionError("align --config pecan.xml wrote an empty MAF")
+        arc = HalArchive.open(hal)
+        errs = arc.validate()
+        if sorted(arc.genomes()) != ["a", "b", "root"] or errs:
+            raise AssertionError(f"the HAL archive reads back as genomes "
+                                 f"{arc.genomes()}, validate {errs[:5]}")
+        stats = {r["genome"]: r["length"] for r in arc.stats()}
+        log(f"python -m cactus_tpu_torch align --config pecan.xml --hal "
+            f"--maf: exit 0, {size} byte MAF, {os.path.getsize(hal)} byte HAL "
+            f"read back by HalArchive (genome lengths {stats}, validate "
+            f"clean), {secs:.1f} s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -574,13 +844,19 @@ def main() -> int:
     log(f"phase 2 (kernels vs plain versions) {time.time() - t0:.1f} s")
     t0 = time.time()
     launches, recorders = phase_main_path(dev)
-    log(f"phase 3 (main path) {time.time() - t0:.1f} s")
+    log(f"phase 3 (default path) {time.time() - t0:.1f} s")
     t0 = time.time()
     rows = measure(recorders, launches, errs, dev)
     log(f"kernel timing {time.time() - t0:.1f} s")
     t0 = time.time()
+    p_launches, p_recorders = phase_pecan(dev)
+    log(f"phase 4 (pecan path) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    rows += measure_pecan(p_recorders, p_launches, errs)
+    log(f"5-state kernel timing {time.time() - t0:.1f} s")
+    t0 = time.time()
     phase_cli()
-    log(f"phase 4 (CLI) {time.time() - t0:.1f} s; total "
+    log(f"phase 5 (CLI) {time.time() - t0:.1f} s; total "
         f"{time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

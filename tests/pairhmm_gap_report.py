@@ -18,7 +18,13 @@ that locate the difference:
    arguments (by one ulp);
 4. the posterior gap, in ulps of the largest per-row log-scale sum: the
    posterior is fM*bM*exp(lsF + lsB - logZ), and any one-ulp change in a
-   summand can flip the rounding of those running float32 sums.
+   summand can flip the rounding of those running float32 sums;
+5. the same gap for the 5-state machine, on the inputs of
+   tests/test_torch_pairhmm5.py (these pairs and a 30 bp deletion)
+   (cactus_tpu/ops/pairhmm5.py::posterior_banded_batch5 against
+   cactus_tpu_torch/ops/pairhmm5.py::forward_banded5/backward_posterior5);
+6. the port's 5-state passes with degenerate parameters (no long gaps, no
+   switches) against its 3-state passes, in the same ulps.
 
 It imports both packages, as the tests do.
 """
@@ -42,8 +48,11 @@ import torch  # noqa: E402
 
 from cactus_tpu.ops import banded as jb  # noqa: E402
 from cactus_tpu.ops import pairhmm as jp  # noqa: E402
+from cactus_tpu.ops import pairhmm5 as j5  # noqa: E402
 from cactus_tpu_torch.ops import pairhmm as tp  # noqa: E402
+from cactus_tpu_torch.ops import pairhmm5 as t5  # noqa: E402
 from test_torch_pairhmm import KEYS, _pairs, log_scale_ulp  # noqa: E402
+from test_torch_pairhmm5 import _pairs as _pairs5  # noqa: E402
 
 
 @partial(jax.jit, static_argnames=("band", "delta", "epsilon"))
@@ -179,6 +188,52 @@ def main() -> None:
             print(f"4. pairs < {max_len} bp, band {band}, 12 seeds: "
                   f"posterior max |diff| {worst_abs:.3g}, at most "
                   f"{worst:.2f} ulp of the largest log-scale sum")
+
+    # 5. the 5-state posterior gap, same measure
+    p5 = t5.Hmm5Params()
+    em5 = p5.emissions()
+    em5t = torch.from_numpy(em5)
+    for max_len in (300, 40):
+        for band in (128, 256):
+            worst, worst_abs = 0.0, 0.0
+            for seed in range(12):
+                pk = jb.pack_band_batch(_pairs5(seed * 7 + band, 7, max_len),
+                                        band)
+                ref = np.asarray(j5.posterior_banded_batch5(
+                    *[pk[k] for k in KEYS], em5, band=band,
+                    params=j5.Hmm5Params()))
+                targs = [torch.from_numpy(pk[k]) for k in KEYS]
+                fM_t, lsF, logZ = t5.forward_banded5(*targs, em5t, band=band,
+                                                     params=p5)
+                got = t5.backward_posterior5(fM_t, lsF, logZ, *targs, em5t,
+                                             band=band, params=p5).numpy()
+                gap = float(np.abs(got - ref).max())
+                worst_abs = max(worst_abs, gap)
+                worst = max(worst, gap / log_scale_ulp(lsF, logZ, pk))
+            print(f"5. 5-state, pairs < {max_len} bp, band {band}, 12 seeds: "
+                  f"posterior max |diff| {worst_abs:.3g}, at most "
+                  f"{worst:.2f} ulp of the largest log-scale sum")
+
+    # 6. the degenerate 5-state machine against the 3-state one (port)
+    p5d = t5.Hmm5Params(match_continue=1.0 - 2.0 * p.delta,
+                        open_short=p.delta, open_long=1e-12,
+                        extend_short=p.epsilon, extend_long=1e-12,
+                        switch_sl=0.0, switch_ls=0.0, p_match=p.p_match)
+    band, worst = 128, 0.0
+    for seed in range(8):
+        pk = jb.pack_band_batch(_pairs5(seed, 5, 120), band)
+        targs = [torch.from_numpy(pk[k]) for k in KEYS]
+        fM_t, lsF, logZ = t5.forward_banded5(
+            *targs, torch.from_numpy(p5d.emissions()), band=band, params=p5d)
+        post5 = t5.backward_posterior5(
+            fM_t, lsF, logZ, *targs, torch.from_numpy(p5d.emissions()),
+            band=band, params=p5d)
+        post3 = tp.posterior_banded_batch(*targs, emt, band=band,
+                                          delta=p.delta, epsilon=p.epsilon)
+        worst = max(worst, float((post5 - post3).abs().max())
+                    / log_scale_ulp(lsF, logZ, pk))
+    print(f"6. degenerate 5-state vs 3-state (port), pairs < 120 bp, band "
+          f"{band}, 8 seeds: at most {worst:.2f} ulp")
 
 
 if __name__ == "__main__":

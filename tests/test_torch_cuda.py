@@ -7,10 +7,10 @@ one.  This file imports no jax, so it also runs where jax is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Banded DP outputs are bit-identical to the plain version.  Pair-HMM
-posteriors agree to HMM_ATOL: the kernels sum the in-row chains in
-another order than the plain version's Kogge-Stone scan, and the
-posterior is exp of a difference of float32 log-scale sums that reach
-~1e3 over 512 rows, where one ulp is ~6e-5.
+posteriors (3-state and 5-state) agree to HMM_ATOL: the kernels sum the
+in-row chains in another order than the plain version's Kogge-Stone scan,
+and the posterior is exp of a difference of float32 log-scale sums that
+reach ~1e3 over 512 rows, where one ulp is ~6e-5.
 """
 
 import numpy as np
@@ -19,8 +19,10 @@ import torch
 
 from cactus_tpu_torch.config import PoaParams
 from cactus_tpu_torch.ops import banded as tb
-from cactus_tpu_torch.ops import banded_cuda, cuda_build, pairhmm_cuda
+from cactus_tpu_torch.ops import (banded_cuda, cuda_build, pairhmm5_cuda,
+                                  pairhmm_cuda)
 from cactus_tpu_torch.ops import pairhmm as tp
+from cactus_tpu_torch.ops import pairhmm5 as tp5
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +134,35 @@ def test_pairhmm_kernels_match_plain(cuda, band):
     ref = tp.posterior_banded_batch(*[a.cpu() for a in args], em.cpu(), **kw)
     assert torch.isfinite(post).all()
     assert float((post.cpu() - ref).abs().max()) <= HMM_ATOL
+
+
+@pytest.mark.parametrize("band,n,max_len", [(128, 8, 300), (1024, 6, 900),
+                                            (2048, 4, 1500),
+                                            (16384, 2, 700)])
+def test_pairhmm5_kernels_match_plain(cuda, band, n, max_len):
+    pairs = _pairs(band + 5, n, max_len, band)
+    rng = np.random.default_rng(band)
+    q = rng.integers(0, 4, 160).astype(np.uint8)
+    pairs.append((q, np.concatenate([q[:70], q[100:]])))   # 30 bp deletion
+    _packed_np, args = _packed(pairs, band, cuda)
+    p = tp5.Hmm5Params(p_match=0.8)
+    em = torch.from_numpy(p.emissions()).to(cuda)
+    kw = dict(band=band, params=p)
+    # band 16384 keeps the state rows in global scratch, the others in
+    # shared memory
+    wide = pairhmm5_cuda._lib().pairhmm5_scratch_floats(band) > 0
+    assert wide == (band > 8192)
+    n0 = cuda_build.launches()
+    fM, lsF, logZ = pairhmm5_cuda.pairhmm5_fwd(*args, em, **kw)
+    post = pairhmm5_cuda.pairhmm5_bwd(fM, lsF, logZ, *args, em, **kw)
+    torch.cuda.synchronize()
+    n1 = cuda_build.launches()
+    assert n1["pairhmm5_fwd"] == n0["pairhmm5_fwd"] + 1
+    assert n1["pairhmm5_bwd"] == n0["pairhmm5_bwd"] + 1
+    fM_r, lsF_r, logZ_r = tp5.forward_banded5(*args, em, **kw)
+    ref = tp5.backward_posterior5(fM_r, lsF_r, logZ_r, *args, em, **kw)
+    assert torch.isfinite(post).all()
+    assert float((post - ref).abs().max()) <= HMM_ATOL
+    # the deletion pair keeps confident matches on both sides of the gap
+    row_best = post[len(pairs) - 1, :160].amax(dim=1).cpu().numpy()
+    assert np.median(row_best[:60]) > 0.7 and np.median(row_best[110:]) > 0.7

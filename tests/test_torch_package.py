@@ -32,7 +32,7 @@ VERBATIM = [
     "ops/paf_tools.py", "phases/caf.py", "phases/chunking.py",
     "phases/hal.py", "phases/maf_export.py", "store.py", "maf_tools.py",
     "preprocessor/headers.py", "testutil/evolver.py",
-    "testutil/comparator.py",
+    "testutil/comparator.py", "hal_archive.py",
 ]
 
 
@@ -41,7 +41,9 @@ def test_import_leaves_jax_and_cactus_tpu_out():
             "import cactus_tpu_torch, cactus_tpu_torch.cli, "
             "cactus_tpu_torch.progressive\n"
             "import cactus_tpu_torch.ops.banded_cuda, "
-            "cactus_tpu_torch.ops.pairhmm_cuda\n"
+            "cactus_tpu_torch.ops.pairhmm_cuda, "
+            "cactus_tpu_torch.ops.pairhmm5_cuda, "
+            "cactus_tpu_torch.hal_archive, cactus_tpu_torch.phases.bar\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cactus_tpu' or "
             "m.startswith('cactus_tpu.')]\n"
