@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-SOURCES = ("banded", "pairhmm", "pairhmm5")
+SOURCES = ("banded", "pairhmm", "pairhmm5", "poa")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the pair-HMMs keep each float32 multiply and add separately rounded, as
@@ -35,7 +35,8 @@ _BOUND: set[str] = set()
 
 # launches of each kernel, counted by its wrapper where it launches it
 KERNELS = ("banded_dp", "banded_traceback", "pairhmm_fwd", "pairhmm_bwd",
-           "pairhmm5_fwd", "pairhmm5_bwd")
+           "pairhmm5_fwd", "pairhmm5_bwd", "poa_linear", "poa_affine",
+           "poa_chain")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

@@ -35,9 +35,11 @@ Design here:
    selection and aligns each pair, split at MUM anchors, by pair-HMM
    posteriors (ops/pairhmm5.py, the 5-state CUDA kernels on a GPU).
 
-The partial-order ("poa") engine of the JAX package
-(cactus_tpu/phases/bar.py:412-448) is not ported yet: its POA kernels are
-queued in ROADMAP.md, and selecting it raises NotImplementedError.
+ - the poa engine (msa_engine='poa', reached through the Python API:
+   Config.bar.msa_engine) builds one partial-order MSA per end by
+   progressive POA (ops/poa.py::poa_msa_batch, the POA CUDA kernels on a
+   GPU: poa_chain for the chain graphs of round 1, poa_affine after) and
+   emits a match run for every pair of members sharing a column.
 """
 
 from __future__ import annotations
@@ -374,19 +376,12 @@ def star_align_ends(per_end: dict[int, list[EndString]],
     est_identity: the pecan engine's divergence-trained emission
     p_match (estimate_block_identity), clipped to [0.60, 0.95].
 
-    device: where the banded DP and the pair-HMM run (None = the current
-    CUDA device).
+    device: where the banded DP, the pair-HMMs and the POA DPs run (None =
+    the current CUDA device).
     """
     engine = cfg.msa_engine
     if not cfg.partial_order_alignment and engine == "star":
         engine = "pecan"   # reference semantics: POA off → cPecan path
-    if engine == "poa":
-        raise NotImplementedError(
-            "BAR msa engine 'poa' (cactus_tpu/phases/bar.py:412-448) is not "
-            "ported to cactus_tpu_torch yet: see ROADMAP.md (the POA "
-            "kernels with ops/poa.py and the poa engine); use "
-            "msa_engine='star', or partial_order_alignment=False for the "
-            "pecan engine")
     poa: PoaParams = cfg.poa
     submat = score_matrix_6(poa.sub_matrix)
     gap = GapParams(poa.gap_open1, poa.gap_extend1)
@@ -431,6 +426,45 @@ def star_align_ends(per_end: dict[int, list[EndString]],
 
     def emit(m: EndString, b: EndString, i0: int, j0: int, ln: int):
         raw.append((m, b, i0, j0, ln))
+
+    if engine == "poa":
+        # true partial-order MSA per end (abPOA-parity path): all member
+        # pairs sharing a column emit matches, not just member<->backbone.
+        # Members longer than the POA window go through the windowed
+        # pairwise path (long_jobs) like the other engines.
+        from ..ops.poa import poa_msa_batch
+        end_jobs = []
+        for end, members in per_end.items():
+            members = [m for m in members if m.length() <= poa.window]
+            if len(members) < 2:
+                continue
+            members = sorted(members, key=lambda e: -e.length())
+            end_jobs.append((members, [m.codes(gcodes) for m in members]))
+        # one batched launch per shape bin per progressive round (the
+        # per-flower OpenMP loop of bar.c:52 as batched device launches)
+        graphs = poa_msa_batch([sq for _m, sq in end_jobs], poa,
+                               device=device)
+        for (members, _sq), graph in zip(end_jobs, graphs):
+            matched = graph.match_runs_between_walks()
+            matched.sort()
+            prev = None
+            start = None
+            run_len = 0
+            for wi, pi, wj, pj in matched:
+                if (prev is not None and prev[0] == wi and prev[2] == wj
+                        and pi == prev[1] + 1 and pj == prev[3] + 1):
+                    run_len += 1
+                else:
+                    if prev is not None:
+                        emit(members[start[0]], members[start[2]],
+                             start[1], start[3], run_len)
+                    start = (wi, pi, wj, pj)
+                    run_len = 1
+                prev = (wi, pi, wj, pj)
+            if prev is not None:
+                emit(members[start[0]], members[start[2]],
+                     start[1], start[3], run_len)
+        by_band = {}
 
     pecan_pairs = []      # (member, member, t_len)
     if engine == "pecan":

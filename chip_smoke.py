@@ -40,6 +40,24 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    in subprocesses, with the default config and --maf, then with a pecan
    config XML and --hal and --maf, and checks the MAFs and that the
    port's HalArchive reads the HAL back and validates it.
+6. Holds the three POA kernels against their plain versions on the card,
+   bit for bit: poa_affine on bubbled DAGs with forward predecessors
+   (N 64-4096, bands 64, 512, 4096 and 16384, ragged queries, band
+   offsets jumping by up to 3), poa_chain on chains with source pad nodes
+   (the dominant bin P 16,000 x N 64 x B 64, offsets stepping by 0/1, and
+   band 16384 on its global row ring) and poa_linear up to L 2048.
+7. Runs the poa path (BAR msa_engine="poa") on the evolverMammals tree at
+   600 kb, seed 41, tree_workers=2, and on a 4-leaf star tree at 200 kb,
+   seed 41, each held to the gate's bar and within POA_TOL of the JAX
+   package's CPU reading (tests/poa_accuracy_report.py); the first must
+   launch poa_chain, the second poa_affine and poa_chain.  Each run sets
+   the launch counts to 0 just before it and reads them just after, and
+   prints the wall, the per-phase split, the device's peak memory, the
+   problems and the cells used vs padded, and the largest Nb and B.  Then
+   poa_msa without params (the linear-gap DP) on seeded groups must
+   launch poa_linear and build the graphs the CPU run builds.  Then it
+   times the three POA kernels and their plain versions on the largest
+   inputs their paths gave them.
 
 Prints one `{"kernels": [...]}` JSON line, and as its last line
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero without
@@ -83,6 +101,23 @@ PECAN_XML = ('<cactusWorkflowConfig>\n  <bar partialOrderAlignment="0"/>\n'
 DEFAULT_KERNELS = ("banded_dp", "banded_traceback", "pairhmm_fwd",
                    "pairhmm_bwd")
 PECAN_KERNELS = ("pairhmm5_fwd", "pairhmm5_bwd")
+# the poa path's inputs: the evolverMammals tree (every BAR end has two
+# members, so only progressive round 1 runs, on chain graphs) and a
+# 4-leaf star (ends of 3-4 members: rounds 2-3 align against bubbled
+# graphs), with the kernels each must launch
+POA_STAR_NEWICK = ("(simHuman_chr6:0.144018,simCow_chr6:0.18908,"
+                   "simDog_chr6:0.16303,simMouse_chr6:0.3)root;")
+POA_RUNS = {
+    "mammals": (EVOLVER_MAMMALS_NEWICK, 600_000, 2, ("poa_chain",)),
+    "star": (POA_STAR_NEWICK, 200_000, 1, ("poa_affine", "poa_chain")),
+}
+# CPU accuracy readings of the JAX package cactus_tpu, not of this port:
+# the average of mean pairwise recall and precision of the poa engine on
+# each input, seed 41 (`JAX_PLATFORMS=cpu python
+# tests/poa_accuracy_report.py`)
+JAX_CPU_POA_AVG = {"mammals": 0.9488, "star": 0.9693}
+POA_TOL = 0.005
+POA_GAPS = dict(o1=400, e1=30, o2=1200, e2=1)
 # posterior tolerance: the posterior is exp(lsF + lsB - logZ), a
 # difference of float32 sums of per-row log-scales that reach ~1e4 over
 # 4096 rows, where one float32 ulp is ~1e-3; the kernels also sum the
@@ -759,6 +794,365 @@ def measure_pecan(recorders, launches, errs):
     return rows
 
 
+# ---------------------------------------------------------------- POA
+
+def poa_dag(rng, n, branchy=0.3, forward=2):
+    """A bubbled DAG whose node order is not topological: `forward`
+    predecessors point at higher indices, as add_alignment makes them."""
+    import numpy as np
+    bases = rng.integers(0, 4, n).astype(np.uint8)
+    preds = np.full((n, 4), -1, np.int32)
+    for v in range(1, n):
+        preds[v, 0] = v - 1
+        k = 1
+        while k < 4 and v > 2 and rng.random() < branchy:
+            preds[v, k] = int(rng.integers(0, v - 1))
+            k += 1
+    for _ in range(forward):
+        v = int(rng.integers(1, n - 2))
+        free = np.flatnonzero(preds[v] < 0)
+        if len(free):
+            preds[v, free[0]] = int(rng.integers(v + 1, n))
+    return bases, preds
+
+
+def poa_batch(seed, P, n, l, band, chain):
+    """P problems with ragged queries (l, l-7, ...) padded to l+1 codes:
+    chains followed by source pad nodes with band offsets stepping by 0
+    or 1, or bubbled DAGs with offsets jumping by up to 3, where the band
+    is narrower than the query."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    bases = np.zeros((P, n), np.uint8)
+    preds = np.full((P, n, 4), -1, np.int32)
+    off = np.zeros((P, n), np.int32)
+    q_ext = np.full((P, l + 1), 5, np.uint8)
+    l_len = np.zeros(P, np.int32)
+    for i in range(P):
+        li = max(1, l - 7 * (i % 8))
+        if chain:
+            real = max(1, n - 5 * (i % 8))
+            bases[i, :real] = rng.integers(0, 4, real)
+            preds[i, 1:real, 0] = np.arange(real - 1)
+        else:
+            bases[i], preds[i] = poa_dag(rng, n)
+        q_ext[i, 1:li + 1] = rng.integers(0, 4, li)
+        l_len[i] = li
+        if band < li + 1:
+            steps = rng.integers(0, 2 if chain else 4, n)
+            steps[0] = 0
+            off[i] = np.minimum(np.cumsum(steps), li + 1 - band)
+    return bases, preds, off, q_ext, l_len
+
+
+def phase_poa_kernels_vs_plain(dev, errs):
+    """The three POA kernels against their plain versions, bit for bit."""
+    import numpy as np
+    import torch
+    from cactus_tpu_torch.config import PoaParams
+    from cactus_tpu_torch.ops import banded as tb
+    from cactus_tpu_torch.ops import poa as tpoa
+    from cactus_tpu_torch.ops import poa_cuda
+
+    sub = torch.from_numpy(tb.score_matrix_6(PoaParams().sub_matrix)).to(dev)
+    cases = [  # kernel, P, N, L, B
+        ("poa_affine", 8, 64, 60, 64), ("poa_affine", 4, 512, 500, 512),
+        ("poa_affine", 3, 1024, 3000, 512),
+        ("poa_affine", 1, 4096, 3000, 4096),
+        ("poa_affine", 1, 2048, 10000, 16384),
+        ("poa_chain", 16000, 64, 63, 64),
+        ("poa_chain", 64, 200, 900, 128), ("poa_chain", 4, 1024, 3000, 512),
+        ("poa_chain", 1, 512, 9000, 16384)]
+    for k, (name, P, n, l, band) in enumerate(cases):
+        inputs = poa_batch(k, P, n, l, band, chain=name == "poa_chain")
+        if poa_cuda.chain_certified(inputs[1], inputs[2]) != (
+                name == "poa_chain"):
+            raise AssertionError(f"{name} case {k}: wrong certificate")
+        args = [torch.from_numpy(x).to(dev) for x in inputs] + [sub]
+        got = getattr(poa_cuda, name)(*args, band=band, **POA_GAPS)
+        torch.cuda.synchronize()
+        ref = tpoa.poa_align_scan_affine(*args, band=band, **POA_GAPS)
+        for what, g, r in zip(("H", "dirs", "ends"), got, ref):
+            if not torch.equal(g, r):
+                raise AssertionError(f"{name} P {P} N {n} L {l} B {band}: "
+                                     f"{what} differs from the plain version")
+        errs[name] = 0.0
+        log(f"{name} ({P} problems x {n} nodes, L up to {l}, band {band}): "
+            "H, dirs and ends bit-equal")
+    for n, l, seed in ((64, 100, 1), (1024, 2048, 2)):
+        rng = np.random.default_rng(seed)
+        bases, preds = poa_dag(rng, n, forward=4)
+        q = rng.integers(0, 4, l).astype(np.uint8)
+        args = [torch.from_numpy(x).to(dev) for x in (bases, preds, q)]
+        kw = dict(gap=30, match=10, mismatch=-15)
+        got = poa_cuda.poa_linear(*args, **kw)
+        torch.cuda.synchronize()
+        ref = tpoa.poa_align_scan(*args, **kw)
+        for what, g, r in zip(("H", "dirs", "ends"), got, ref):
+            if not torch.equal(g, r):
+                raise AssertionError(f"poa_linear N {n} L {l}: {what} "
+                                     "differs from the plain version")
+        errs["poa_linear"] = 0.0
+        log(f"poa_linear ({n} nodes, L {l}): H, dirs and ends bit-equal")
+
+
+def _score_all_pairs(sim, result, leaves, what):
+    """(average, recalls, precisions) over every leaf pair, each pair
+    held to the gate's floors."""
+    import numpy as np
+    from cactus_tpu_torch import progressive
+    from cactus_tpu_torch.testutil.comparator import score_pairs
+    recalls, precisions = [], []
+    for i in range(len(leaves)):
+        for j in range(i + 1, len(leaves)):
+            a, b = leaves[i], leaves[j]
+            s = score_pairs(sim.truth_pairs_arr(a, b),
+                            progressive.leaf_pairs_arr(result, a, b))
+            log(f"  {what} {a} ~ {b}: recall {s.recall:.4f} precision "
+                f"{s.precision:.4f}")
+            recalls.append(s.recall)
+            precisions.append(s.precision)
+            if not (s.recall > 0.80 and s.precision > 0.85):
+                raise AssertionError(f"{what} pair {a}~{b} below the gate: "
+                                     f"{s}")
+    avg = (float(np.mean(recalls)) + float(np.mean(precisions))) / 2
+    return avg, recalls, precisions
+
+
+def phase_poa(dev):
+    """The poa engine on the evolverMammals tree and on the star tree."""
+    import torch
+    from cactus_tpu_torch import progressive
+    from cactus_tpu_torch.config import Config
+    from cactus_tpu_torch.io.fasta import Sequence
+    from cactus_tpu_torch.ops import cuda_build, poa_cuda
+    from cactus_tpu_torch.ops import poa as tpoa
+    from cactus_tpu_torch.testutil import evolver
+    from cactus_tpu_torch.utils.trees import parse_newick
+
+    def cells_poa(args, kw):
+        P, N = args[0].shape
+        return P * N * kw["band"]
+
+    all_launches, recorders = {}, {}
+    for name, (nwk, root_len, workers, must) in POA_RUNS.items():
+        tree = parse_newick(nwk)
+        t0 = time.time()
+        sim = evolver.simulate(tree, root_len=root_len, seed=41)
+        leaves = tree.leaf_names()
+        genomes = {ev: {f"{ev}.c": Sequence(f"{ev}.c", sim.genomes[ev].codes)}
+                   for ev in leaves}
+        log(f"poa {name}: simulated {len(leaves)} genomes from a {root_len} "
+            f"bp root in {time.time() - t0:.1f} s")
+        cfg = Config.default()
+        cfg.bar.msa_engine = "poa"
+        work = {"problems": 0, "used": 0, "padded": 0, "Nb": 0, "B": 0}
+        lock = threading.Lock()
+        prepare = tpoa._affine_prepare
+
+        def prepare_spy(graph, seq, *a, **kw):
+            out = prepare(graph, seq, *a, **kw)
+            with lock:
+                work["problems"] += 1
+                work["used"] += out["N"] * min(out["B"], out["L"] + 1)
+                work["padded"] += out["Nb"] * out["B"]
+                work["Nb"] = max(work["Nb"], out["Nb"])
+                work["B"] = max(work["B"], out["B"])
+            return out
+
+        recs = [Recorder(poa_cuda, k, cells_poa)
+                for k in ("poa_chain", "poa_affine")]
+        for rec in recs:
+            rec.install()
+        tpoa._affine_prepare = prepare_spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the counts go to 0 just before the path and are read just after
+        cuda_build.reset_launches()
+        t0 = time.time()
+        try:
+            result = progressive.ProgressiveAligner(
+                tree, genomes, config=cfg, tree_workers=workers, device=dev,
+                log=lambda msg: print(f"  [poa {name}] {msg}",
+                                      file=sys.stderr, flush=True)).run()
+            torch.cuda.synchronize()
+        finally:
+            launches = cuda_build.launches()
+            tpoa._affine_prepare = prepare
+            for rec in recs:
+                rec.remove()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"poa {name}: ProgressiveAligner.run {wall:.1f} s wall, device "
+            f"peak {peak / 1e6:.0f} MB allocated, kernel launches "
+            f"{launches}")
+        for ev, st in result.steps.items():
+            tm = st.timings
+            log(f"  step {ev}: " + " ".join(
+                f"{k}={tm[k]:.1f}s" for k in ("blast", "caf", "bar",
+                                              "reference")))
+        log(f"poa {name}: {work['problems']} POA problems, "
+            f"{work['used']} cells used (real nodes x min(B, L+1)) of "
+            f"{work['padded']} padded (P x Nb x B, "
+            f"{work['used'] / max(1, work['padded']):.1%}); largest Nb "
+            f"{work['Nb']}, largest B {work['B']}; device time in the calls "
+            + ", ".join(f"{r.name} {r.device_ms():.1f} ms" for r in recs))
+        for k in must:
+            if launches[k] <= 0:
+                raise AssertionError(f"the poa {name} path never launched "
+                                     f"{k}")
+        avg, _r, _p = _score_all_pairs(sim, result, leaves, f"poa {name}")
+        ref = JAX_CPU_POA_AVG[name]
+        log(f"poa {name}: average {avg:.4f} against the JAX package's CPU "
+            f"reading {ref:.4f} ({avg - ref:+.4f}, tolerance {POA_TOL}; gate "
+            ">= 0.89)")
+        if avg < 0.89 or abs(avg - ref) > POA_TOL:
+            raise AssertionError(f"poa {name}: average {avg:.4f} is below "
+                                 f"0.89 or not within {POA_TOL} of {ref}")
+        # a kernel's launches and timed input come from the first run
+        # that must launch it (poa_chain: the evolverMammals path)
+        for rec in recs:
+            if rec.name in must and rec.name not in recorders:
+                all_launches[rec.name] = launches[rec.name]
+                recorders[rec.name] = rec
+    return all_launches, recorders
+
+
+def phase_poa_linear(dev):
+    """poa_msa without params (the linear-gap DP, kernel 5) on seeded
+    groups of 3-6 related sequences: it must launch poa_linear and build
+    the graphs the CPU run builds."""
+    import numpy as np
+    import torch
+    from cactus_tpu_torch.ops import cuda_build, poa_cuda
+    from cactus_tpu_torch.ops import poa as tpoa
+
+    rng = np.random.default_rng(41)
+    groups = []
+    for _ in range(4):
+        root = rng.integers(0, 4, int(rng.integers(100, 400))).astype(np.uint8)
+        groups.append([mutate(rng, root, sub=0.05, indel=0.03)
+                       for _m in range(int(rng.integers(3, 7)))])
+    rec = Recorder(poa_cuda, "poa_linear",
+                   lambda a, kw: a[0].shape[0] * (a[2].shape[0] + 1))
+    rec.install()
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.time()
+    try:
+        graphs = [tpoa.poa_msa(g, device=dev) for g in groups]
+        torch.cuda.synchronize()
+    finally:
+        launches = cuda_build.launches()
+        rec.remove()
+    wall = time.time() - t0
+    if launches["poa_linear"] <= 0:
+        raise AssertionError("poa_msa without params never launched "
+                             "poa_linear")
+    for g, seqs in zip(graphs, groups):
+        c = tpoa.poa_msa(seqs, device="cpu")
+        if not (g.bases == c.bases and g.preds == c.preds
+                and g.group_of == c.group_of and len(g.walks) == len(c.walks)
+                and all(np.array_equal(a, b)
+                        for a, b in zip(g.walks, c.walks))):
+            raise AssertionError("poa_msa on the card built another graph "
+                                 "than on the CPU")
+    log(f"poa_msa without params: {len(groups)} groups of "
+        f"{[len(g) for g in groups]} sequences in {wall:.1f} s, "
+        f"{launches['poa_linear']} poa_linear launches, graphs (bases, "
+        "preds, groups, walks) identical to the CPU run's")
+    return {"poa_linear": launches["poa_linear"]}, {"poa_linear": rec}
+
+
+def poa_used(args, band):
+    """Per problem of an affine POA launch: the real nodes (up to its
+    last node with a predecessor: pad nodes are sources at the end),
+    min(B, L+1) columns, and the predecessors past the first over the
+    real nodes."""
+    import torch
+    preds, l_len = args[1], args[4]
+    N = preds.shape[1]
+    idx = torch.arange(N, device=preds.device)
+    has = (preds >= 0).any(dim=2)
+    real = torch.where(has, idx, 0).amax(dim=1) + 1
+    cols = torch.clamp(l_len.long() + 1, max=band)
+    extra = ((preds >= 0).sum(dim=2) - 1).clamp(min=0)
+    extra = torch.where(idx[None, :] < real[:, None], extra, 0).sum(dim=1)
+    return real, cols, extra
+
+
+def measure_poa(recorders, launches, errs):
+    """The three POA kernels and their plain versions on the largest
+    inputs their paths gave them, beside the bound for the same work."""
+    import torch
+    from cactus_tpu_torch.ops import poa as tpoa
+    from cactus_tpu_torch.ops import poa_cuda
+
+    rows = []
+    for name in ("poa_affine", "poa_chain"):
+        args, kw = recorders[name].best
+        P, N = args[0].shape
+        B = kw["band"]
+        fn = recorders[name].fn
+        got = fn(*args, **kw)
+        plain = {}
+        plain_ms = time_ms(lambda: plain.update(
+            r=tpoa.poa_align_scan_affine(*args, **kw)), 1, warmup=False)
+        for g, r in zip(got, plain["r"]):
+            if not torch.equal(g, r):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     "on its path's largest input")
+        errs[name] = 0.0
+        del got, plain
+        ms = time_ms(lambda: fn(*args, **kw), 10)
+        real, cols, extra = poa_used(args, B)
+        cells = int((real * cols).sum())
+        # bases, preds, off per real node, the query codes, the lengths and
+        # the matrix in; H and dirs of the used cells and ends out
+        bytes_ = (int(real.sum()) * (1 + 16 + 4 + 4) + int(cols.sum())
+                  + 4 * P + 144
+                  + cells * poa_cuda.POA_AFFINE_OUT_BYTES_PER_CELL)
+        ops = (poa_cuda.POA_AFFINE_OPS_PER_CELL * cells
+               + poa_cuda.POA_AFFINE_OPS_PER_EXTRA_PRED
+               * int((extra * cols).sum()))
+        line = {"poa_affine": "cactus_tpu/ops/poa_pallas.py:397",
+                "poa_chain": "cactus_tpu/ops/poa_pallas.py:915"}[name]
+        rows.append(kernel_row(name, "cactus_tpu_torch/csrc/poa.cu", line,
+                               launches, errs, ms, plain_ms, bytes_, ops,
+                               INT32_OPS_PER_S, [P, N, B]))
+        log(f"{name}: {cells} cells used of {P * N * B} computed")
+
+    (bases, preds, q), kw = recorders["poa_linear"].best
+    fn = recorders["poa_linear"].fn
+    got = fn(bases, preds, q, **kw)
+    plain = {}
+    plain_ms = time_ms(lambda: plain.update(
+        r=tpoa.poa_align_scan(bases, preds, q, **kw)), 1, warmup=False)
+    for g, r in zip(got, plain["r"]):
+        if not torch.equal(g, r):
+            raise AssertionError("poa_linear differs from its plain version "
+                                 "on its path's largest input")
+    errs["poa_linear"] = 0.0
+    ms = time_ms(lambda: fn(bases, preds, q, **kw), 20)
+    N = int(((preds >= 0).any(dim=1).nonzero().max()) + 1)
+    L = int((q != 5).nonzero().max()) + 1
+    slots = int((preds[:N] >= 0).sum(dim=1).clamp(min=1).sum())
+    cells = N * (L + 1)
+    row = kernel_row(
+        "poa_linear", "cactus_tpu_torch/csrc/poa.cu",
+        "cactus_tpu/ops/poa_pallas.py:42", launches, errs, ms, plain_ms,
+        N * (1 + 16) + L + cells * poa_cuda.POA_LINEAR_OUT_BYTES_PER_CELL
+        + 4 * N,
+        poa_cuda.POA_LINEAR_OPS_PER_CELL * cells
+        + poa_cuda.POA_LINEAR_OPS_PER_PRED * slots * (L + 1),
+        INT32_OPS_PER_S, [int(bases.shape[0]), int(q.shape[0]) + 1])
+    rows.append(row)
+    log(f"poa_linear: {cells} cells used of "
+        f"{bases.shape[0] * (q.shape[0] + 1)} computed")
+    log("no single PyTorch call computes a POA DP: library_ms is null")
+    return rows
+
+
 def run_cli(argv, what):
     """One `python -m cactus_tpu_torch` subprocess; raises unless it
     exits 0."""
@@ -856,7 +1250,18 @@ def main() -> int:
     log(f"5-state kernel timing {time.time() - t0:.1f} s")
     t0 = time.time()
     phase_cli()
-    log(f"phase 5 (CLI) {time.time() - t0:.1f} s; total "
+    log(f"phase 5 (CLI) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_poa_kernels_vs_plain(dev, errs)
+    log(f"phase 6 (POA kernels vs plain versions) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    poa_launches, poa_recorders = phase_poa(dev)
+    lin_launches, lin_recorders = phase_poa_linear(dev)
+    log(f"phase 7 (poa path) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    rows += measure_poa({**poa_recorders, **lin_recorders},
+                        {**poa_launches, **lin_launches}, errs)
+    log(f"POA kernel timing {time.time() - t0:.1f} s; total "
         f"{time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

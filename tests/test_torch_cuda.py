@@ -6,7 +6,7 @@ one.  This file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Banded DP outputs are bit-identical to the plain version.  Pair-HMM
+Banded DP and POA outputs are bit-identical to the plain versions.  Pair-HMM
 posteriors (3-state and 5-state) agree to HMM_ATOL: the kernels sum the
 in-row chains in another order than the plain version's Kogge-Stone scan,
 and the posterior is exp of a difference of float32 log-scale sums that
@@ -20,7 +20,7 @@ import torch
 from cactus_tpu_torch.config import PoaParams
 from cactus_tpu_torch.ops import banded as tb
 from cactus_tpu_torch.ops import (banded_cuda, cuda_build, pairhmm5_cuda,
-                                  pairhmm_cuda)
+                                  pairhmm_cuda, poa_cuda)
 from cactus_tpu_torch.ops import pairhmm as tp
 from cactus_tpu_torch.ops import pairhmm5 as tp5
 
@@ -166,3 +166,84 @@ def test_pairhmm5_kernels_match_plain(cuda, band, n, max_len):
     # the deletion pair keeps confident matches on both sides of the gap
     row_best = post[len(pairs) - 1, :160].amax(dim=1).cpu().numpy()
     assert np.median(row_best[:60]) > 0.7 and np.median(row_best[110:]) > 0.7
+
+
+def _poa_dag(rng, n, branchy=0.3, forward=2):
+    """A bubbled DAG whose node order is not topological (`forward`
+    predecessors point at higher indices, as add_alignment makes them)."""
+    bases = rng.integers(0, 4, n).astype(np.uint8)
+    preds = np.full((n, 4), -1, np.int32)
+    for v in range(1, n):
+        preds[v, 0] = v - 1
+        k = 1
+        while k < 4 and v > 2 and rng.random() < branchy:
+            preds[v, k] = int(rng.integers(0, v - 1))
+            k += 1
+    for _ in range(forward):
+        v = int(rng.integers(1, n - 2))
+        free = np.flatnonzero(preds[v] < 0)
+        if len(free):
+            preds[v, free[0]] = int(rng.integers(v + 1, n))
+    return bases, preds
+
+
+@pytest.mark.parametrize("n,l", [(64, 40), (200, 300), (96, 1000)])
+def test_poa_linear_matches_plain(cuda, n, l):
+    rng = np.random.default_rng(n + l)
+    bases, preds = _poa_dag(rng, n)
+    q = rng.integers(0, 4, l).astype(np.uint8)
+    args = [torch.from_numpy(x).to(cuda) for x in (bases, preds, q)]
+    kw = dict(gap=30, match=10, mismatch=-15)
+    n0 = cuda_build.launches()["poa_linear"]
+    got = poa_cuda.poa_linear(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()["poa_linear"] == n0 + 1
+    ref = poa_cuda.poa_linear(*[a.cpu() for a in args], **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+def _poa_batch(rng, P, n, l, band, chain):
+    """Ragged queries, band offsets with steps 0/1 (chain) or up to 3
+    (general) where band < L+1, chains followed by source pad nodes."""
+    bases = np.zeros((P, n), np.uint8)
+    preds = np.full((P, n, 4), -1, np.int32)
+    off = np.zeros((P, n), np.int32)
+    q_ext = np.full((P, l + 1), 5, np.uint8)
+    l_len = np.zeros(P, np.int32)
+    for i in range(P):
+        li = max(1, l - 7 * i)
+        if chain:
+            real = max(1, n - 5 * i)
+            bases[i, :real] = rng.integers(0, 4, real)
+            preds[i, 1:real, 0] = np.arange(real - 1)
+        else:
+            bases[i], preds[i] = _poa_dag(rng, n)
+        q_ext[i, 1:li + 1] = rng.integers(0, 4, li)
+        l_len[i] = li
+        if band < li + 1:
+            steps = rng.integers(0, 2 if chain else 4, n)
+            steps[0] = 0
+            off[i] = np.minimum(np.cumsum(steps), li + 1 - band)
+    return bases, preds, off, q_ext, l_len
+
+
+@pytest.mark.parametrize("kernel,P,n,l,band", [
+    ("poa_affine", 6, 64, 50, 64), ("poa_affine", 3, 128, 600, 256),
+    ("poa_affine", 2, 96, 300, 512), ("poa_chain", 40, 64, 60, 64),
+    ("poa_chain", 5, 200, 900, 128), ("poa_chain", 2, 24, 200, 16384)])
+def test_poa_affine_kernels_match_plain(cuda, kernel, P, n, l, band):
+    rng = np.random.default_rng(P * n + band)
+    inputs = _poa_batch(rng, P, n, l, band, chain=kernel == "poa_chain")
+    assert poa_cuda.chain_certified(inputs[1], inputs[2]) == (
+        kernel == "poa_chain")
+    args = [torch.from_numpy(x).to(cuda) for x in inputs]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    kw = dict(band=band, o1=400, e1=30, o2=1200, e2=1)
+    n0 = cuda_build.launches()[kernel]
+    got = getattr(poa_cuda, kernel)(*args, sub, **kw)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()[kernel] == n0 + 1
+    ref = poa_cuda.poa_affine(*[a.cpu() for a in args], sub.cpu(), **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)

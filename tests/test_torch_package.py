@@ -43,6 +43,7 @@ def test_import_leaves_jax_and_cactus_tpu_out():
             "import cactus_tpu_torch.ops.banded_cuda, "
             "cactus_tpu_torch.ops.pairhmm_cuda, "
             "cactus_tpu_torch.ops.pairhmm5_cuda, "
+            "cactus_tpu_torch.ops.poa, cactus_tpu_torch.ops.poa_cuda, "
             "cactus_tpu_torch.hal_archive, cactus_tpu_torch.phases.bar\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cactus_tpu' or "
