@@ -315,7 +315,7 @@ def _align_pairs_cuda(pairs, submat, gap: GapParams, band: int,
     batch of short ones (each pair's result is independent of its
     batch), and each group is split so its direction tensor stays under
     max_batch_bytes."""
-    from .banded_cuda import banded_dp, banded_traceback
+    from .banded_cuda import banded_dp, banded_traceback, live_width
     bins: dict[int, list[int]] = {}
     for k, (q, _t) in enumerate(pairs):
         rows = max(32, 1 << (max(1, len(q)) - 1).bit_length())
@@ -327,10 +327,15 @@ def _align_pairs_cuda(pairs, submat, gap: GapParams, band: int,
         for c in range(0, len(idxs), max_pairs):
             chunk = idxs[c:c + max_pairs]
             batch = [pairs[k] for k in chunk]
-            t = _to_device(pack_band_batch(batch, band), len(batch), dev)
+            packed = pack_band_batch(batch, band)
+            # the kernel sizes its blocks by the widest live row, taken
+            # here from the host arrays
+            live = live_width(packed["n_len"][:len(batch)], band)
+            t = _to_device(packed, len(batch), dev)
             dirs, end_scores, end_mat = banded_dp(
                 t["q"], t["t_shift"], t["m_len"], t["n_len"], t["lo"], sub,
-                band=band, gap_open=gap.gap_open, gap_extend=gap.gap_extend)
+                band=band, gap_open=gap.gap_open, gap_extend=gap.gap_extend,
+                max_live=live)
             smax = max(len(q) + len(tt) for q, tt in batch)
             S = max(32, 1 << (smax - 1).bit_length())
             moves, counts = banded_traceback(dirs, t["m_len"], t["n_len"],

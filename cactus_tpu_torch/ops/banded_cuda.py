@@ -3,9 +3,11 @@
 Source: csrc/banded.cu (see its header for the design).
 - banded_dp replaces the Pallas TPU kernel
   cactus_tpu/ops/banded_pallas.py::_kernel (banded_align_batch_pallas).
-  Contract: ops/banded.py::banded_align_batch, whose outputs it matches
-  bit for bit.  Bound on an H100: int32 operations
-  (BANDED_OPS_PER_CELL a cell; one byte a cell to memory).
+  Contract: ops/banded.py::banded_align_batch.  It computes only each
+  pair's live cells (`live_mask`), and matches the plain version bit for
+  bit on those cells' direction bytes and on the end scores and states.
+  Bound on an H100: int32 operations (BANDED_OPS_PER_CELL a live cell;
+  one byte a live cell to memory).
 - banded_traceback replaces the on-device while_loop traceback
   (cactus_tpu/ops/banded.py::traceback_band_batch_device) with the host
   semantics of ops/banded.py::traceback_band: -1 moves when the walk
@@ -28,8 +30,8 @@ import torch
 from . import cuda_build
 from .banded import banded_align_batch, traceback_band
 
-# int32 operations a DP cell needs, whatever the kernel's design (the
-# kernel itself does more: it recomputes j and scans the D chain).  Each
+# int32 operations a live DP cell needs, whatever the kernel's design (the
+# kernel itself does more: two passes and a scan of the D chain).  Each
 # of H, I and D is a max, an add or two and a NEG clamp, and each of
 # them leaves its direction bits: H = max(H, I, D) + s with its source
 # (2 max, 2 compares, 1 add, 1 clamp, 2 selects: 8); I = max(H - open, I)
@@ -41,13 +43,19 @@ from .banded import banded_align_batch, traceback_band
 # leaves H 5 (2 vibmax, 1 viaddmax, 2 selects), I 5 (sub, vibmax,
 # viaddmax, select, or) and D 5: BANDED_OPS_PER_CELL = 15.  The end
 # capture is once per pair: the first argmax of three, 2 compares and
-# 2 selects.
+# 2 selects.  The kernel computes only the live cells (`live_cells`), and
+# only they reach any output, so the bound counts them; a band cell
+# outside a pair's DP matrix costs nothing in it.  (The band-cell bound,
+# m x band cells a pair, counts what the kernel computed before it
+# skipped the dead cells: chip_smoke.py logs it beside the live one.)
 BANDED_OPS_PER_CELL = 15
 BANDED_OPS_PER_PAIR = 4
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "banded_dp_launch": [_VP] * 6 + [_INT] * 5 + [_VP] * 4,
+    "banded_dp_launch": [_VP] * 6 + [_INT] * 6 + [_VP] * 4,
+    "banded_dp_threads": [_INT] * 3,
+    "banded_dp_occupancy": [_INT] * 3,
     "banded_traceback_launch": [_VP] * 5 + [_INT] * 4 + [_VP] * 3,
 }
 
@@ -56,17 +64,94 @@ def _lib() -> ctypes.CDLL:
     return cuda_build.bind("banded", _SIGNATURES)
 
 
+def live_mask(m_len, n_len, lo, M: int, B: int):
+    """(P, M, B) bool: the live cells of each pair, the band cells (i, b)
+    (row i = 1..M at index i - 1) with i <= m and 0 <= i + lo + b <= n:
+    the cells inside the pair's DP matrix."""
+    dev = m_len.device
+    i = torch.arange(1, M + 1, device=dev)[None, :, None]
+    b = torch.arange(B, device=dev)[None, None, :]
+    j = i + lo.long()[:, None, None] + b
+    return ((i <= m_len.long()[:, None, None]) & (j >= 0)
+            & (j <= n_len.long()[:, None, None]))
+
+
+def live_cells(m_len, n_len, lo, M: int, B: int) -> int:
+    """The number of live cells (`live_mask(...).sum()`), from each row's
+    live window b = max(0, -i - lo) .. min(B - 1, n - i - lo)."""
+    i = torch.arange(1, M + 1, device=m_len.device)[None, :]
+    lo_ = lo.long()[:, None]
+    b_lo = (-i - lo_).clamp(min=0)
+    b_hi = (n_len.long()[:, None] - i - lo_).clamp(max=B - 1)
+    width = (b_hi - b_lo + 1).clamp(min=0)
+    return int((width * (i <= m_len.long()[:, None])).sum())
+
+
+def live_width(n_len, band: int) -> int:
+    """The widest live row a batch can have: max over pairs of
+    min(band, n + 1), a row's live cells being at most the n + 1 columns
+    j = 0..n.  0 for no pairs.  n_len: a tensor or a numpy array."""
+    if not len(n_len):
+        return 0
+    return max(0, min(band, int(n_len.max()) + 1))
+
+
+def launch_threads(band: int, max_live: int, pairs: int) -> int:
+    """Threads a block banded_dp launches with (csrc/banded.cu
+    banded_dp_threads; needs the card)."""
+    return int(_lib().banded_dp_threads(band, max_live, pairs))
+
+
+def occupancy(band: int, max_live: int, pairs: int) -> int:
+    """Resident banded_dp blocks an SM at that launch shape (needs the
+    card)."""
+    lib = _lib()
+    blocks = int(lib.banded_dp_occupancy(band, max_live, pairs))
+    cuda_build.check(lib, max(0, -blocks), "banded_dp occupancy")
+    return blocks
+
+
 def banded_dp(q, t_shift, m_len, n_len, lo, submat, band: int,
-              gap_open: int, gap_extend: int):
+              gap_open: int, gap_extend: int, max_live: int | None = None):
     """Batched banded global affine DP: (dirs, end_scores, end_mat).
 
     q (P, M) uint8, t_shift (P, M+band) uint8, m_len/n_len/lo (P,)
     int32, submat (6, 6) int32, all on one device.  Any band >= 1 up to
-    16384 (the shared-memory limit of one block)."""
+    16384 (the shared-memory limit of one block).
+
+    On a CUDA device the kernel computes only each pair's live cells
+    (`live_mask`: 1 <= i <= m, 0 <= j = i + lo + b <= n).  end_scores,
+    end_mat and the dirs bytes of the live cells are bit-equal to the
+    plain version; the other dirs bytes are unspecified.  That is all the
+    traceback reads: it walks cells with 1 <= i <= m and 1 <= j <= n.
+    On a CPU tensor the plain version fills every byte.
+
+    max_live bounds every row's live width (default: the band); the
+    kernel sizes its blocks by it.  A max_live below some pair's
+    min(band, n + 1) (`live_width`) raises, on either device, before
+    anything is launched: reading n_len back is a device sync where
+    max_live is below the band.  `launch_banded_dp` is the launch after
+    that check."""
+    if max_live is None:
+        max_live = band
+    widest = live_width(n_len, band) if max_live < band else 0
+    if max_live < max(1, widest):
+        raise ValueError(f"max_live {max_live} is below a pair's live width "
+                         f"{widest} (min(band, n + 1)) or 1")
     if q.device.type == "cpu":
         return banded_align_batch(q, t_shift, m_len, n_len, lo, submat,
                                   band=band, gap_open=gap_open,
                                   gap_extend=gap_extend)
+    return launch_banded_dp(q, t_shift, m_len, n_len, lo, submat, band=band,
+                            gap_open=gap_open, gap_extend=gap_extend,
+                            max_live=max_live)
+
+
+def launch_banded_dp(q, t_shift, m_len, n_len, lo, submat, band: int,
+                     gap_open: int, gap_extend: int, max_live: int):
+    """The kernel launch of `banded_dp` (which checks max_live first):
+    checks the CUDA tensors, allocates the outputs, launches on the
+    current stream and counts the launch."""
     dev = q.device
     P, M = q.shape
     if not 1 <= band <= 16384:
@@ -83,9 +168,9 @@ def banded_dp(q, t_shift, m_len, n_len, lo, submat, band: int,
     lib = _lib()
     code = lib.banded_dp_launch(
         q.data_ptr(), t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-        lo.data_ptr(), submat.data_ptr(), P, M, band, int(gap_open),
-        int(gap_extend), dirs.data_ptr(), end_scores.data_ptr(),
-        end_mat.data_ptr(), cuda_build.stream(dev))
+        lo.data_ptr(), submat.data_ptr(), P, M, band, min(max_live, band),
+        int(gap_open), int(gap_extend), dirs.data_ptr(),
+        end_scores.data_ptr(), end_mat.data_ptr(), cuda_build.stream(dev))
     cuda_build.check(lib, code, "banded_dp")
     cuda_build.count_launch("banded_dp")
     return dirs, end_scores, end_mat

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (cactus_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--dump-banded PATH]
 
 Run from the root of a checkout on a machine with one CUDA GPU and the
 CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
@@ -10,12 +10,15 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    CUDA kernel of the port from cactus_tpu_torch/csrc/ (one nvcc per
    source, in parallel) and the native C++ host kernels.
 2. Holds each kernel against its plain PyTorch version on the card:
-   banded_dp at bands 128, 512, 2048 and 16384 with ragged pairs
-   (bit-equal), banded_traceback against the host traceback_band
-   (equal), pairhmm_fwd/pairhmm_bwd at bands 512 and 2048 with 4096
-   rows, and pairhmm5_fwd/pairhmm5_bwd at bands 1024, 2048 and 4096 with
-   pieces of up to 3000 rows and at band 16384 (posterior max |diff| <=
-   HMM_ATOL).
+   banded_dp at bands 128, 512, 2048 and 16384 with ragged pairs and at
+   bands 8-1024 on the live-cell edge cases (m = 0, n = 0, n < m,
+   |n - m| = band - 1), with max_live as the path passes it (end scores,
+   end states and the live cells' direction bytes bit-equal; it logs the
+   live cells beside the band cells), banded_traceback against the host
+   traceback_band (equal), pairhmm_fwd/pairhmm_bwd at bands 512 and 2048
+   with 4096 rows, and pairhmm5_fwd/pairhmm5_bwd at bands 1024, 2048 and
+   4096 with pieces of up to 3000 rows and at band 16384 (posterior max
+   |diff| <= HMM_ATOL).
 3. Runs the default path: the evolverMammals-scale regression of
    tests/test_evolver_gate.py (the same 5-genome tree, root_len 600 kb,
    seed 41, tree_workers=2, default Config) through the port's
@@ -23,9 +26,13 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    bar (average >= 0.89, every pair recall > 0.80 and precision > 0.85)
    and checks that banded_dp, banded_traceback, pairhmm_fwd and
    pairhmm_bwd were launched.  The launch counts are set to 0 just before
-   the run and read just after it.  Then it times each kernel and its
-   plain version with CUDA events on the largest inputs the path gave
-   that kernel, beside the bound for the same work.
+   the run and read just after it.  It logs banded_dp's live cells and
+   its event time by band, and its longest calls.  Then it times each
+   kernel and its plain version with CUDA events on the largest inputs
+   the path gave that kernel, beside the bound for the same work (for
+   banded_dp also its band-cell bound and its occupancy), and
+   replays every banded_dp call of the path one at a time.  With
+   --dump-banded it saves those calls' inputs to PATH.
 4. Runs the pecan path (partialOrderAlignment off: the cPecan BAR engine
    with the 5-state pair-HMM) on the human-dog leaf pair of the same
    tree, seed 41: first at root_len 60 kb, held within PECAN_TOL of the
@@ -201,15 +208,19 @@ class Recorder:
     call through to the wrapper (which counts its launch in
     cuda_build.LAUNCHES), brackets it with CUDA events on the current
     stream, and keeps the inputs of the call with the most cells, to time
-    the kernel on them afterwards."""
+    the kernel on them afterwards.  `attr` names the wrapped function
+    where it is not the kernel's name (banded_dp's launch function), and
+    keep_calls keeps every call's inputs, to replay them."""
 
-    def __init__(self, module, name, cells_of):
-        self.module, self.name = module, name
-        self.fn = getattr(module, name)
+    def __init__(self, module, name, cells_of, attr=None, keep_calls=False):
+        self.module, self.name, self.attr = module, name, attr or name
+        self.fn = getattr(module, self.attr)
         self.cells_of = cells_of
+        self.keep_calls = keep_calls
         self.best = None
         self.best_cells = -1
         self.events = []
+        self.calls = []
         self.lock = threading.Lock()
 
     def __call__(self, *args, **kw):
@@ -222,6 +233,8 @@ class Recorder:
         cells = self.cells_of(args, kw)
         with self.lock:
             self.events.append((start, stop))
+            if self.keep_calls:
+                self.calls.append((args, kw))
             if cells > self.best_cells:
                 self.best_cells = cells
                 self.best = (args, kw)
@@ -233,10 +246,10 @@ class Recorder:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
     def install(self):
-        setattr(self.module, self.name, self)
+        setattr(self.module, self.attr, self)
 
     def remove(self):
-        setattr(self.module, self.name, self.fn)
+        setattr(self.module, self.attr, self.fn)
 
 
 # ---------------------------------------------------------------- phases
@@ -272,47 +285,95 @@ def phase_build():
         f", native host kernels in {time.time() - t0:.1f} s")
 
 
+def edge_pairs(seed, band):
+    """Short ragged pairs and the live-cell edge cases: m = 0, n = 0, both
+    0, n < m, and |n - m| = band - 1 both ways (lo clamped by
+    pack_band_batch)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def codes(k):
+        return rng.integers(0, 4, k).astype(np.uint8)
+
+    pairs = ragged_pairs(seed, 6, 1, 60, 2 * band)
+    short = max(1, band // 4)
+    return pairs + [(codes(0), codes(min(band - 1, 9))),
+                    (codes(short), codes(0)), (codes(0), codes(0)),
+                    (codes(short + 3), codes(short)),
+                    (codes(5), codes(5 + band - 1)),
+                    (codes(4 + band - 1), codes(4))]
+
+
+def banded_live_equal(got, ref, m, n, lo) -> bool:
+    """banded_dp's outputs against the plain version's: the direction
+    bytes of the live cells, the end scores and the end states."""
+    import torch
+    from cactus_tpu_torch.ops import banded_cuda
+    P, M, B = ref[0].shape
+    live = banded_cuda.live_mask(m, n, lo, M, B)
+    return (torch.equal(got[0][live], ref[0][live])
+            and torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]))
+
+
+def check_banded(pairs, band, sub_d, dev, errs, what):
+    """banded_dp, with max_live as the path passes it, against the plain
+    version, and banded_traceback on its output against the host
+    traceback_band."""
+    import torch
+    from cactus_tpu_torch.ops import banded as tb
+    from cactus_tpu_torch.ops import banded_cuda
+    kw = dict(band=band, gap_open=400, gap_extend=30)
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = to_device(packed, dev)
+    P, M = args[0].shape
+    live_w = banded_cuda.live_width(args[3], band)
+    got = banded_cuda.banded_dp(*args, sub_d, **kw, max_live=live_w)
+    torch.cuda.synchronize()
+    ref = tb.banded_align_batch(*args, sub_d, **kw)
+    if not banded_live_equal(got, ref, *args[2:]):
+        raise AssertionError(f"banded_dp {what}: differs from the plain "
+                             "version on the live cells")
+    live = banded_cuda.live_cells(*args[2:], M, band)
+    log(f"banded_dp {what} ({P} pairs x {M} rows, max_live {live_w}, "
+        f"{banded_cuda.launch_threads(band, live_w, P)} threads): live "
+        f"cells, end scores and states bit-equal; {live} live cells of "
+        f"{P * M * band} band cells ({int(args[2].sum()) * band} in rows "
+        f"1..m, {live / max(1, P * M * band):.1%} live)")
+    errs["banded_dp"] = max(errs.get("banded_dp", 0.0), 0.0)
+    dirs, _scores, end_mat = got
+    S = max(32, 1 << (max(len(q) + len(t) for q, t in pairs) - 1)
+            .bit_length())
+    mv, ct = banded_cuda.banded_traceback(dirs, args[2], args[3], args[4],
+                                          end_mat, S)
+    mv_ref, ct_ref = banded_cuda.banded_traceback_plain(
+        dirs, args[2], args[3], args[4], end_mat, S)
+    if not (torch.equal(ct, ct_ref) and torch.equal(mv, mv_ref)):
+        raise AssertionError(f"banded_traceback {what} differs from the "
+                             "host traceback_band")
+    errs["banded_traceback"] = 0.0
+    log(f"banded_traceback {what}: equal to host traceback_band "
+        f"({int((ct < 0).sum())} walks left the band)")
+
+
 def phase_kernels_vs_plain(dev, errs):
     """Every kernel against its plain version at the path's shapes."""
     import torch
     from cactus_tpu_torch.config import PoaParams
     from cactus_tpu_torch.ops import banded as tb
-    from cactus_tpu_torch.ops import banded_cuda, pairhmm5_cuda, pairhmm_cuda
+    from cactus_tpu_torch.ops import pairhmm5_cuda, pairhmm_cuda
     from cactus_tpu_torch.ops import pairhmm as tp
     from cactus_tpu_torch.ops import pairhmm5 as tp5
 
     sub = tb.score_matrix_6(PoaParams().sub_matrix)
     sub_d = torch.from_numpy(sub).to(dev)
-    kw = dict(gap_open=400, gap_extend=30)
     for band, n, lo_len, hi_len in ((128, 64, 20, 1000), (512, 16, 500, 4000),
                                     (2048, 4, 2000, 8000),
                                     (16384, 2, 300, 1200)):
         pairs = ragged_pairs(band, n, lo_len, hi_len, band)
-        packed = tb.pack_band_batch(pairs, band, min_batch=1)
-        args = to_device(packed, dev)
-        got = banded_cuda.banded_dp(*args, sub_d, band=band, **kw)
-        torch.cuda.synchronize()
-        ref = tb.banded_align_batch(*args, sub_d, band=band, **kw)
-        for name, g, r in zip(("dirs", "end_scores", "end_mat"), got, ref):
-            if not torch.equal(g, r):
-                raise AssertionError(f"banded_dp band {band}: {name} differs "
-                                     "from the plain version")
-        P, M = args[0].shape
-        log(f"banded_dp band {band} ({P} pairs x {M} rows): bit-equal")
-        errs["banded_dp"] = max(errs.get("banded_dp", 0.0), 0.0)
-        dirs, _scores, end_mat = got
-        S = max(32, 1 << (max(len(q) + len(t) for q, t in pairs) - 1)
-                .bit_length())
-        mv, ct = banded_cuda.banded_traceback(dirs, args[2], args[3], args[4],
-                                              end_mat, S)
-        mv_ref, ct_ref = banded_cuda.banded_traceback_plain(
-            dirs, args[2], args[3], args[4], end_mat, S)
-        if not (torch.equal(ct, ct_ref) and torch.equal(mv, mv_ref)):
-            raise AssertionError(f"banded_traceback band {band} differs from "
-                                 "the host traceback_band")
-        errs["banded_traceback"] = 0.0
-        log(f"banded_traceback band {band}: equal to host traceback_band "
-            f"({int((ct < 0).sum())} walks left the band)")
+        check_banded(pairs, band, sub_d, dev, errs, f"band {band}")
+    for band in (8, 24, 40, 1000, 1024):
+        check_banded(edge_pairs(band, band), band, sub_d, dev, errs,
+                     f"band {band} edge cases")
 
     p = tp.HmmParams()
     em = torch.from_numpy(p.emissions()).to(dev)
@@ -408,7 +469,10 @@ def phase_main_path(dev):
         return q.shape[0] * q.shape[1] * kw["band"]
 
     recorders = [
-        Recorder(banded_cuda, "banded_dp", cells3),
+        # banded_dp checks max_live (a device sync) before its launch
+        # function: the events bracket the launch
+        Recorder(banded_cuda, "banded_dp", cells3, attr="launch_banded_dp",
+                 keep_calls=True),
         Recorder(banded_cuda, "banded_traceback",
                  lambda a, kw: a[0].numel()),
         Recorder(pairhmm_cuda, "pairhmm_fwd", cells3),
@@ -423,11 +487,15 @@ def phase_main_path(dev):
         native_cells[0] += sum(len(q) for q, _t in pairs) * band
         return native_fn(pairs, submat, gap, band)
 
-    kernel_cells = [0]
+    # banded_dp's cells: query rows x band, live, and P x M x band
+    kernel_cells, live_cells, band_cells = [0], [0], [0]
     dp_rec = recorders[0]
 
     def dp_cells(args, kw):
+        P, M = args[0].shape
         kernel_cells[0] += int(args[2].sum()) * kw["band"]
+        live_cells[0] += banded_cuda.live_cells(*args[2:5], M, kw["band"])
+        band_cells[0] += P * M * kw["band"]
         return cells3(args, kw)
 
     dp_rec.cells_of = dp_cells
@@ -466,6 +534,22 @@ def phase_main_path(dev):
     log(f"banded cells (sum of query rows x band): {kernel_cells[0]} through "
         f"banded_dp, {native_cells[0]} through native C++; kernel share "
         f"{share:.4f}")
+    log(f"banded_dp on the main path: {live_cells[0]} live cells of "
+        f"{band_cells[0]} band cells (P x M x band; "
+        f"{live_cells[0] / max(1, band_cells[0]):.2%} live)")
+    dp_calls = [(a.elapsed_time(b), list(args[0].shape), kw["band"],
+                 kw["max_live"])
+                for (a, b), (args, kw) in zip(dp_rec.events, dp_rec.calls)]
+    by_band: dict = {}
+    for ms, _shape, band, _live in dp_calls:
+        ms_b, n_b = by_band.get(band, (0.0, 0))
+        by_band[band] = (ms_b + ms, n_b + 1)
+    log("banded_dp event time by band: " + ", ".join(
+        f"{band}: {ms:.1f} ms in {n_b} calls"
+        for band, (ms, n_b) in sorted(by_band.items())))
+    log("longest banded_dp calls (ms [P, M] band max_live): " + "; ".join(
+        f"{ms:.3f} {shape} {band} {live}"
+        for ms, shape, band, live in sorted(dp_calls, reverse=True)[:6]))
     for name in DEFAULT_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
@@ -550,26 +634,55 @@ def measure(recorders, launches, errs, dev):
     (q, t, m, n, lo, sub), kw = recorders["banded_dp"].best
     P, M = q.shape
     B = kw["band"]
-    ref = tb.banded_align_batch(q, t, m, n, lo, sub, **kw)
-    got = recorders["banded_dp"].fn(q, t, m, n, lo, sub, **kw)
-    for g, r in zip(got, ref):
-        if not torch.equal(g, r):
-            raise AssertionError("banded_dp differs from its plain version "
-                                 "on the main path's inputs")
-    ms = time_ms(lambda: recorders["banded_dp"].fn(q, t, m, n, lo, sub, **kw),
-                 20)
+    fn = recorders["banded_dp"].fn
+    plain_kw = {k: v for k, v in kw.items() if k != "max_live"}
+    ref = tb.banded_align_batch(q, t, m, n, lo, sub, **plain_kw)
+    if not banded_live_equal(fn(q, t, m, n, lo, sub, **kw), ref, m, n, lo):
+        raise AssertionError("banded_dp differs from its plain version on "
+                             "the main path's inputs (live cells)")
+    del ref
+    ms = time_ms(lambda: fn(q, t, m, n, lo, sub, **kw), 20)
     plain_ms = time_ms(lambda: tb.banded_align_batch(q, t, m, n, lo, sub,
-                                                     **kw), 1)
-    rows_, live = int(m.sum()), int((m > 0).sum())
-    # the rows the pairs use: q's bases, the t_shift window of each row,
-    # the scalars and the matrix in; a direction byte a cell and the end
-    # scores out
+                                                     **plain_kw), 1)
+    rows_, used = int(m.sum()), int((m > 0).sum())
+    live = banded_cuda.live_cells(m, n, lo, M, B)
+    max_live = kw["max_live"]
+    log(f"banded_dp at [{P}, {M}, {B}]: max_live {max_live}, "
+        f"{banded_cuda.launch_threads(B, max_live, P)} threads a block, "
+        f"{banded_cuda.occupancy(B, max_live, P)} resident blocks an SM; "
+        f"{live} live cells of {P * M * B} band cells ({rows_ * B} in rows "
+        f"1..m)")
+    # the band-cell bound: every band cell of the rows 1..m, as the
+    # kernel computed them before it skipped the dead ones
+    old_ops = (banded_cuda.BANDED_OPS_PER_CELL * rows_ * B
+               + banded_cuda.BANDED_OPS_PER_PAIR * P)
+    old_bytes = rows_ + rows_ + used * B + 12 * P + 144 + rows_ * B + 16 * P
+    old_ms = max(old_ops / INT32_OPS_PER_S, old_bytes / HBM_BYTES_PER_S)
+    log(f"banded_dp band-cell bound (rows 1..m x band): {old_ms * 1e3:.4f} "
+        "ms")
+    # the live cells: q's bases of the rows 1..m, the t_shift bytes they
+    # read (columns j = 0..n), the scalars and the matrix in; a direction
+    # byte a live cell and the end scores out
+    t_bytes = int((n.long() + 1)[m > 0].sum())
     row("banded_dp", "cactus_tpu_torch/csrc/banded.cu",
         "cactus_tpu/ops/banded_pallas.py:44", ms, plain_ms,
-        rows_ + rows_ + live * B + 12 * P + 144 + rows_ * B + 16 * P,
-        banded_cuda.BANDED_OPS_PER_CELL * rows_ * B
+        rows_ + t_bytes + 12 * P + 144 + live + 16 * P,
+        banded_cuda.BANDED_OPS_PER_CELL * live
         + banded_cuda.BANDED_OPS_PER_PAIR * P, INT32_OPS_PER_S,
         [P, M, B])
+    # every call of the main path again, one at a time on the idle card:
+    # the kernels' own time, without the other ancestor thread's work or
+    # host gaps inside the events
+    calls = recorders["banded_dp"].calls
+    by_band: dict = {}
+    for a, k in calls:
+        ms_b, n_b = by_band.get(k["band"], (0.0, 0))
+        by_band[k["band"]] = (ms_b + time_ms(lambda: fn(*a, **k), 3), n_b + 1)
+    log(f"banded_dp: the main path's {len(calls)} calls replayed one at a "
+        f"time (CUDA events, 3 launches each after a warm-up): "
+        f"{sum(v[0] for v in by_band.values()):.2f} ms; by band: "
+        + ", ".join(f"{band}: {ms:.2f} ms in {n_c} calls"
+                    for band, (ms, n_c) in sorted(by_band.items())))
 
     # banded_traceback
     (dirs, m, n, lo, em_, S), _kw = recorders["banded_traceback"].best
@@ -1153,6 +1266,17 @@ def measure_poa(recorders, launches, errs):
     return rows
 
 
+def dump_banded(recorder, path):
+    """Save the inputs of every banded_dp call a path made (host copies)
+    with torch.save, for tests/banded_sweep_report.py --replay."""
+    import torch
+    calls = [([x.cpu() for x in a[:5]], {k: int(v) for k, v in kw.items()})
+             for a, kw in recorder.calls]
+    torch.save({"calls": calls, "submat": recorder.calls[0][0][5].cpu()},
+               path)
+    log(f"saved the inputs of {len(calls)} banded_dp calls to {path}")
+
+
 def run_cli(argv, what):
     """One `python -m cactus_tpu_torch` subprocess; raises unless it
     exits 0."""
@@ -1214,6 +1338,13 @@ def phase_cli():
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive cactus_tpu_torch on one "
+                                 "CUDA GPU (see the module docstring).")
+    ap.add_argument("--dump-banded", metavar="PATH",
+                    help="also save the default path's banded_dp inputs "
+                    "there (tests/banded_sweep_report.py --replay)")
+    opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "cactus_tpu_torch")):
         return fail("run from a checkout: cactus_tpu_torch/ is missing")
     import torch
@@ -1242,6 +1373,8 @@ def main() -> int:
     t0 = time.time()
     rows = measure(recorders, launches, errs, dev)
     log(f"kernel timing {time.time() - t0:.1f} s")
+    if opts.dump_banded:
+        dump_banded(recorders["banded_dp"], opts.dump_banded)
     t0 = time.time()
     p_launches, p_recorders = phase_pecan(dev)
     log(f"phase 4 (pecan path) {time.time() - t0:.1f} s")

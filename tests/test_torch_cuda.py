@@ -6,7 +6,9 @@ one.  This file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Banded DP and POA outputs are bit-identical to the plain versions.  Pair-HMM
+Banded DP outputs are bit-identical to the plain version on the live
+cells (the kernel computes only those, see ops/banded_cuda.py), POA
+outputs on every cell.  Pair-HMM
 posteriors (3-state and 5-state) agree to HMM_ATOL: the kernels sum the
 in-row chains in another order than the plain version's Kogge-Stone scan,
 and the posterior is exp of a difference of float32 log-scale sums that
@@ -67,6 +69,27 @@ def _packed(pairs, band, dev):
     return packed, [torch.from_numpy(packed[k]).to(dev) for k in KEYS]
 
 
+def _check_banded_live(got, args, band, kw):
+    """banded_dp's outputs against the plain version on the card: dirs on
+    the live cells, end_scores and end_mat exactly."""
+    ref = tb.banded_align_batch(*args, **kw)
+    P, M = args[0].shape
+    live = banded_cuda.live_mask(args[2], args[3], args[4], M, band)
+    assert torch.equal(got[0][live], ref[0][live])
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(got[2], ref[2])
+
+
+def _check_traceback(dirs, args, end_mat, S):
+    moves, counts = banded_cuda.banded_traceback(dirs, args[2], args[3],
+                                                 args[4], end_mat, S)
+    m_ref, c_ref = banded_cuda.banded_traceback_plain(
+        dirs.cpu(), args[2].cpu(), args[3].cpu(), args[4].cpu(),
+        end_mat.cpu(), S)
+    assert torch.equal(counts.cpu(), c_ref)
+    assert torch.equal(moves.cpu(), m_ref)
+
+
 @pytest.mark.parametrize("band,n,max_len", [(128, 40, 700), (512, 12, 900),
                                             (2048, 4, 2500),
                                             (16384, 2, 600)])
@@ -75,13 +98,78 @@ def test_banded_dp_bit_identical(cuda, band, n, max_len):
     packed, args = _packed(pairs, band, cuda)
     sub = torch.from_numpy(SUBMAT).to(cuda)
     kw = dict(band=band, gap_open=400, gap_extend=30)
-    n0 = cuda_build.launches()["banded_dp"]
-    got = banded_cuda.banded_dp(*args, sub, **kw)
+    for max_live in (None, banded_cuda.live_width(args[3], band)):
+        n0 = cuda_build.launches()["banded_dp"]
+        got = banded_cuda.banded_dp(*args, sub, **kw, max_live=max_live)
+        torch.cuda.synchronize()
+        assert cuda_build.launches()["banded_dp"] == n0 + 1
+        _check_banded_live(got, args + [sub], band, kw)
+
+
+def _edge_pairs(seed, band):
+    """Short ragged pairs and the edge cases m = 0, n = 0, both 0, n < m
+    and |n - m| = band - 1 both ways (lo clamped by pack_band_batch)."""
+    rng = np.random.default_rng(seed)
+
+    def codes(k):
+        return rng.integers(0, 4, k).astype(np.uint8)
+
+    pairs = [pr for pr in _pairs(seed, 6, 60, 2 * band)
+             if abs(len(pr[1]) - len(pr[0])) < band]
+    short = max(1, band // 4)
+    return pairs + [(codes(0), codes(min(band - 1, 9))),
+                    (codes(short), codes(0)), (codes(0), codes(0)),
+                    (codes(short + 3), codes(short)),
+                    (codes(5), codes(5 + band - 1)),
+                    (codes(4 + band - 1), codes(4))]
+
+
+@pytest.mark.parametrize("band", [8, 24, 40, 64, 1000, 1024])
+def test_banded_dp_live_edge_cases(cuda, band):
+    pairs = _edge_pairs(band, band)
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    kw = dict(band=band, gap_open=400, gap_extend=30)
+    for max_live in (None, banded_cuda.live_width(args[3], band)):
+        got = banded_cuda.banded_dp(*args, sub, **kw, max_live=max_live)
+        torch.cuda.synchronize()
+        _check_banded_live(got, args + [sub], band, kw)
+        _check_traceback(got[0], args, got[2], 4 * band + 64)
+
+
+def test_banded_dp_many_short_pairs(cuda):
+    """The BAR star engine's short ends: thousands of pairs of at most 32
+    bases at band 1024, one warp a pair."""
+    band = 1024
+    rng = np.random.default_rng(11)
+    pairs = []
+    for _ in range(3000):
+        q = rng.integers(0, 4, int(rng.integers(1, 33))).astype(np.uint8)
+        pairs.append((q, _mutate(rng, q, sub=0.15, indel=0.1)))
+    packed = tb.pack_band_batch(pairs, band)
+    args = [torch.from_numpy(packed[k][:len(pairs)]).to(cuda) for k in KEYS]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    kw = dict(band=band, gap_open=400, gap_extend=30)
+    live = banded_cuda.live_width(args[3], band)
+    assert live < 64
+    assert banded_cuda.launch_threads(band, live, len(pairs)) == 32
+    assert banded_cuda.occupancy(band, live, len(pairs)) >= 1
+    got = banded_cuda.banded_dp(*args, sub, **kw, max_live=live)
     torch.cuda.synchronize()
-    assert cuda_build.launches()["banded_dp"] == n0 + 1
-    ref = tb.banded_align_batch(*[a.cpu() for a in args], sub.cpu(), **kw)
-    for g, r in zip(got, ref):
-        assert torch.equal(g.cpu(), r)
+    _check_banded_live(got, args + [sub], band, kw)
+    _check_traceback(got[0], args, got[2], 128)
+
+
+def test_banded_dp_max_live_too_small_raises(cuda):
+    band = 512
+    pairs = _pairs(8, 10, 400, band)
+    packed, args = _packed(pairs, band, cuda)
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    live = banded_cuda.live_width(args[3], band)
+    with pytest.raises(ValueError, match="max_live"):
+        banded_cuda.banded_dp(*args, sub, band=band, gap_open=400,
+                              gap_extend=30, max_live=live - 1)
 
 
 def test_traceback_matches_host(cuda):
@@ -91,14 +179,7 @@ def test_traceback_matches_host(cuda):
     sub = torch.from_numpy(SUBMAT).to(cuda)
     dirs, _scores, end_mat = banded_cuda.banded_dp(
         *args, sub, band=band, gap_open=400, gap_extend=30)
-    S = 2048
-    moves, counts = banded_cuda.banded_traceback(dirs, args[2], args[3],
-                                                 args[4], end_mat, S)
-    m_ref, c_ref = banded_cuda.banded_traceback_plain(
-        dirs.cpu(), args[2].cpu(), args[3].cpu(), args[4].cpu(),
-        end_mat.cpu(), S)
-    assert torch.equal(counts.cpu(), c_ref)
-    assert torch.equal(moves.cpu(), m_ref)
+    _check_traceback(dirs, args, end_mat, 2048)
 
 
 def test_align_pairs_banded_cuda_equals_native(cuda):
