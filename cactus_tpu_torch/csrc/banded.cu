@@ -61,10 +61,29 @@
 //
 // banded_traceback is device code with no Pallas counterpart: it replaces
 // the vmapped lax.while_loop of
-// cactus_tpu/ops/banded.py::traceback_band_batch_device.  One thread per
-// pair walks the direction bytes in device memory with the HOST semantics
-// of traceback_band (a walk that leaves the band reports count -1), so
-// only O(m + n) move codes come back to the host.
+// cactus_tpu/ops/banded.py::traceback_band_batch_device, with the HOST
+// semantics of traceback_band (a walk that leaves the band, or needs more
+// than S moves, reports count -1 and no moves), so only O(m + n) move
+// codes come back to the host.  A walk is a chain of m + n dependent
+// steps, each reading the byte the previous one chose: its floor on an
+// H100 is that chain's latency, not the 2 bytes a step it moves.  So each
+// step must read on-chip memory.  One warp walks a pair: it stages a
+// tile of the pair's direction bytes in shared memory with 16-byte
+// cp.async copies (all in flight at once, one round trip a tile), one
+// lane walks it, and the warp restages when the walk leaves the tile.
+// The tile rule: the walk only climbs (row i falls by one on an M or an
+// I and stays on a D), and its band column b = j - i - lo stays on an M,
+// rises by one on an I and falls by one on a D.  So a tile of K rows,
+// from the current row up, whose right edge is K - 1 columns right of
+// the current b, holds every byte the next K rows read unless a D run
+// crosses its left edge, which restages.  Each tile row is clipped to
+// the row's live window (b_lo(r) .. b_hi(r), as above): those are the
+// bytes the walk can read (1 <= i <= m, 1 <= j <= n), and the only ones
+// banded_dp specifies.  A short pair (the BAR ends) fits one tile; a
+// long band-128 pair takes whole 128-byte rows, K at a time.  The walk
+// runs from shared memory with two loads in flight (the next cell
+// depends on the state, not on the byte just read).  Its moves go to a
+// shared buffer that the warp stores with coalesced writes.
 
 #include <cuda_runtime.h>
 
@@ -249,62 +268,202 @@ banded_dp_kernel(const uint8_t* __restrict__ q,
   }
 }
 
-__global__ void banded_traceback_kernel(const uint8_t* __restrict__ dirs,
-                                        const int* __restrict__ m_len,
-                                        const int* __restrict__ n_len,
-                                        const int* __restrict__ lo,
-                                        const int* __restrict__ end_mat,
-                                        int P, int M, int B, int S,
-                                        uint8_t* __restrict__ moves,
-                                        int* __restrict__ counts) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+// banded_traceback's tiles: a warp's shared slice is a K x pitch tile
+// and a move buffer of 2K + tile_w bytes (a walk in one tile makes at
+// most K row moves and tile_w + K column moves).
+constexpr int kTbWarps = 4;            // pairs a block
+constexpr int kTileW = 256;            // widest tile, band columns
+constexpr int kTileBytes = 16384;      // a warp's tile budget
+constexpr int kTileMaxRows = 256;
+// a block's shared bytes at most: K * pitch <= kTileBytes, and a move
+// buffer of at most 2 * kTileMaxRows + kTileW bytes a warp
+constexpr int kTbMaxSmem = kTbWarps * (kTileBytes + 2 * kTileMaxRows + kTileW);
+
+__host__ __device__ __forceinline__ int tb_warp_bytes(int tile_w, int pitch,
+                                                      int K) {
+  return K * pitch + ((2 * K + tile_w + 15) & ~15);
+}
+
+// The walk's state is 0 (H: an M move), 1 (I: an I move) or 2 (D: a D
+// move); traceback_band treats any other as D.  tb_delta is the tile
+// offset's change on the move the state makes, tb_next the state the
+// cell's byte then picks: H takes its source from bits 0-1 (3 reads as
+// D), I stays unless bit 2 says it opened fresh, D unless bit 3 does.
+// Both are selects, not branches: the step's chain has no divergent
+// branch to reconverge.
+__device__ __forceinline__ int tb_delta(int cur, int pitch) {
+  return cur == 0 ? pitch : (cur == 1 ? pitch + 1 : -1);
+}
+
+__device__ __forceinline__ int tb_next(int cur, int byte) {
+  const int h_src = min(byte & 3, 2);
+  const int stay = ((byte >> (cur + 1)) & 1) ? 0 : cur;
+  return cur == 0 ? h_src : stay;
+}
+
+// A 16-byte copy from device to shared memory that does not hold the
+// thread (cp.async): a lane issues all of its tile's copies, then waits
+// once, so staging a tile costs one round trip, not one a row.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One warp a pair.  The warp stages a tile of the pair's direction bytes
+// in its slice of shared memory: rows r_top..r_bot (at most K, from the
+// walk's current row up) and band columns c_lo..c_hi (at most tile_w),
+// each row clipped to its live window b_lo(r)..b_hi(r).  Lane 0 then
+// walks the tile with the transitions of traceback_band, its moves going
+// to a shared buffer that the warp stores with coalesced writes; the
+// warp restages where the walk leaves the tile.  The tile's right edge
+// is min(K, tile_w) - 1 columns right of the walk's column: the band
+// column b only rises on an I move, which also climbs a row, so within K
+// rows no read lies right of b + K - 1.  A long D run leaves through the
+// left edge.
+__global__ void __launch_bounds__(32 * kTbWarps)
+banded_traceback_kernel(const uint8_t* __restrict__ dirs,
+                        const int* __restrict__ m_len,
+                        const int* __restrict__ n_len,
+                        const int* __restrict__ lo,
+                        const int* __restrict__ end_mat,
+                        int P, int M, int B, int S, int tile_w, int pitch,
+                        int K, uint8_t* __restrict__ moves,
+                        int* __restrict__ counts) {
+  extern __shared__ int4 tb_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kTbWarps + warp;
   if (p >= P) return;
+  uint8_t* tile = reinterpret_cast<uint8_t*>(tb_smem) +
+                  (size_t)warp * tb_warp_bytes(tile_w, pitch, K);
+  uint8_t* buf = tile + (size_t)K * pitch;   // 2K + tile_w moves
   const uint8_t* d = dirs + (size_t)p * M * B;
   uint8_t* mv = moves + (size_t)p * S;
-  int i = m_len[p], j = n_len[p], cur = end_mat[p], k = 0;
-  const int lo_p = lo[p];
-  if (i > M) k = -1;
-  while (k >= 0 && (i > 0 || j > 0)) {
-    if (k >= S) {
-      k = -1;
-      break;
-    }
-    if (i == 0) {
-      mv[k++] = 3;
-      --j;
-      continue;
-    }
-    if (j == 0) {
-      mv[k++] = 2;
-      --i;
-      continue;
-    }
+  const int m = m_len[p], n = n_len[p], lo_p = lo[p];
+  const int e = end_mat[p];
+  int i = m, j = n, cur = e == 0 || e == 1 ? e : 2, k = 0;
+  bool ok = m >= 0 && n >= 0 && m <= M;
+  const bool vec = (B & 15) == 0;
+  // 16-byte staging: 2^cl lanes over a tile row's chunks, 32 >> cl rows
+  // at a time
+  int cl = 0;
+  while ((1 << cl) < (pitch >> 4)) ++cl;
+  const int rsub = lane >> cl, csub = lane & ((1 << cl) - 1);
+  const int rstep = 32 >> cl;
+
+  while (ok && i > 0 && j > 0) {
     const int b = j - i - lo_p;
     if (b < 0 || b >= B) {   // the walk left the band
-      k = -1;
+      ok = false;
       break;
     }
-    const uint8_t byte = d[(size_t)(i - 1) * B + b];
-    if (cur == 0) {
-      mv[k++] = 1;
-      cur = byte & 3;
-      --i;
-      --j;
-    } else if (cur == 1) {
-      mv[k++] = 2;
-      cur = ((byte >> 2) & 1) ? 0 : 1;
-      --i;
+    const int r_bot = i, r_top = max(1, i - K + 1);
+    const int c_hi = min(B - 1, b + min(K, tile_w) - 1);
+    const int c_lo = max(0, c_hi - tile_w + 1);
+    const int c_base = c_lo & ~15;
+    if (vec) {
+      for (int r = r_bot - rsub; r >= r_top; r -= rstep) {
+        const int lo_r = max(c_lo, -r - lo_p);
+        const int hi_r = min(c_hi, n - r - lo_p);
+        const int ch = (lo_r >> 4) + csub;
+        if (lo_r <= hi_r && ch <= (hi_r >> 4))
+          cp_async16(tile + (r_bot - r) * pitch + (ch * 16 - c_base),
+                     d + (size_t)(r - 1) * B + ch * 16);
+      }
+      cp_async_wait_all();
     } else {
-      mv[k++] = 3;
-      cur = ((byte >> 3) & 1) ? 0 : 2;
-      --j;
+      for (int r = r_bot; r >= r_top; --r) {
+        const int hi_r = min(c_hi, n - r - lo_p);
+        const uint8_t* drow = d + (size_t)(r - 1) * B;
+        for (int c = max(c_lo, -r - lo_p) + lane; c <= hi_r; c += 32)
+          tile[(r_bot - r) * pitch + (c - c_base)] = drow[c];
+      }
     }
+    __syncwarp();
+    int cnt = 0, full = 0;
+    if (lane == 0) {
+      // The cell's offset in the tile moves with the walk: an M climbs a
+      // row, an I a row and a column right, a D a column left.  Where the
+      // walk goes next depends on the state it is in, not on the byte it
+      // reads, so the next byte's load is issued before this byte picks
+      // the next state: two loads are in flight.
+      int off = (r_bot - i) * pitch + (b - c_base);
+      const int room = S - k;
+      int byte = tile[off];                  // the anchor lies in the tile
+      while (true) {
+        if (cnt >= room) {                   // more than S moves
+          full = 1;
+          break;
+        }
+        const int ni = i - (cur <= 1);
+        const int nj = j - (cur != 1);
+        const int noff = off + tb_delta(cur, pitch);
+        const int nb = nj - ni - lo_p;
+        // the next cell is read from this tile (r_top >= 1), or the walk
+        // stops or restages there
+        const bool next_in = ni >= r_top && nj > 0 && nb >= c_lo &&
+                             nb <= c_hi;
+        const int next_byte = next_in ? tile[noff] : 0;
+        buf[cnt++] = (uint8_t)(cur + 1);
+        cur = tb_next(cur, byte);
+        i = ni;
+        j = nj;
+        off = noff;
+        byte = next_byte;
+        if (!next_in) break;
+      }
+    }
+    i = __shfl_sync(0xffffffffu, i, 0);
+    j = __shfl_sync(0xffffffffu, j, 0);
+    cur = __shfl_sync(0xffffffffu, cur, 0);
+    cnt = __shfl_sync(0xffffffffu, cnt, 0);
+    full = __shfl_sync(0xffffffffu, full, 0);
+    __syncwarp();              // lane 0's moves are in buf
+    for (int x = lane; x < cnt; x += 32) mv[k + x] = buf[x];
+    k += cnt;
+    if (full) ok = false;
+    __syncwarp();              // buf and the tile are free again
   }
-  counts[p] = k;
+  // the rest runs along row 0 (D moves) or column 0 (I moves) and reads
+  // no byte
+  const int rest = ok ? i + j : 0;
+  if (ok && k + rest > S) ok = false;
+  if (ok) {
+    const uint8_t code = i == 0 ? 3 : 2;
+    for (int x = lane; x < rest; x += 32) mv[k + x] = code;
+    k += rest;
+  } else {
+    // a failed walk returns no moves, as the plain version does
+    for (int x = lane; x < k; x += 32) mv[x] = 0;
+  }
+  if (lane == 0) counts[p] = ok ? k : -1;
 }
 
 size_t banded_dp_smem_bytes(int B, int T) {
   return ((size_t)3 * B + T) * sizeof(int) + ((B + 15) / 16) * 16;
+}
+
+// The tile of a traceback launch: tile_w = min(kTileW, B, S) band
+// columns (a walk of at most S moves spans at most S columns), a pitch
+// with room for the 16-byte chunks that hold them, and K rows within
+// kTileBytes (at most the launch's M).
+void banded_traceback_tile(int M, int B, int S, int* tile_w, int* pitch,
+                           int* K) {
+  int w = B < S ? B : S;
+  w = w > kTileW ? kTileW : (w < 1 ? 1 : w);
+  const int pt = ((w + 15) / 16) * 16 + 16;
+  int k = kTileBytes / pt;
+  k = k > kTileMaxRows ? kTileMaxRows : k;
+  k = k > M ? M : k;
+  *tile_w = w;
+  *pitch = pt;
+  *K = k < 1 ? 1 : k;
 }
 
 }  // namespace
@@ -370,12 +529,22 @@ int banded_traceback_launch(const void* dirs, const void* m_len,
                             const void* end_mat, int P, int M, int B, int S,
                             void* moves, void* counts, void* stream) {
   if (P <= 0) return 0;
-  const int T = 128;
-  banded_traceback_kernel<<<(P + T - 1) / T, T, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  int tile_w, pitch, K;
+  banded_traceback_tile(M, B, S, &tile_w, &pitch, &K);
+  const size_t smem = (size_t)kTbWarps * tb_warp_bytes(tile_w, pitch, K);
+  // the largest slice any launch asks for, allowed once (a thread-safe
+  // static, for the device current at the first launch: the port drives
+  // one card): a CUDA API call on every launch costs host time that
+  // the few short walks of a small launch cannot hide
+  static const int allowed = (int)cudaFuncSetAttribute(
+      banded_traceback_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kTbMaxSmem);
+  if (allowed != cudaSuccess) return allowed;
+  banded_traceback_kernel<<<(P + kTbWarps - 1) / kTbWarps, 32 * kTbWarps,
+                            smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(dirs), static_cast<const int*>(m_len),
       static_cast<const int*>(n_len), static_cast<const int*>(lo),
-      static_cast<const int*>(end_mat), P, M, B, S,
+      static_cast<const int*>(end_mat), P, M, B, S, tile_w, pitch, K,
       static_cast<uint8_t*>(moves), static_cast<int*>(counts));
   return (int)cudaGetLastError();
 }

@@ -143,7 +143,7 @@ pairhmm_fwd_kernel(const uint8_t* __restrict__ q,
   const uint8_t* tp = t_shift + (size_t)p * (M + B);
   float* fp = fM_out + (size_t)p * M * B;
 
-  if (t < 36) s_em[t] = em[t];
+  for (int k = t; k < 36; k += T) s_em[k] = em[k];
   if (t == 0) s_end = 0.f;
   for (int b = b0; b < b1; ++b) {
     const int j0 = lo_p + b;
@@ -277,7 +277,7 @@ pairhmm_bwd_kernel(const float* __restrict__ fM,
   float* pp = post + (size_t)p * M * B;
   const float lz = logZ[p];
 
-  if (t < 36) s_em[t] = em[t];
+  for (int k = t; k < 36; k += T) s_em[k] = em[k];
   // rows past the pair's end have zero posterior (every row when m_len
   // is 0, or beyond the padded row count, where no terminal row exists)
   const bool live = m >= 1 && m <= M;

@@ -212,7 +212,7 @@ pairhmm5_fwd_kernel(const uint8_t* __restrict__ q,
   // forward chain matrix A = [[es, wls], [wsl, el]]
   const float a11 = tr.es, a12 = tr.wls, a21 = tr.wsl, a22 = tr.el;
 
-  if (t < 36) s_em[t] = em[t];
+  for (int k = t; k < 36; k += T) s_em[k] = em[k];
   if (t == 0) s_end = 0.f;
   // row 0: M at j == 0; the SY/LY chains seeded by that M cell
   for (int b = b0; b < b1; ++b) {
@@ -407,7 +407,7 @@ pairhmm5_bwd_kernel(const float* __restrict__ fM,
   // backward chain matrix A^T = [[es, wsl], [wls, el]]
   const float a11 = tr.es, a12 = tr.wsl, a21 = tr.wls, a22 = tr.el;
 
-  if (t < 36) s_em[t] = em[t];
+  for (int k = t; k < 36; k += T) s_em[k] = em[k];
   // rows past the pair's end have zero posterior (every row when m_len
   // is 0, or beyond the padded row count, where no terminal row exists)
   const bool live = m >= 1 && m <= M;

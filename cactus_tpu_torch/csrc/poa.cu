@@ -233,7 +233,7 @@ poa_affine_kernel(const uint8_t* __restrict__ bases,
   const uint8_t* qp = q_ext + (size_t)p * Lq;
   const int* pp = preds + (size_t)p * N * kMaxPreds;
   const int* op = off + (size_t)p * N;
-  if (t < 36) s_sub[t] = submat[t];
+  for (int k = t; k < 36; k += T) s_sub[k] = submat[k];
   __syncthreads();
 
   for (int v = 0; v < N; ++v) {
@@ -340,7 +340,7 @@ poa_chain_kernel(const uint8_t* __restrict__ bases,
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int p = blockIdx.x * (blockDim.x >> 5) + w;
-  if (threadIdx.x < 36) s_sub[threadIdx.x] = submat[threadIdx.x];
+  for (int k = threadIdx.x; k < 36; k += blockDim.x) s_sub[k] = submat[k];
   __syncthreads();
   if (p >= P) return;
   // two row triples (H, F1, F2): 6 * B ints per problem

@@ -10,9 +10,10 @@ Source: csrc/banded.cu (see its header for the design).
   one byte a live cell to memory).
 - banded_traceback replaces the on-device while_loop traceback
   (cactus_tpu/ops/banded.py::traceback_band_batch_device) with the host
-  semantics of ops/banded.py::traceback_band: -1 moves when the walk
-  leaves the band.  Bound: the latency of m+n dependent byte reads per
-  pair.
+  semantics of ops/banded.py::traceback_band: count -1 when the walk
+  leaves the band.  Bound: the latency of m + n dependent byte reads a
+  pair, which the kernel takes from tiles in shared memory (one warp a
+  pair, see `banded_traceback`).
 
 Each wrapper checks its tensors, launches on the current CUDA stream and
 adds one to its count in cuda_build.LAUNCHES.  A CPU tensor gets the
@@ -210,8 +211,22 @@ def banded_traceback(dirs, m_len, n_len, lo, end_mat, S: int):
     """Walk each pair's direction bytes from (m, n) to (0, 0).
 
     dirs (P, M, B) uint8; m_len/n_len/lo/end_mat (P,) int32.  Returns
-    (moves (P, S) uint8 in reverse order, counts (P,) int32; -1 when the
-    walk leaves the band or needs more than S moves)."""
+    (moves (P, S) uint8 in reverse order, counts (P,) int32; -1, with no
+    moves, when the walk leaves the band or needs more than S moves).
+
+    On a CUDA device one warp walks a pair from tiles of its direction
+    bytes in shared memory (csrc/banded.cu): K rows from the walk's
+    current row up, by tile_w = min(256, B, S) band columns whose right
+    edge lies min(K, tile_w) - 1 columns right of the current column (K
+    rows within 16 KB: 113 at band 128, 60 at 256 columns).  The walk only
+    climbs, and its band column rises only on an I move, which climbs a
+    row, so the next K rows read no byte right of that edge; the warp
+    restages when the walk climbs above the tile or a D run crosses its
+    left edge.  Each tile row holds the row's live window (the cells
+    banded_dp specifies), and every byte the walk reads is a live cell
+    (1 <= i <= m, 1 <= j <= n), so every read is staged.  Its floor is
+    the longest walk's chain of dependent steps, one shared-memory load
+    each; the bytes it moves (2 a step) are far below that."""
     if dirs.device.type == "cpu":
         return banded_traceback_plain(dirs, m_len, n_len, lo, end_mat, S)
     dev = dirs.device

@@ -30,9 +30,15 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    its event time by band, and its longest calls.  Then it times each
    kernel and its plain version with CUDA events on the largest inputs
    the path gave that kernel, beside the bound for the same work (for
-   banded_dp also its band-cell bound and its occupancy), and
-   replays every banded_dp call of the path one at a time.  With
-   --dump-banded it saves those calls' inputs to PATH.
+   banded_dp also its band-cell bound and its occupancy), and replays
+   every call of the path one at a time, kernel by kernel: banded_dp;
+   banded_traceback on each banded_dp call's outputs made again, with
+   the S the path derives (each held equal to the host traceback; it
+   logs the steps walked, and times its longest-walk call beside a
+   latency line: the longest walk x one shared-memory step); and
+   pairhmm_fwd, then pairhmm_bwd on each forward call's outputs made
+   again.  Each replay logs its total, by band, and its longest call.
+   With --dump-banded it saves banded_dp's calls' inputs to PATH.
 4. Runs the pecan path (partialOrderAlignment off: the cPecan BAR engine
    with the 5-state pair-HMM) on the human-dog leaf pair of the same
    tree, seed 41: first at root_len 60 kb, held within PECAN_TOL of the
@@ -42,7 +48,8 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    and must have launched pairhmm5_fwd and pairhmm5_bwd; it prints the
    wall, the per-phase split, the device's peak memory, the pair-HMM
    cells and the widest band.  Then it times the two 5-state kernels and
-   their plain versions on the 600 kb run's largest inputs.
+   their plain versions on the 600 kb run's largest inputs, and replays
+   the 600 kb run's calls as for pairhmm_fwd / pairhmm_bwd.
 5. Runs `python -m cactus_tpu_torch align` on a small two-genome seqfile
    in subprocesses, with the default config and --maf, then with a pecan
    config XML and --hal and --maf, and checks the MAFs and that the
@@ -64,9 +71,12 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    poa_msa without params (the linear-gap DP) on seeded groups must
    launch poa_linear and build the graphs the CPU run builds.  Then it
    times the three POA kernels and their plain versions on the largest
-   inputs their paths gave them.
+   inputs their paths gave them, and replays each path's calls (kept as
+   host copies) by bin.
 
-Prints one `{"kernels": [...]}` JSON line, and as its last line
+Prints one `{"kernels": [...]}` JSON line (each entry also carries the
+shape it was timed at and `replayed_ms`, the path's calls of the kernel
+replayed one at a time), and as its last line
 `{"ok": true, "device": {...}}`.  Any failure exits non-zero without
 that last line; so does a machine without CUDA, or a directory without
 the cactus_tpu_torch package.
@@ -139,6 +149,10 @@ HMM_ATOL = 5e-3
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 16.7e12
+# a banded traceback walk is a chain of dependent steps; from shared
+# memory each step is at least one shared load (~30 cycles on Hopper, an
+# assumption, not measured here) before the next address is known
+SMEM_STEP_CYCLES = 30
 
 
 def log(msg: str) -> None:
@@ -203,14 +217,66 @@ def time_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def replay_calls(name, calls, timed, group_of, shape_of, unit):
+    """A path's calls of one kernel again, one at a time on the idle card:
+    the kernel's own time, without the other ancestor thread's work or
+    host gaps inside the path's events.  timed(args, kw) does what the
+    call needs first (move host copies to the card, run the kernel that
+    makes its inputs) and returns the function to time; each is timed by
+    time_ms with 3 launches after a warm-up.  Logs the calls, the replayed
+    total, the total by group (band or bin) and the longest call with its
+    shape; returns the total in ms."""
+    by_group: dict = {}
+    longest = (-1.0, None)
+    for args, kw in calls:
+        ms = time_ms(timed(args, kw), 3)
+        group = group_of(args, kw)
+        ms_g, n_g = by_group.get(group, (0.0, 0))
+        by_group[group] = (ms_g + ms, n_g + 1)
+        if ms > longest[0]:
+            longest = (ms, shape_of(args, kw))
+    total = sum(v[0] for v in by_group.values())
+    log(f"{name}: the path's {len(calls)} calls replayed one at a time "
+        f"(CUDA events, 3 launches each after a warm-up): {total:.3f} ms; "
+        f"by {unit}: " + ", ".join(
+            f"{g}: {ms:.3f} ms in {n} calls"
+            for g, (ms, n) in sorted(by_group.items()))
+        + f"; longest call {longest[0]:.3f} ms at {longest[1]}")
+    return total
+
+
+def traceback_cap(m_len, n_len) -> int:
+    """The move capacity S that ops/banded.py::_align_pairs_cuda gives
+    banded_traceback for a banded_dp call's pairs: the next power of two
+    >= the longest m + n, at least 32."""
+    smax = int((m_len.long() + n_len.long()).max()) if len(m_len) else 0
+    return max(32, 1 << (smax - 1).bit_length())
+
+
+def smem_step_ns() -> tuple[float, str]:
+    """One dependent shared-memory step of a traceback walk, in ns: an
+    assumed SMEM_STEP_CYCLES cycles at the card's maximum SM clock (read
+    with nvidia-smi).  Returns (ns, what it assumed)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    mhz = float(out.strip().splitlines()[0])
+    return (SMEM_STEP_CYCLES / mhz * 1e3,
+            f"{SMEM_STEP_CYCLES} cycles at {mhz:.0f} MHz")
+
+
 class Recorder:
     """Stands in for a kernel wrapper during the main path: passes every
     call through to the wrapper (which counts its launch in
     cuda_build.LAUNCHES), brackets it with CUDA events on the current
     stream, and keeps the inputs of the call with the most cells, to time
-    the kernel on them afterwards.  `attr` names the wrapped function
-    where it is not the kernel's name (banded_dp's launch function), and
-    keep_calls keeps every call's inputs, to replay them."""
+    the kernel on them afterwards (cells_of None: keeps none, for a
+    kernel whose inputs another kernel's replay makes again).  `attr`
+    names the wrapped function where it is not the kernel's name
+    (banded_dp's launch function).  keep_calls keeps every call's inputs,
+    to replay them: True on the device, "host" as host copies made after
+    the call's stop event, so that they add nothing to the path's device
+    peak."""
 
     def __init__(self, module, name, cells_of, attr=None, keep_calls=False):
         self.module, self.name, self.attr = module, name, attr or name
@@ -230,14 +296,19 @@ class Recorder:
         start.record()
         out = self.fn(*args, **kw)
         stop.record()
-        cells = self.cells_of(args, kw)
+        kept = args
+        if self.keep_calls == "host":
+            kept = tuple(x.cpu() if torch.is_tensor(x) else x for x in args)
         with self.lock:
+            # under the lock: cells_of may add to counts that both ancestor
+            # threads update
+            cells = self.cells_of(args, kw) if self.cells_of else -1
             self.events.append((start, stop))
             if self.keep_calls:
-                self.calls.append((args, kw))
+                self.calls.append((kept, kw))
             if cells > self.best_cells:
                 self.best_cells = cells
-                self.best = (args, kw)
+                self.best = (kept, kw)
         return out
 
     def device_ms(self) -> float:
@@ -345,11 +416,8 @@ def check_banded(pairs, band, sub_d, dev, errs, what):
             .bit_length())
     mv, ct = banded_cuda.banded_traceback(dirs, args[2], args[3], args[4],
                                           end_mat, S)
-    mv_ref, ct_ref = banded_cuda.banded_traceback_plain(
-        dirs, args[2], args[3], args[4], end_mat, S)
-    if not (torch.equal(ct, ct_ref) and torch.equal(mv, mv_ref)):
-        raise AssertionError(f"banded_traceback {what} differs from the "
-                             "host traceback_band")
+    check_traceback_plain((mv, ct), dirs, args[2], args[3], args[4],
+                          end_mat, S, what)
     errs["banded_traceback"] = 0.0
     log(f"banded_traceback {what}: equal to host traceback_band "
         f"({int((ct < 0).sum())} walks left the band)")
@@ -473,11 +541,12 @@ def phase_main_path(dev):
         # function: the events bracket the launch
         Recorder(banded_cuda, "banded_dp", cells3, attr="launch_banded_dp",
                  keep_calls=True),
-        Recorder(banded_cuda, "banded_traceback",
-                 lambda a, kw: a[0].numel()),
-        Recorder(pairhmm_cuda, "pairhmm_fwd", cells3),
-        Recorder(pairhmm_cuda, "pairhmm_bwd",
-                 lambda a, kw: a[0].numel()),
+        # the traceback's and the backward pass's inputs are made again
+        # from the banded_dp and pairhmm_fwd calls: keeping them would
+        # hold every call's largest dirs / fM tensor on the card
+        Recorder(banded_cuda, "banded_traceback", None),
+        Recorder(pairhmm_cuda, "pairhmm_fwd", cells3, keep_calls=True),
+        Recorder(pairhmm_cuda, "pairhmm_bwd", None),
     ]
     # cells of banded batches that took the native C++ route instead
     native_cells = [0]
@@ -599,9 +668,11 @@ def phase_main_path(dev):
 
 
 def kernel_row(name, source, replaces, launches, errs, ms, plain_ms, bytes_,
-               ops, ops_rate, shape) -> dict:
+               ops, ops_rate, shape, replayed_ms) -> dict:
     """One entry of the kernels line; the bound is the larger of the bytes
-    over the memory rate and the operations over their peak rate."""
+    over the memory rate and the operations over their peak rate.
+    replayed_ms is the path's calls of the kernel replayed one at a time
+    (`replay_calls`)."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_rate * 1e3
     out = dict(
@@ -609,15 +680,29 @@ def kernel_row(name, source, replaces, launches, errs, ms, plain_ms, bytes_,
         launches=launches[name], max_abs_err=errs.get(name, 0.0),
         ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None, shape=shape)
+        library_ms=None, shape=shape, replayed_ms=replayed_ms)
     log(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+        f"ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}); the "
+        f"path's calls replayed {replayed_ms:.3f} ms")
     return out
+
+
+def check_traceback_plain(got, dirs, m, n, lo, end_mat, S, what):
+    """banded_traceback's (moves, counts) against banded_traceback_plain
+    on the same inputs (equal)."""
+    import torch
+    from cactus_tpu_torch.ops import banded_cuda
+    mv_r, ct_r = banded_cuda.banded_traceback_plain(dirs, m, n, lo, end_mat,
+                                                    S)
+    if not (torch.equal(got[0], mv_r) and torch.equal(got[1], ct_r)):
+        raise AssertionError(f"banded_traceback differs from the host "
+                             f"traceback on {what}")
 
 
 def measure(recorders, launches, errs, dev):
     """Each kernel and its plain version on the main path's largest
-    inputs for it, beside the bound for the same work."""
+    inputs for it, beside the bound for the same work, and every call of
+    the path replayed one at a time."""
     import torch
     from cactus_tpu_torch.ops import banded as tb
     from cactus_tpu_torch.ops import banded_cuda, pairhmm_cuda
@@ -626,9 +711,10 @@ def measure(recorders, launches, errs, dev):
     rows = []
 
     def row(name, source, replaces, ms, plain_ms, bytes_, ops, ops_rate,
-            shape):
+            shape, replayed_ms):
         rows.append(kernel_row(name, source, replaces, launches, errs, ms,
-                               plain_ms, bytes_, ops, ops_rate, shape))
+                               plain_ms, bytes_, ops, ops_rate, shape,
+                               replayed_ms))
 
     # banded_dp
     (q, t, m, n, lo, sub), kw = recorders["banded_dp"].best
@@ -660,6 +746,14 @@ def measure(recorders, launches, errs, dev):
     old_ms = max(old_ops / INT32_OPS_PER_S, old_bytes / HBM_BYTES_PER_S)
     log(f"banded_dp band-cell bound (rows 1..m x band): {old_ms * 1e3:.4f} "
         "ms")
+    calls = recorders["banded_dp"].calls
+
+    def dp_shape(a, k):
+        return list(a[0].shape) + [k["band"]]
+
+    dp_replayed = replay_calls(
+        "banded_dp", calls, lambda a, k: (lambda: fn(*a, **k)),
+        lambda a, k: k["band"], dp_shape, "band")
     # the live cells: q's bases of the rows 1..m, the t_shift bytes they
     # read (columns j = 0..n), the scalars and the matrix in; a direction
     # byte a live cell and the end scores out
@@ -669,40 +763,71 @@ def measure(recorders, launches, errs, dev):
         rows_ + t_bytes + 12 * P + 144 + live + 16 * P,
         banded_cuda.BANDED_OPS_PER_CELL * live
         + banded_cuda.BANDED_OPS_PER_PAIR * P, INT32_OPS_PER_S,
-        [P, M, B])
-    # every call of the main path again, one at a time on the idle card:
-    # the kernels' own time, without the other ancestor thread's work or
-    # host gaps inside the events
-    calls = recorders["banded_dp"].calls
-    by_band: dict = {}
-    for a, k in calls:
-        ms_b, n_b = by_band.get(k["band"], (0.0, 0))
-        by_band[k["band"]] = (ms_b + time_ms(lambda: fn(*a, **k), 3), n_b + 1)
-    log(f"banded_dp: the main path's {len(calls)} calls replayed one at a "
-        f"time (CUDA events, 3 launches each after a warm-up): "
-        f"{sum(v[0] for v in by_band.values()):.2f} ms; by band: "
-        + ", ".join(f"{band}: {ms:.2f} ms in {n_c} calls"
-                    for band, (ms, n_c) in sorted(by_band.items())))
+        [P, M, B], dp_replayed)
 
-    # banded_traceback
-    (dirs, m, n, lo, em_, S), _kw = recorders["banded_traceback"].best
-    mv, ct = recorders["banded_traceback"].fn(dirs, m, n, lo, em_, S)
-    mv_r, ct_r = banded_cuda.banded_traceback_plain(dirs, m, n, lo, em_, S)
-    if not (torch.equal(mv, mv_r) and torch.equal(ct, ct_r)):
-        raise AssertionError("banded_traceback differs from the host "
-                             "traceback on the main path's inputs")
-    ms = time_ms(lambda: recorders["banded_traceback"].fn(dirs, m, n, lo, em_,
-                                                          S), 20)
-    plain_ms = time_ms(lambda: banded_cuda.banded_traceback_plain(
-        dirs, m, n, lo, em_, S), 1)
-    steps = int(ct.clamp_min(0).sum())
-    P = dirs.shape[0]
+    # banded_traceback: each call's inputs are banded_dp's outputs on the
+    # same call, made again, with S as _align_pairs_cuda derives it
+    tb_fn = recorders["banded_traceback"].fn
+    step_ns, step_what = smem_step_ns()
+    walks = []        # (longest walk, steps, shape, call index) a call
+
+    def tb_timed(a, k):
+        dirs, _s, em_ = fn(*a, **k)
+        S = traceback_cap(a[2], a[3])
+        got = tb_fn(dirs, a[2], a[3], a[4], em_, S)
+        check_traceback_plain(got, dirs, a[2], a[3], a[4], em_, S,
+                              f"the main path's call {dp_shape(a, k)}")
+        ct = got[1]
+        walks.append((int(ct.max()), int(ct.clamp_min(0).sum()),
+                      dp_shape(a, k) + [S], len(walks)))
+        return lambda: tb_fn(dirs, a[2], a[3], a[4], em_, S)
+
+    tb_replayed = replay_calls(
+        "banded_traceback", calls, tb_timed, lambda a, k: k["band"],
+        lambda a, k: dp_shape(a, k) + [traceback_cap(a[2], a[3])], "band")
+    log(f"banded_traceback on the main path: every replayed call equal to "
+        f"the host traceback; {sum(w[1] for w in walks)} steps walked "
+        f"(sum of counts) in {len(walks)} calls; "
+        f"{sum(1 for w in walks if w[0] < 0)} calls with a walk past the "
+        "band or S")
+
+    def tb_measure(a, k, what):
+        """(ms, plain ms, steps, longest walk, S) of one call."""
+        dirs, _s, em_ = fn(*a, **k)
+        S = traceback_cap(a[2], a[3])
+        got = tb_fn(dirs, a[2], a[3], a[4], em_, S)
+        check_traceback_plain(got, dirs, a[2], a[3], a[4], em_, S, what)
+        ms = time_ms(lambda: tb_fn(dirs, a[2], a[3], a[4], em_, S), 20)
+        plain_ms = time_ms(lambda: banded_cuda.banded_traceback_plain(
+            dirs, a[2], a[3], a[4], em_, S), 1)
+        ct = got[1]
+        return ms, plain_ms, int(ct.clamp_min(0).sum()), int(ct.max()), S
+
+    # the call with the longest walk: a walk is a chain of dependent
+    # steps, so its latency line is the longest walk x one shared step
+    longest = max(walks)
+    a, k = calls[longest[3]]
+    ms_w, plain_w, steps_w, walk_w, S_w = tb_measure(
+        a, k, "the main path's longest-walk call")
+    bytes_w = 2 * steps_w + 20 * a[0].shape[0]
+    log(f"banded_traceback at its longest-walk call {dp_shape(a, k)} S "
+        f"{S_w}: kernel {ms_w:.4f} ms, plain {plain_w:.4f} ms; longest walk "
+        f"{walk_w} steps, {steps_w} steps in all; latency line {walk_w} x "
+        f"{step_ns:.2f} ns = {walk_w * step_ns / 1e6:.4f} ms ({step_what}); "
+        f"byte bound {bytes_w / HBM_BYTES_PER_S * 1e3:.6f} ms")
+    # the table's row: banded_dp's largest call (the most dirs bytes)
+    a, k = recorders["banded_dp"].best
+    ms, plain_ms, steps, walk, S = tb_measure(
+        a, k, "the main path's largest call")
+    P = a[0].shape[0]
+    log(f"banded_traceback at {dp_shape(a, k)} S {S}: longest walk {walk} "
+        f"steps, latency line {walk * step_ns / 1e6:.4f} ms ({step_what})")
     # reads the walked direction bytes and the per-pair scalars, writes
     # one move byte per step and the counts
     row("banded_traceback", "cactus_tpu_torch/csrc/banded.cu",
         "cactus_tpu/ops/banded.py:303", ms, plain_ms,
         2 * steps + 20 * P, 8 * steps, INT32_OPS_PER_S,
-        list(dirs.shape) + [int(S)])
+        dp_shape(a, k) + [S], tb_replayed)
 
     # pairhmm_fwd / pairhmm_bwd
     args, kw = recorders["pairhmm_fwd"].best
@@ -722,18 +847,22 @@ def measure(recorders, launches, errs, dev):
     errs["pairhmm_bwd"] = max(errs.get("pairhmm_bwd", 0.0), d_post)
     errs["pairhmm_fwd"] = max(errs.get("pairhmm_fwd", 0.0),
                               float((fM - fM_r).abs().max()))
+    del fM_r, lsF_r, logZ_r, post_r
     rows_, live = int(m.sum()), int((m > 0).sum())
     true_cells = rows_ * B
     # the rows the pairs use, as for banded_dp; float32 cells out (fM) and
     # in again (fM read by the backward pass, post written)
     in_bytes = rows_ + rows_ + live * B + 12 * P + 144
+    fwd_replayed, bwd_replayed = replay_hmm("pairhmm",
+                                            recorders["pairhmm_fwd"].calls,
+                                            fwd, bwd, dev)
     ms = time_ms(lambda: fwd(*args, **kw), 10)
     plain_ms = time_ms(lambda: tp.forward_banded(*args, **kw), 1)
     row("pairhmm_fwd", "cactus_tpu_torch/csrc/pairhmm.cu",
         "cactus_tpu/ops/pairhmm_pallas.py:108", ms, plain_ms,
         in_bytes + 4 * true_cells + 4 * rows_ + 4 * P,
         pairhmm_cuda.PAIRHMM_FWD_FLOPS_PER_CELL * true_cells, FP32_OPS_PER_S,
-        [P, M, B])
+        [P, M, B], fwd_replayed)
     ms = time_ms(lambda: bwd(fM, lsF, logZ, *args, **kw), 10)
     plain_ms = time_ms(lambda: tp.backward_posterior(fM, lsF, logZ, *args,
                                                      **kw), 1)
@@ -741,10 +870,39 @@ def measure(recorders, launches, errs, dev):
         "cactus_tpu/ops/pairhmm_pallas.py:183", ms, plain_ms,
         in_bytes + 4 * true_cells + 4 * rows_ + 4 * P + 4 * true_cells,
         pairhmm_cuda.PAIRHMM_BWD_FLOPS_PER_CELL * true_cells, FP32_OPS_PER_S,
-        [P, M, B])
+        [P, M, B], bwd_replayed)
     log("no single PyTorch call computes the banded affine DP, its "
         "traceback or the pair-HMM passes: library_ms is null")
     return rows
+
+
+def on_device(args, dev):
+    """A kept call's arguments on the card (host copies moved back)."""
+    import torch
+    return tuple(x.to(dev) if torch.is_tensor(x) else x for x in args)
+
+
+def replay_hmm(name, calls, fwd, bwd, dev):
+    """A pair-HMM's forward calls replayed one at a time, then its
+    backward passes, each on the forward pass's outputs for the same call
+    made again (untimed); returns the two totals in ms."""
+    def shape(a, k):
+        return list(a[0].shape) + [k["band"]]
+
+    def fwd_timed(a, k):
+        a = on_device(a, dev)
+        return lambda: fwd(*a, **k)
+
+    def bwd_timed(a, k):
+        a = on_device(a, dev)
+        fM, lsF, logZ = fwd(*a, **k)
+        return lambda: bwd(fM, lsF, logZ, *a, **k)
+
+    group = (lambda a, k: k["band"])
+    return (replay_calls(f"{name}_fwd", calls, fwd_timed, group, shape,
+                         "band"),
+            replay_calls(f"{name}_bwd", calls, bwd_timed, group, shape,
+                         "band"))
 
 
 def phase_pecan(dev):
@@ -783,9 +941,11 @@ def phase_pecan(dev):
                 work["calls"] += 1
             return q.shape[0] * q.shape[1] * kw["band"]
 
-        recorders = [Recorder(pairhmm5_cuda, "pairhmm5_fwd", cells5),
-                     Recorder(pairhmm5_cuda, "pairhmm5_bwd",
-                              lambda a_, kw: a_[0].numel())]
+        # the backward pass's inputs are made again from the forward
+        # calls (keeping them would hold each call's fM on the card)
+        recorders = [Recorder(pairhmm5_cuda, "pairhmm5_fwd", cells5,
+                              keep_calls=True),
+                     Recorder(pairhmm5_cuda, "pairhmm5_bwd", None)]
         for rec in recorders:
             rec.install()
         torch.cuda.synchronize()
@@ -852,7 +1012,7 @@ def hmm5_bytes(args, B):
             4 * rows_ + 4 * P)
 
 
-def measure_pecan(recorders, launches, errs):
+def measure_pecan(recorders, launches, errs, dev):
     """The 5-state kernels and their plain versions on the pecan path's
     largest inputs, beside the bound for the same work."""
     from cactus_tpu_torch.ops import pairhmm5 as tp5
@@ -887,6 +1047,8 @@ def measure_pecan(recorders, launches, errs):
     errs["pairhmm5_fwd"] = max(errs.get("pairhmm5_fwd", 0.0),
                                float((fM - fM_r).abs().max()))
     del fM_r, lsF_r, logZ_r, post, plain
+    fwd_replayed, bwd_replayed = replay_hmm(
+        "pairhmm5", recorders["pairhmm5_fwd"].calls, fwd, bwd, dev)
     in_bytes, cells, scal = hmm5_bytes(args, B)
     ms = time_ms(lambda: fwd(*args, **kw), 5)
     rows = [kernel_row(
@@ -894,14 +1056,14 @@ def measure_pecan(recorders, launches, errs):
         "cactus_tpu/ops/pairhmm5_pallas.py:56", launches, errs, ms,
         plain_fwd_ms, in_bytes + 4 * cells + scal,
         pairhmm5_cuda.PAIRHMM5_FWD_FLOPS_PER_CELL * cells, FP32_OPS_PER_S,
-        [P, M, B])]
+        [P, M, B], fwd_replayed)]
     ms = time_ms(lambda: bwd(fM, lsF, logZ, *args, **kw), 5)
     rows.append(kernel_row(
         "pairhmm5_bwd", "cactus_tpu_torch/csrc/pairhmm5.cu",
         "cactus_tpu/ops/pairhmm5_pallas.py:143", launches, errs, ms,
         plain_bwd_ms, in_bytes + 4 * cells + scal + 4 * cells,
         pairhmm5_cuda.PAIRHMM5_BWD_FLOPS_PER_CELL * cells, FP32_OPS_PER_S,
-        [P, M, B]))
+        [P, M, B], bwd_replayed))
     log("no single PyTorch call computes the 5-state pair-HMM passes: "
         "library_ms is null")
     return rows
@@ -1073,7 +1235,8 @@ def phase_poa(dev):
                 work["B"] = max(work["B"], out["B"])
             return out
 
-        recs = [Recorder(poa_cuda, k, cells_poa)
+        # every call's inputs as host copies, for the replay
+        recs = [Recorder(poa_cuda, k, cells_poa, keep_calls="host")
                 for k in ("poa_chain", "poa_affine")]
         for rec in recs:
             rec.install()
@@ -1147,7 +1310,8 @@ def phase_poa_linear(dev):
         groups.append([mutate(rng, root, sub=0.05, indel=0.03)
                        for _m in range(int(rng.integers(3, 7)))])
     rec = Recorder(poa_cuda, "poa_linear",
-                   lambda a, kw: a[0].shape[0] * (a[2].shape[0] + 1))
+                   lambda a, kw: a[0].shape[0] * (a[2].shape[0] + 1),
+                   keep_calls="host")
     rec.install()
     torch.cuda.synchronize()
     cuda_build.reset_launches()
@@ -1194,16 +1358,31 @@ def poa_used(args, band):
     return real, cols, extra
 
 
-def measure_poa(recorders, launches, errs):
+def measure_poa(recorders, launches, errs, dev):
     """The three POA kernels and their plain versions on the largest
-    inputs their paths gave them, beside the bound for the same work."""
+    inputs their paths gave them, beside the bound for the same work, and
+    each path's calls replayed one at a time, by bin."""
     import torch
     from cactus_tpu_torch.ops import poa as tpoa
     from cactus_tpu_torch.ops import poa_cuda
 
     rows = []
+
+    def replayed(name, shape_of):
+        """The path's calls of `name` replayed, by bin: the shape but P."""
+        fn = recorders[name].fn
+
+        def timed(a, k):
+            a = on_device(a, dev)
+            return lambda: fn(*a, **k)
+
+        return replay_calls(name, recorders[name].calls, timed,
+                            lambda a, k: tuple(shape_of(a, k)[-2:]),
+                            shape_of, "bin")
+
     for name in ("poa_affine", "poa_chain"):
         args, kw = recorders[name].best
+        args = on_device(args, dev)
         P, N = args[0].shape
         B = kw["band"]
         fn = recorders[name].fn
@@ -1230,12 +1409,14 @@ def measure_poa(recorders, launches, errs):
                * int((extra * cols).sum()))
         line = {"poa_affine": "cactus_tpu/ops/poa_pallas.py:397",
                 "poa_chain": "cactus_tpu/ops/poa_pallas.py:915"}[name]
+        total = replayed(name, lambda a, k: [*a[0].shape, k["band"]])
         rows.append(kernel_row(name, "cactus_tpu_torch/csrc/poa.cu", line,
                                launches, errs, ms, plain_ms, bytes_, ops,
-                               INT32_OPS_PER_S, [P, N, B]))
+                               INT32_OPS_PER_S, [P, N, B], total))
         log(f"{name}: {cells} cells used of {P * N * B} computed")
 
     (bases, preds, q), kw = recorders["poa_linear"].best
+    bases, preds, q = on_device((bases, preds, q), dev)
     fn = recorders["poa_linear"].fn
     got = fn(bases, preds, q, **kw)
     plain = {}
@@ -1258,7 +1439,9 @@ def measure_poa(recorders, launches, errs):
         + 4 * N,
         poa_cuda.POA_LINEAR_OPS_PER_CELL * cells
         + poa_cuda.POA_LINEAR_OPS_PER_PRED * slots * (L + 1),
-        INT32_OPS_PER_S, [int(bases.shape[0]), int(q.shape[0]) + 1])
+        INT32_OPS_PER_S, [int(bases.shape[0]), int(q.shape[0]) + 1],
+        replayed("poa_linear", lambda a, k: [a[0].shape[0],
+                                             a[2].shape[0] + 1]))
     rows.append(row)
     log(f"poa_linear: {cells} cells used of "
         f"{bases.shape[0] * (q.shape[0] + 1)} computed")
@@ -1379,7 +1562,7 @@ def main() -> int:
     p_launches, p_recorders = phase_pecan(dev)
     log(f"phase 4 (pecan path) {time.time() - t0:.1f} s")
     t0 = time.time()
-    rows += measure_pecan(p_recorders, p_launches, errs)
+    rows += measure_pecan(p_recorders, p_launches, errs, dev)
     log(f"5-state kernel timing {time.time() - t0:.1f} s")
     t0 = time.time()
     phase_cli()
@@ -1393,7 +1576,7 @@ def main() -> int:
     log(f"phase 7 (poa path) {time.time() - t0:.1f} s")
     t0 = time.time()
     rows += measure_poa({**poa_recorders, **lin_recorders},
-                        {**poa_launches, **lin_launches}, errs)
+                        {**poa_launches, **lin_launches}, errs, dev)
     log(f"POA kernel timing {time.time() - t0:.1f} s; total "
         f"{time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time banded_dp on the card at the shapes chip_smoke.py checks it at.
+"""Time banded_dp and banded_traceback on the card at the shapes
+chip_smoke.py checks them at.
 
     python tests/banded_sweep_report.py [--root DIR] [--reps N]
                                         [--replay FILE]
@@ -17,12 +18,18 @@ like the default path's largest launch, the BAR star engine's short ends
 longer, band 1024).  Where the tree's banded_dp takes max_live, every
 shape runs with the batch's live width, as the path passes it, and the
 short ends also with max_live 128, 256, 512 and 1024 (32, 64, 128 and
-256 threads a block).  With --replay, also every banded_dp call of the
-default path that `python3 chip_smoke.py --dump-banded FILE` saved, one
-at a time (3 launches each after a warm-up), summed by band.  Prints the
-card's name and power limit and one JSON line per timing (CUDA events,
-mean of --reps launches after one warm-up, through the wrapper, or its
-launch function where the tree has one).  Needs a CUDA device.
+256 threads a block).  banded_traceback is timed at every shape on
+banded_dp's outputs, with the move capacity S the path gives it
+(chip_smoke.traceback_cap).  With --replay, also every banded_dp call of
+the default path that `python3 chip_smoke.py --dump-banded FILE` saved,
+one at a time (--reps launches each after a warm-up), and
+banded_traceback on each call's outputs, summed by band, with the steps
+walked and the longest walk.  Prints the card's name and power limit and
+one JSON line per timing (CUDA events, mean of --reps launches after one
+warm-up, through the wrapper, or banded_dp's launch function where the
+tree has one); banded_traceback's lines also carry its kernel's device
+time from torch.profiler (`device_ms`), which leaves out the wrapper's
+host work.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -130,33 +137,100 @@ def main() -> int:
                 ms=ms, live_cells=live_cells(packed, n, band),
                 band_cells=int(packed["m_len"][:n].sum()) * band)),
                 flush=True)
+        dirs, _scores, end_mat = banded_cuda.banded_dp(*dargs, sub, **kw)
+        S = smoke.traceback_cap(dargs[2], dargs[3])
+        tb_args = (dirs, dargs[2], dargs[3], dargs[4], end_mat, S)
+        counts = banded_cuda.banded_traceback(*tb_args)[1]
+        ms = smoke.time_ms(lambda: banded_cuda.banded_traceback(*tb_args),
+                           args.reps)
+        dev_ms = kernel_device_ms(
+            lambda: banded_cuda.banded_traceback(*tb_args), args.reps,
+            "banded_traceback_kernel")
+        print(json.dumps(dict(
+            root=os.path.relpath(root, HERE), case=name,
+            kernel="banded_traceback", shape=[P, M, band, S], ms=ms,
+            device_ms=dev_ms,
+            steps=int(counts.clamp_min(0).sum()),
+            longest_walk=int(counts.max()))), flush=True)
+        del dirs, tb_args
     if args.replay:
-        replay(args.replay, banded_cuda, smoke, dev, os.path.relpath(root,
-                                                                    HERE))
+        replay(args.replay, banded_cuda, smoke, dev,
+               os.path.relpath(root, HERE), args.reps)
     return 0
 
 
-def replay(path, banded_cuda, smoke, dev, root):
-    """Time every saved banded_dp call, one at a time."""
+def kernel_device_ms(fn, reps, kernel):
+    """Device time a call of fn spends in the CUDA kernel named `kernel`,
+    from torch.profiler's CUDA activity over reps calls after a warm-up
+    (None where the profiler records no such kernel or cannot trace).
+    Unlike CUDA events around the calls, it leaves out the wrapper's host
+    work, which paces a launch whose kernel is shorter than it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except (RuntimeError, AssertionError) as err:   # no CUPTI tracing
+        print(f"banded_sweep_report: profiler: {err}", file=sys.stderr)
+        return None
+    us = sum(getattr(e, "self_device_time_total", 0) or
+             getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages() if kernel in e.key)
+    return us / 1e3 / reps if us else None
+
+
+def replay(path, banded_cuda, smoke, dev, root, reps):
+    """Time every saved banded_dp call, one at a time, and
+    banded_traceback on each call's outputs (CUDA events around reps
+    calls, and the kernel's device time from the profiler)."""
     import torch
     saved = torch.load(path)
     sub = saved["submat"].to(dev)
     launch = getattr(banded_cuda, "launch_banded_dp", None)
     by_band: dict = {}
+    tb_by_band: dict = {}
+    steps = longest = 0
     for tensors, kw in saved["calls"]:
         dargs = [x.to(dev) for x in tensors]
         fn = launch
         if launch is None:          # a tree without max_live
             fn = banded_cuda.banded_dp
             kw = {k: v for k, v in kw.items() if k != "max_live"}
-        ms = smoke.time_ms(lambda: fn(*dargs, sub, **kw), 3)
+        ms = smoke.time_ms(lambda: fn(*dargs, sub, **kw), reps)
         ms_b, n_b = by_band.get(kw["band"], (0.0, 0))
         by_band[kw["band"]] = (ms_b + ms, n_b + 1)
+        dirs, _scores, end_mat = fn(*dargs, sub, **kw)
+        tb_args = (dirs, dargs[2], dargs[3], dargs[4], end_mat,
+                   smoke.traceback_cap(dargs[2], dargs[3]))
+        counts = banded_cuda.banded_traceback(*tb_args)[1]
+        steps += int(counts.clamp_min(0).sum())
+        longest = max(longest, int(counts.max()))
+        ms = smoke.time_ms(lambda: banded_cuda.banded_traceback(*tb_args),
+                           reps)
+        dev_ms = kernel_device_ms(
+            lambda: banded_cuda.banded_traceback(*tb_args), reps,
+            "banded_traceback_kernel")
+        ms_b, n_b, d_b = tb_by_band.get(kw["band"], (0.0, 0, 0.0))
+        tb_by_band[kw["band"]] = (ms_b + ms, n_b + 1,
+                                  None if dev_ms is None or d_b is None
+                                  else d_b + dev_ms)
+        del dirs, tb_args
     print(json.dumps(dict(
         root=root, case="main path replay", calls=len(saved["calls"]),
         ms=sum(v[0] for v in by_band.values()),
         by_band={str(b): v for b, v in sorted(by_band.items())})),
         flush=True)
+    print(json.dumps(dict(
+        root=root, case="main path replay", kernel="banded_traceback",
+        calls=len(saved["calls"]), ms=sum(v[0] for v in tb_by_band.values()),
+        device_ms=(None if any(v[2] is None for v in tb_by_band.values())
+                   else sum(v[2] for v in tb_by_band.values())),
+        by_band={str(b): v for b, v in sorted(tb_by_band.items())},
+        steps=steps, longest_walk=longest)), flush=True)
 
 
 if __name__ == "__main__":

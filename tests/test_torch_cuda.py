@@ -182,6 +182,34 @@ def test_traceback_matches_host(cuda):
     _check_traceback(dirs, args, end_mat, 2048)
 
 
+@pytest.mark.parametrize("band,cut", [(128, None), (1024, (500, 900))])
+def test_traceback_long_pair_and_wide_d_run(cuda, band, cut):
+    """A band-128 pair of 5000 rows (many tiles of whole rows), and a
+    400-base D run at band 1024, wider than the kernel's 256-column
+    tile."""
+    rng = np.random.default_rng(band)
+    if cut is None:
+        q = rng.integers(0, 4, 5000).astype(np.uint8)
+        t = _mutate(rng, q, sub=0.05, indel=0.02)
+    else:
+        t = rng.integers(0, 4, 1400).astype(np.uint8)
+        q = np.concatenate([t[:cut[0]], t[cut[1]:]])
+    packed = tb.pack_band_batch([(q, t)], band, min_batch=1)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    dirs, _scores, end_mat = banded_cuda.banded_dp(
+        *args, sub, band=band, gap_open=400, gap_extend=30,
+        max_live=banded_cuda.live_width(args[3], band))
+    S = 1 << (len(q) + len(t) - 1).bit_length()
+    _check_traceback(dirs, args, end_mat, S)
+    moves, counts = banded_cuda.banded_traceback(dirs, args[2], args[3],
+                                                 args[4], end_mat, S)
+    ops = tb.moves_to_ops(moves[0].cpu().numpy(), int(counts[0]))
+    assert int(counts[0]) >= len(t)
+    if cut is not None:
+        assert max(ln for op, ln in ops if op == "D") >= cut[1] - cut[0]
+
+
 def test_align_pairs_banded_cuda_equals_native(cuda):
     pairs = _pairs(5, 50, 1200, 256)
     sub = SUBMAT
@@ -326,5 +354,83 @@ def test_poa_affine_kernels_match_plain(cuda, kernel, P, n, l, band):
     torch.cuda.synchronize()
     assert cuda_build.launches()[kernel] == n0 + 1
     ref = poa_cuda.poa_affine(*[a.cpu() for a in args], sub.cpu(), **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+# The kernels below run 32-thread blocks at these widths (pair-HMMs at
+# band <= 32, poa_affine at B 32, poa_chain at B 4096, one warp a block),
+# where a load of the 6x6 matrix by threads 0-35 would leave entries
+# 32-35 (row 5, the pad code, columns 2-5) unloaded.  Each puts base 5 in
+# live rows, with a row 5 whose entries all differ.
+ROW5_EM = np.array([0.55, 0.65, 0.75, 0.85, 0.95, 1.05], np.float32)
+ROW5_SUB = np.array([-3, 2, 7, -11, 5, -1000], np.int32)
+
+
+def _with_base5(args, rng):
+    """Code 5 at a few live query rows of every pair with m >= 1."""
+    q, m = args[0].clone(), args[2].cpu().numpy()
+    for p in range(q.shape[0]):
+        if m[p] > 0:
+            rows = rng.integers(0, m[p], max(1, m[p] // 8))
+            q[p, torch.from_numpy(rows)] = 5
+    return [q] + args[1:]
+
+
+@pytest.mark.parametrize("band", [16, 32])
+def test_pairhmm_base5_rows_in_32_thread_blocks(cuda, band):
+    pairs = _pairs(band + 40, 6, 300, band)
+    _packed_np, args = _packed(pairs, band, cuda)
+    args = _with_base5(args, np.random.default_rng(band))
+    p = tp.HmmParams()
+    em_np = p.emissions().copy()
+    em_np[5] = ROW5_EM
+    em = torch.from_numpy(em_np).to(cuda)
+    kw = dict(band=band, delta=p.delta, epsilon=p.epsilon)
+    fM, lsF, logZ = pairhmm_cuda.pairhmm_fwd(*args, em, **kw)
+    post = pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ, *args, em, **kw)
+    torch.cuda.synchronize()
+    ref = tp.posterior_banded_batch(*[a.cpu() for a in args], em.cpu(), **kw)
+    assert torch.isfinite(post).all()
+    assert float((post.cpu() - ref).abs().max()) <= HMM_ATOL
+
+
+@pytest.mark.parametrize("band", [16, 32])
+def test_pairhmm5_base5_rows_in_32_thread_blocks(cuda, band):
+    pairs = _pairs(band + 50, 6, 300, band)
+    _packed_np, args = _packed(pairs, band, cuda)
+    args = _with_base5(args, np.random.default_rng(band + 1))
+    p = tp5.Hmm5Params(p_match=0.8)
+    em_np = p.emissions().copy()
+    em_np[5] = ROW5_EM
+    em = torch.from_numpy(em_np).to(cuda)
+    kw = dict(band=band, params=p)
+    fM, lsF, logZ = pairhmm5_cuda.pairhmm5_fwd(*args, em, **kw)
+    post = pairhmm5_cuda.pairhmm5_bwd(fM, lsF, logZ, *args, em, **kw)
+    torch.cuda.synchronize()
+    fM_r, lsF_r, logZ_r = tp5.forward_banded5(*args, em, **kw)
+    ref = tp5.backward_posterior5(fM_r, lsF_r, logZ_r, *args, em, **kw)
+    assert torch.isfinite(post).all()
+    assert float((post - ref).abs().max()) <= HMM_ATOL
+
+
+@pytest.mark.parametrize("kernel,P,n,l,band", [
+    ("poa_affine", 4, 64, 50, 32), ("poa_chain", 2, 64, 300, 4096)])
+def test_poa_base5_nodes_in_32_thread_blocks(cuda, kernel, P, n, l, band):
+    rng = np.random.default_rng(n + band)
+    bases, preds, off, q_ext, l_len = _poa_batch(
+        rng, P, n, l, band, chain=kernel == "poa_chain")
+    for i in range(P):
+        real = np.flatnonzero((preds[i] >= 0).any(axis=1))
+        bases[i, rng.choice(real, max(1, len(real) // 8))] = 5
+    assert poa_cuda.chain_certified(preds, off) == (kernel == "poa_chain")
+    sub_np = SUBMAT.copy()
+    sub_np[5] = ROW5_SUB
+    args = [torch.from_numpy(x).to(cuda)
+            for x in (bases, preds, off, q_ext, l_len, sub_np)]
+    kw = dict(band=band, o1=400, e1=30, o2=1200, e2=1)
+    got = getattr(poa_cuda, kernel)(*args, **kw)
+    torch.cuda.synchronize()
+    ref = poa_cuda.poa_affine(*[a.cpu() for a in args], **kw)
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
