@@ -25,9 +25,11 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("banded", "pairhmm", "pairhmm5", "poa")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# the pair-HMMs keep each float32 multiply and add separately rounded, as
-# the plain PyTorch versions do, instead of contracting them into FMAs
-EXTRA_FLAGS = {"pairhmm": ("-fmad=false",), "pairhmm5": ("-fmad=false",)}
+# the 5-state pair-HMM keeps each float32 multiply and add separately
+# rounded, as its plain PyTorch version does, instead of contracting them
+# into FMAs (the 3-state kernels, which rescale once per 8 rows, follow
+# their plain version only to rounding anyway)
+EXTRA_FLAGS = {"pairhmm5": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -7,12 +7,17 @@ Source: csrc/pairhmm.cu (see its header for the design).
   ops/pairhmm.py::forward_banded and ::backward_posterior, the two halves
   of cactus_tpu/ops/pairhmm.py::posterior_banded_batch; the backward
   kernel fuses the posterior combine, so bM never reaches device memory.
-  Every row is rescaled, as the contract does.
-- Bound on an H100: device-memory bytes.  The forward pass writes one
-  float32 per cell (PAIRHMM_FWD_FLOPS_PER_CELL float operations against
-  4 bytes); the backward pass reads one and writes one
-  (PAIRHMM_BWD_FLOPS_PER_CELL against 8 bytes).  Both sit far below the
-  FP32 units' ~8 operations per byte of balance.
+  The band is rescaled once per 8 rows, as the TPU kernel does; when a
+  step ends, each of its fM rows is stored divided by its own maximum and
+  its lsF is the plain version's running log-scale, so fM, lsF and the
+  posterior's clip are the plain version's up to rounding.
+- Bound on an H100: device-memory bytes by the roofline (the forward pass
+  writes one float32 per cell, PAIRHMM_FWD_FLOPS_PER_CELL float
+  operations against 4 bytes; the backward pass reads one and writes one,
+  PAIRHMM_BWD_FLOPS_PER_CELL against 8 bytes), but a launch holds a few
+  pairs whose rows depend on each other, so what bounds it in practice is
+  the longest pair's rows times a row's dependent chain (chip_smoke.py's
+  latency line).
 
 Each wrapper checks its tensors, launches on the current CUDA stream and
 adds one to its count in cuda_build.LAUNCHES.  A CPU tensor gets the
@@ -29,11 +34,12 @@ import torch
 from . import cuda_build
 from .pairhmm import backward_posterior, forward_banded
 
-# float32 operations per cell as the kernels are written (forward: mM 6,
-# mX 3, masks, the chain map composition 3 and replay 3, band maximum 2,
-# rescale 3 divisions; backward: mm 2, x and nX 3, chain 3 + 3, nM 4,
-# band maximum 2, rescale 2, posterior 3 with clamps)
-PAIRHMM_FWD_FLOPS_PER_CELL = 20
+# float32 operations per cell as the kernels are written (forward: mM 5,
+# mX 3, the chain map fold 3 and replay 3, band maximum 3, the rescale's 3
+# once per 8 rows; backward: mm 1, nX 3, fold 3, replay 3, nM 5, band
+# maximum 3, posterior 1 and its scale with clamps 3, the rescale's 2 once
+# per 8 rows)
+PAIRHMM_FWD_FLOPS_PER_CELL = 17
 PAIRHMM_BWD_FLOPS_PER_CELL = 22
 
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -68,7 +74,10 @@ def _params(delta: float, epsilon: float):
 
 def pairhmm_fwd(q, t_shift, m_len, n_len, lo, em, band: int, delta: float,
                 epsilon: float):
-    """Forward pass: (fM (P, M, B) f32, lsF (P, M) f32, logZ (P,) f32).
+    """Forward pass: (fM (P, M, B) f32, lsF (P, M) f32, logZ (P,) f32);
+    fM * exp(lsF) is each cell's forward match value, every row scaled by
+    its own maximum (the kernel rescales its state once per 8 rows and
+    scales each stored row when its step ends).
 
     q (P, M) uint8, t_shift (P, M+band) uint8, m_len/n_len/lo (P,)
     int32, em (6, 6) float32 odds-ratio emissions, all on one device."""

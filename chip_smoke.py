@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (cactus_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--dump-banded PATH]
+    python3 chip_smoke.py [--dump-banded PATH] [--dump-pairhmm PATH]
 
 Run from the root of a checkout on a machine with one CUDA GPU and the
 CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
@@ -16,9 +16,13 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    end states and the live cells' direction bytes bit-equal; it logs the
    live cells beside the band cells), banded_traceback against the host
    traceback_band (equal), pairhmm_fwd/pairhmm_bwd at bands 512 and 2048
-   with 4096 rows, and pairhmm5_fwd/pairhmm5_bwd at bands 1024, 2048 and
-   4096 with pieces of up to 3000 rows and at band 16384 (posterior max
-   |diff| <= HMM_ATOL).
+   with 4096 rows (posterior max |diff| <= HMM_ATOL, logZ within
+   LOGZ_RTOL, and the forward values log(fM) + lsF within FWD_LOG_ATOL
+   where the plain fM is above 1e-30: the kernel rescales once per 8 rows
+   and rounds its rows differently), and pairhmm5_fwd/pairhmm5_bwd at
+   bands 1024,
+   2048 and 4096 with pieces of up to 3000 rows and at band 16384
+   (posterior max |diff| <= HMM_ATOL).
 3. Runs the default path: the evolverMammals-scale regression of
    tests/test_evolver_gate.py (the same 5-genome tree, root_len 600 kb,
    seed 41, tree_workers=2, default Config) through the port's
@@ -37,8 +41,13 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    logs the steps walked, and times its longest-walk call beside a
    latency line: the longest walk x one shared-memory step); and
    pairhmm_fwd, then pairhmm_bwd on each forward call's outputs made
-   again.  Each replay logs its total, by band, and its longest call.
-   With --dump-banded it saves banded_dp's calls' inputs to PATH.
+   again, each call held to the plain versions as in step 2.  Each
+   replay logs its total, by band, and its longest call.  The pair-HMM
+   rows also log the time a row of the longest pair and a latency line:
+   its rows x (2 ceil(log2 B) + ceil(log2 B) / 8) dependent steps of one
+   warp-shuffle latency each.
+   With --dump-banded it saves banded_dp's calls' inputs to PATH, with
+   --dump-pairhmm pairhmm_fwd's.
 4. Runs the pecan path (partialOrderAlignment off: the cPecan BAR engine
    with the 5-state pair-HMM) on the human-dog leaf pair of the same
    tree, seed 41: first at root_len 60 kb, held within PECAN_TOL of the
@@ -140,6 +149,15 @@ POA_GAPS = dict(o1=400, e1=30, o2=1200, e2=1)
 # 4096 rows, where one float32 ulp is ~1e-3; the kernels also sum the
 # in-row chains in another order than the plain Kogge-Stone scan
 HMM_ATOL = 5e-3
+# the 3-state kernels' logZ against the plain version's, relative to
+# max(1, |logZ|): a few float32 ulps of a log-scale sum
+LOGZ_RTOL = 1e-5
+# log(fM) + lsF of the 3-state forward kernel against the plain version's
+# on the cells where the plain fM is above 1e-30: under 1e-3 on homologous
+# pieces (ulps of lsF sums of ~1e4), 0.047 on the default path's diffuse
+# (unrelated) piece, at cells of 1e-30..1e-20 of their row maximum that
+# the kernel's unscaled 8-row steps pass through float32's subnormal range
+FWD_LOG_ATOL = 0.1
 # published H100 SXM peaks (NVIDIA data sheet): device memory 3.35 TB/s,
 # float32 outside the tensor cores 67 TFLOP/s; int32 outside the tensor
 # cores: 64 INT32 lanes per SM, half the 128 FP32 lanes behind the
@@ -151,7 +169,8 @@ FP32_OPS_PER_S = 67e12
 INT32_OPS_PER_S = 16.7e12
 # a banded traceback walk is a chain of dependent steps; from shared
 # memory each step is at least one shared load (~30 cycles on Hopper, an
-# assumption, not measured here) before the next address is known
+# assumption, not measured here) before the next address is known; the
+# pair-HMM's latency line counts a warp shuffle at the same latency
 SMEM_STEP_CYCLES = 30
 
 
@@ -339,15 +358,46 @@ def source_digest() -> str:
     return digest.hexdigest()
 
 
+def ptxas_lines(out):
+    """ptxas's register and spill lines from nvcc's -Xptxas -v output,
+    each prefixed with its kernel's name and template arguments
+    (pairhmm_fwd_kernel<16, 256>)."""
+    import re
+    kernel = "?"
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = demangle(m.group(1))
+        elif "registers" in line or "spill" in line:
+            yield f"{kernel}: {line.replace('ptxas info    :', '').strip()}"
+
+
+def demangle(mangled):
+    """The function name and integer template arguments of an Itanium
+    mangled kernel name: its name is the first length-prefixed part that
+    ends in _kernel."""
+    import re
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]))", mangled):
+        n, at = int(m.group(1)), m.start(2)
+        name = mangled[at:at + n]
+        if name.endswith("_kernel") and len(name) == n:
+            rest = mangled[at + n:]
+            targs = re.match(r"I((?:Li-?\d+E)+)E", rest)
+            if targs:
+                vals = re.findall(r"Li(-?\d+)E", targs.group(1))
+                return f"{name}<{', '.join(vals)}>"
+            return name
+    return mangled
+
+
 def phase_build():
     from cactus_tpu_torch.native import build as native
     from cactus_tpu_torch.ops import cuda_build
     t0 = time.time()
     logs = cuda_build.build()
     for name, out in logs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        for line in ptxas_lines(out):
+            log(f"ptxas {name}: {line}")
     cuda_s = time.time() - t0
     t0 = time.time()
     if native.load() is None:
@@ -423,6 +473,44 @@ def check_banded(pairs, band, sub_d, dev, errs, what):
         f"({int((ct < 0).sum())} walks left the band)")
 
 
+def check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, post_r, what,
+              quiet=False):
+    """The 3-state pair-HMM kernels' outputs against the plain versions':
+    every value finite, the posterior within HMM_ATOL, logZ within
+    LOGZ_RTOL x max(1, |logZ|), and the forward values in log space,
+    log(fM) + lsF, within FWD_LOG_ATOL on the cells where the plain fM is
+    above 1e-30 (the value fM * exp(lsF) that both representations hold,
+    whichever way a row's scale is rounded).  Returns (posterior gap,
+    forward log gap); raises on a failed check."""
+    import torch
+    for name, x in (("fM", fM), ("lsF", lsF), ("logZ", logZ),
+                    ("posterior", post)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{what}: non-finite {name}")
+    d_post = float((post - post_r).abs().max())
+    d_z = float(((logZ - logZ_r).abs()
+                 / logZ_r.abs().clamp_min(1.0)).max())
+    live = fM_r > 1e-30
+    d_fwd = float(((torch.log(fM) + lsF[..., None])
+                   - (torch.log(fM_r) + lsF_r[..., None]))[live].abs()
+                  .max()) if bool(live.any()) else 0.0
+    if not quiet:
+        log(f"{what}: posterior max|diff| {d_post:.3g} (tolerance "
+            f"{HMM_ATOL}), logZ max rel diff {d_z:.3g} (tolerance "
+            f"{LOGZ_RTOL}), log(fM) + lsF max|diff| {d_fwd:.3g} (tolerance "
+            f"{FWD_LOG_ATOL}, on plain fM > 1e-30)")
+    if d_post > HMM_ATOL:
+        raise AssertionError(f"{what}: posterior differs by {d_post} > "
+                             f"{HMM_ATOL}")
+    if d_z > LOGZ_RTOL:
+        raise AssertionError(f"{what}: logZ differs by {d_z} relative > "
+                             f"{LOGZ_RTOL}")
+    if d_fwd > FWD_LOG_ATOL:
+        raise AssertionError(f"{what}: log(fM) + lsF differs by {d_fwd} > "
+                             f"{FWD_LOG_ATOL}")
+    return d_post, d_fwd
+
+
 def phase_kernels_vs_plain(dev, errs):
     """Every kernel against its plain version at the path's shapes."""
     import torch
@@ -455,21 +543,11 @@ def phase_kernels_vs_plain(dev, errs):
         torch.cuda.synchronize()
         fM_r, lsF_r, logZ_r = tp.forward_banded(*args, em, **hk)
         post_r = tp.backward_posterior(fM_r, lsF_r, logZ_r, *args, em, **hk)
-        if not bool(torch.isfinite(post).all()):
-            raise AssertionError(f"pairhmm band {band}: non-finite posterior")
-        d_post = float((post - post_r).abs().max())
-        d_ls = float((lsF - lsF_r).abs().max())
-        rel_fm = float(((fM - fM_r).abs() / fM_r.abs().clamp_min(1e-6))
-                       .max())
-        log(f"pairhmm band {band} ({args[0].shape[0]} pairs x "
-            f"{args[0].shape[1]} rows): posterior max|diff| {d_post:.3g} "
-            f"(tolerance {HMM_ATOL}), lsF max|diff| {d_ls:.3g}, "
-            f"fM max rel diff {rel_fm:.3g}")
-        if d_post > HMM_ATOL:
-            raise AssertionError(f"pairhmm band {band}: posterior differs by "
-                                 f"{d_post} > {HMM_ATOL}")
-        errs["pairhmm_fwd"] = max(errs.get("pairhmm_fwd", 0.0),
-                                  float((fM - fM_r).abs().max()))
+        d_post, d_fwd = check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r,
+                                  post_r, f"pairhmm band {band} "
+                                  f"({args[0].shape[0]} pairs x "
+                                  f"{args[0].shape[1]} rows)")
+        errs["pairhmm_fwd"] = max(errs.get("pairhmm_fwd", 0.0), d_fwd)
         errs["pairhmm_bwd"] = max(errs.get("pairhmm_bwd", 0.0), d_post)
 
     # pecan pieces: a divergence-trained p_match, MUM-split pieces of up
@@ -840,37 +918,64 @@ def measure(recorders, launches, errs, dev):
     post = bwd(fM, lsF, logZ, *args, **kw)
     fM_r, lsF_r, logZ_r = tp.forward_banded(*args, **kw)
     post_r = tp.backward_posterior(fM_r, lsF_r, logZ_r, *args, **kw)
-    d_post = float((post - post_r).abs().max())
-    if d_post > HMM_ATOL:
-        raise AssertionError(f"pairhmm posterior differs by {d_post} on the "
-                             "main path's inputs")
+    d_post, d_fwd = check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r,
+                              post_r, f"pairhmm on the main path's largest "
+                              f"inputs {[P, M, B]}")
     errs["pairhmm_bwd"] = max(errs.get("pairhmm_bwd", 0.0), d_post)
-    errs["pairhmm_fwd"] = max(errs.get("pairhmm_fwd", 0.0),
-                              float((fM - fM_r).abs().max()))
+    errs["pairhmm_fwd"] = max(errs.get("pairhmm_fwd", 0.0), d_fwd)
     del fM_r, lsF_r, logZ_r, post_r
     rows_, live = int(m.sum()), int((m > 0).sum())
     true_cells = rows_ * B
     # the rows the pairs use, as for banded_dp; float32 cells out (fM) and
     # in again (fM read by the backward pass, post written)
     in_bytes = rows_ + rows_ + live * B + 12 * P + 144
+
+    def check_replayed(a, k, fM_, lsF_, logZ_, post_):
+        ref = tp.forward_banded(*a, **k)
+        got = check_hmm(fM_, lsF_, logZ_, post_, *ref,
+                        tp.backward_posterior(*ref, *a, **k),
+                        f"pairhmm replayed call {list(a[0].shape)} band "
+                        f"{k['band']}", quiet=True)
+        errs["pairhmm_bwd"] = max(errs["pairhmm_bwd"], got[0])
+        errs["pairhmm_fwd"] = max(errs["pairhmm_fwd"], got[1])
+
     fwd_replayed, bwd_replayed = replay_hmm("pairhmm",
                                             recorders["pairhmm_fwd"].calls,
-                                            fwd, bwd, dev)
-    ms = time_ms(lambda: fwd(*args, **kw), 10)
-    plain_ms = time_ms(lambda: tp.forward_banded(*args, **kw), 1)
-    row("pairhmm_fwd", "cactus_tpu_torch/csrc/pairhmm.cu",
-        "cactus_tpu/ops/pairhmm_pallas.py:108", ms, plain_ms,
-        in_bytes + 4 * true_cells + 4 * rows_ + 4 * P,
-        pairhmm_cuda.PAIRHMM_FWD_FLOPS_PER_CELL * true_cells, FP32_OPS_PER_S,
-        [P, M, B], fwd_replayed)
-    ms = time_ms(lambda: bwd(fM, lsF, logZ, *args, **kw), 10)
-    plain_ms = time_ms(lambda: tp.backward_posterior(fM, lsF, logZ, *args,
-                                                     **kw), 1)
-    row("pairhmm_bwd", "cactus_tpu_torch/csrc/pairhmm.cu",
-        "cactus_tpu/ops/pairhmm_pallas.py:183", ms, plain_ms,
-        in_bytes + 4 * true_cells + 4 * rows_ + 4 * P + 4 * true_cells,
-        pairhmm_cuda.PAIRHMM_BWD_FLOPS_PER_CELL * true_cells, FP32_OPS_PER_S,
-        [P, M, B], bwd_replayed)
+                                            fwd, bwd, dev, check_replayed)
+    log(f"pairhmm: every replayed call within the tolerances (largest "
+        f"posterior gap {errs['pairhmm_bwd']:.3g}, log(fM) + lsF gap "
+        f"{errs['pairhmm_fwd']:.3g})")
+    # a launch holds a few pairs whose rows depend on each other: its
+    # latency line is the longest pair's rows x the dependent steps a row
+    # cannot avoid (the in-row affine scan, 2 ceil(log2 B), and the band
+    # maximum once per 8 rows, ceil(log2 B) / 8), one warp-shuffle
+    # latency each (SMEM_STEP_CYCLES at the card's maximum SM clock)
+    step_ns, step_what = smem_step_ns()
+    longest = int(m.max())
+    lg = max(1, (B - 1).bit_length())
+    steps_row = 2 * lg + lg / 8
+    latency_ms = longest * steps_row * step_ns / 1e6
+    for name, ms_fn, plain_fn, bytes_, flops, replayed in (
+            ("pairhmm_fwd", lambda: fwd(*args, **kw),
+             lambda: tp.forward_banded(*args, **kw),
+             in_bytes + 4 * true_cells + 4 * rows_ + 4 * P,
+             pairhmm_cuda.PAIRHMM_FWD_FLOPS_PER_CELL, fwd_replayed),
+            ("pairhmm_bwd", lambda: bwd(fM, lsF, logZ, *args, **kw),
+             lambda: tp.backward_posterior(fM, lsF, logZ, *args, **kw),
+             in_bytes + 4 * true_cells + 4 * rows_ + 4 * P + 4 * true_cells,
+             pairhmm_cuda.PAIRHMM_BWD_FLOPS_PER_CELL, bwd_replayed)):
+        ms = time_ms(ms_fn, 10)
+        plain_ms = time_ms(plain_fn, 1)
+        row(name, "cactus_tpu_torch/csrc/pairhmm.cu",
+            "cactus_tpu/ops/pairhmm_pallas.py:"
+            + ("108" if name == "pairhmm_fwd" else "183"), ms, plain_ms,
+            bytes_, flops * true_cells, FP32_OPS_PER_S, [P, M, B], replayed)
+        rows[-1].update(us_per_row=ms * 1e3 / longest)
+        log(f"{name} at {[P, M, B]}: {ms * 1e3 / longest:.4f} us a row of "
+            f"the longest pair ({longest} rows); latency line {longest} x "
+            f"{steps_row:.3f} steps x {step_ns:.2f} ns = {latency_ms:.4f} ms "
+            f"({step_what}), {ms / latency_ms:.2f}x; byte bound "
+            f"{rows[-1]['bound_ms']:.6f} ms")
     log("no single PyTorch call computes the banded affine DP, its "
         "traceback or the pair-HMM passes: library_ms is null")
     return rows
@@ -882,10 +987,12 @@ def on_device(args, dev):
     return tuple(x.to(dev) if torch.is_tensor(x) else x for x in args)
 
 
-def replay_hmm(name, calls, fwd, bwd, dev):
+def replay_hmm(name, calls, fwd, bwd, dev, check=None):
     """A pair-HMM's forward calls replayed one at a time, then its
     backward passes, each on the forward pass's outputs for the same call
-    made again (untimed); returns the two totals in ms."""
+    made again (untimed); check(args, kw, fM, lsF, logZ, post), where
+    given, holds each call's outputs to the plain versions.  Returns the
+    two totals in ms."""
     def shape(a, k):
         return list(a[0].shape) + [k["band"]]
 
@@ -896,6 +1003,8 @@ def replay_hmm(name, calls, fwd, bwd, dev):
     def bwd_timed(a, k):
         a = on_device(a, dev)
         fM, lsF, logZ = fwd(*a, **k)
+        if check is not None:
+            check(a, k, fM, lsF, logZ, bwd(fM, lsF, logZ, *a, **k))
         return lambda: bwd(fM, lsF, logZ, *a, **k)
 
     group = (lambda a, k: k["band"])
@@ -1460,6 +1569,16 @@ def dump_banded(recorder, path):
     log(f"saved the inputs of {len(calls)} banded_dp calls to {path}")
 
 
+def dump_pairhmm(recorder, path):
+    """Save the inputs of every pairhmm_fwd call the default path made
+    (host copies) with torch.save, for tests/pairhmm_sweep_report.py
+    --replay."""
+    import torch
+    calls = [([x.cpu() for x in a], dict(kw)) for a, kw in recorder.calls]
+    torch.save({"calls": calls}, path)
+    log(f"saved the inputs of {len(calls)} pairhmm_fwd calls to {path}")
+
+
 def run_cli(argv, what):
     """One `python -m cactus_tpu_torch` subprocess; raises unless it
     exits 0."""
@@ -1527,6 +1646,9 @@ def main() -> int:
     ap.add_argument("--dump-banded", metavar="PATH",
                     help="also save the default path's banded_dp inputs "
                     "there (tests/banded_sweep_report.py --replay)")
+    ap.add_argument("--dump-pairhmm", metavar="PATH",
+                    help="also save the default path's pairhmm_fwd inputs "
+                    "there (tests/pairhmm_sweep_report.py --replay)")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "cactus_tpu_torch")):
         return fail("run from a checkout: cactus_tpu_torch/ is missing")
@@ -1558,6 +1680,8 @@ def main() -> int:
     log(f"kernel timing {time.time() - t0:.1f} s")
     if opts.dump_banded:
         dump_banded(recorders["banded_dp"], opts.dump_banded)
+    if opts.dump_pairhmm:
+        dump_pairhmm(recorders["pairhmm_fwd"], opts.dump_pairhmm)
     t0 = time.time()
     p_launches, p_recorders = phase_pecan(dev)
     log(f"phase 4 (pecan path) {time.time() - t0:.1f} s")

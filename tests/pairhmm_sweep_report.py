@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Time pairhmm_fwd and pairhmm_bwd on the card at fixed-seed shapes.
+
+    python tests/pairhmm_sweep_report.py [--root DIR] [--reps N] [--only S]
+                                         [--replay FILE]
+
+Times the cactus_tpu_torch package of the checkout at --root (default:
+this one), on inputs made here from fixed seeds, so a parent commit
+unpacked into a gitignored directory is timed by the same script on the
+same inputs.  To compare two trees on one card, run parent, change,
+change, parent in one command.
+
+Shapes (pairs, rows, band): the default path's nested refinement
+launches, `[2, 2048, 512]` and `[2, 2048, 2048]` (two pieces of 1500-2048
+bases); chip_smoke.py's 4096-row checks at bands 512 and 2048 (four
+pieces of 2100-4095 bases); and a many-pair `[32, 1024, 512]` (pieces of
+600-1024 bases, as nested refinement batches up to 32 pieces a launch on
+a genome-scale input).  For each it prints one JSON line with the
+wrapper's time by CUDA events (mean of --reps launches after a warm-up),
+the kernel's device time from torch.profiler (`device_ms`, None where the
+profiler records no such kernel), the longest pair's rows, the time per
+row of that pair (`us_per_row`), and the posterior's largest gap to the
+plain PyTorch version on the same inputs (`post_gap`).  With --replay,
+also every pairhmm_fwd call of the default path that `python3
+chip_smoke.py --dump-pairhmm FILE` saved, one at a time, and pairhmm_bwd
+on each call's forward outputs, summed by band.  Prints the card's
+name and power limit first.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KEYS = ("q", "t_shift", "m_len", "n_len", "lo")
+# name, seed, pairs, shortest, longest (exclusive), band
+SHAPES = (("path-like band 512", 11, 2, 1500, 2049, 512),
+          ("path-like band 2048", 12, 2, 1500, 2049, 2048),
+          ("chip_smoke band 512", 512 + 7, 4, 2100, 4096, 512),
+          ("chip_smoke band 2048", 2048 + 7, 4, 2100, 4096, 2048),
+          ("many pairs band 512", 13, 32, 600, 1025, 512))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--only", default="",
+                    help="time only the shapes whose name holds this")
+    ap.add_argument("--replay", metavar="FILE",
+                    help="also time every call saved by chip_smoke.py "
+                    "--dump-pairhmm")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+    if not torch.cuda.is_available():
+        print("pairhmm_sweep_report: no CUDA device", file=sys.stderr)
+        return 1
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sweep = importlib.util.spec_from_file_location(
+        "banded_sweep_report",
+        os.path.join(HERE, "tests", "banded_sweep_report.py"))
+    banded_sweep = importlib.util.module_from_spec(sweep)
+    sweep.loader.exec_module(banded_sweep)
+    from cactus_tpu_torch.ops import banded as tb
+    from cactus_tpu_torch.ops import cuda_build, pairhmm_cuda
+    from cactus_tpu_torch.ops import pairhmm as tp
+    if not pairhmm_cuda.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"imported {pairhmm_cuda.__file__}, not {root}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0] if smi else "nvidia-smi: no output", flush=True)
+    for line in cuda_build.build(["pairhmm"]).get("pairhmm", "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"ptxas: {line.strip()}", flush=True)
+    dev = torch.device("cuda", 0)
+    p = tp.HmmParams()
+    em = torch.from_numpy(p.emissions()).to(dev)
+    rel = os.path.relpath(root, HERE)
+    for name, seed, n, lo_len, hi_len, band in SHAPES:
+        if args.only not in name:
+            continue
+        pairs = smoke.ragged_pairs(seed, n, lo_len, hi_len, band)
+        packed = tb.pack_band_batch(pairs, band, min_batch=1)
+        dargs = [torch.from_numpy(packed[k]).to(dev) for k in KEYS]
+        kw = dict(band=band, delta=p.delta, epsilon=p.epsilon)
+        fM, lsF, logZ = pairhmm_cuda.pairhmm_fwd(*dargs, em, **kw)
+        post = pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ, *dargs, em, **kw)
+        ref = tp.posterior_banded_batch(*[a.cpu() for a in dargs], em.cpu(),
+                                        **kw)
+        gap = float((post.cpu() - ref).abs().max())
+        rows = int(dargs[2].max())
+        P, M = dargs[0].shape
+        for kernel, fn in (
+                ("pairhmm_fwd",
+                 lambda: pairhmm_cuda.pairhmm_fwd(*dargs, em, **kw)),
+                ("pairhmm_bwd",
+                 lambda: pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ, *dargs, em,
+                                                  **kw))):
+            ms = smoke.time_ms(fn, args.reps)
+            dev_ms = banded_sweep.kernel_device_ms(fn, args.reps, kernel)
+            print(json.dumps(dict(
+                root=rel, case=name, kernel=kernel, shape=[P, M, band],
+                ms=ms, device_ms=dev_ms, longest_rows=rows,
+                us_per_row=(dev_ms if dev_ms is not None else ms) * 1e3
+                / rows, post_gap=gap)), flush=True)
+        del fM, lsF, logZ, post, ref
+    if args.replay:
+        replay(args.replay, pairhmm_cuda, smoke, banded_sweep, dev, rel,
+               args.reps)
+    return 0
+
+
+def replay(path, pairhmm_cuda, smoke, banded_sweep, dev, root, reps):
+    """Time every saved pairhmm_fwd call of the default path, one at a
+    time, and pairhmm_bwd on each call's forward outputs (CUDA events
+    around reps calls, and the kernels' device time from the profiler);
+    prints one JSON line per kernel with the totals by band."""
+    import torch
+    saved = torch.load(path)
+    totals = {"pairhmm_fwd": {}, "pairhmm_bwd": {}}
+    for tensors, kw in saved["calls"]:
+        a = [x.to(dev) for x in tensors]
+        fM, lsF, logZ = pairhmm_cuda.pairhmm_fwd(*a, **kw)
+        for kernel, fn in (
+                ("pairhmm_fwd", lambda: pairhmm_cuda.pairhmm_fwd(*a, **kw)),
+                ("pairhmm_bwd",
+                 lambda: pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ, *a, **kw))):
+            ms = smoke.time_ms(fn, reps)
+            dev_ms = banded_sweep.kernel_device_ms(fn, reps, kernel)
+            ms_b, n_b, d_b = totals[kernel].get(kw["band"], (0.0, 0, 0.0))
+            totals[kernel][kw["band"]] = (
+                ms_b + ms, n_b + 1,
+                None if dev_ms is None or d_b is None else d_b + dev_ms)
+        del fM, lsF, logZ
+    for kernel, by_band in totals.items():
+        dev_total = (None if any(v[2] is None for v in by_band.values())
+                     else sum(v[2] for v in by_band.values()))
+        print(json.dumps(dict(
+            root=root, case="main path replay", kernel=kernel,
+            calls=len(saved["calls"]),
+            ms=sum(v[0] for v in by_band.values()), device_ms=dev_total,
+            by_band={str(b): v for b, v in sorted(by_band.items())})),
+            flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,13 +12,18 @@ outputs on every cell.  Pair-HMM
 posteriors (3-state and 5-state) agree to HMM_ATOL: the kernels sum the
 in-row chains in another order than the plain version's Kogge-Stone scan,
 and the posterior is exp of a difference of float32 log-scale sums that
-reach ~1e3 over 512 rows, where one ulp is ~6e-5.
+reach ~1e3 over 512 rows, where one ulp is ~6e-5.  The 3-state cases at
+the path's lengths are held by chip_smoke.check_hmm, with chip_smoke.py's
+tolerances.
 """
+
+import inspect
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cactus_tpu_torch.config import PoaParams
 from cactus_tpu_torch.ops import banded as tb
 from cactus_tpu_torch.ops import (banded_cuda, cuda_build, pairhmm5_cuda,
@@ -243,6 +248,137 @@ def test_pairhmm_kernels_match_plain(cuda, band):
     ref = tp.posterior_banded_batch(*[a.cpu() for a in args], em.cpu(), **kw)
     assert torch.isfinite(post).all()
     assert float((post.cpu() - ref).abs().max()) <= HMM_ATOL
+
+
+def _homologous(seed, lens, band):
+    """Pairs with these query lengths; targets mutated from them, their
+    length difference inside the band."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for m in lens:
+        q = rng.integers(0, 4, m).astype(np.uint8)
+        t = _mutate(rng, q)
+        while abs(len(t) - m) >= band // 2 or len(t) == 0:
+            t = _mutate(rng, q)
+        pairs.append((q, t))
+    return pairs
+
+
+def _check_pairhmm_vs_plain(pairs, band, dev, min_rows=32, base5=False):
+    """Both kernels against the plain versions on the packed pairs, by
+    chip_smoke.check_hmm (every value finite, the posterior within its
+    HMM_ATOL, logZ within LOGZ_RTOL, log(fM) + lsF within FWD_LOG_ATOL
+    where the plain fM is above 1e-30), and the rows past each pair's
+    m_len zero.  base5: code 5 at some query rows, with an em row 5 whose
+    entries all differ."""
+    packed = tb.pack_band_batch(pairs, band, min_batch=1, min_rows=min_rows)
+    args = [torch.from_numpy(packed[k]).to(dev) for k in KEYS]
+    p = tp.HmmParams()
+    em_np = p.emissions().copy()
+    if base5:
+        args = _with_base5(args, np.random.default_rng(band))
+        em_np[5] = ROW5_EM
+    em = torch.from_numpy(em_np).to(dev)
+    kw = dict(band=band, delta=p.delta, epsilon=p.epsilon)
+    n0 = cuda_build.launches()
+    fM, lsF, logZ = pairhmm_cuda.pairhmm_fwd(*args, em, **kw)
+    post = pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ, *args, em, **kw)
+    torch.cuda.synchronize()
+    n1 = cuda_build.launches()
+    assert n1["pairhmm_fwd"] == n0["pairhmm_fwd"] + 1
+    assert n1["pairhmm_bwd"] == n0["pairhmm_bwd"] + 1
+    cpu = [a.cpu() for a in args]
+    fM_r, lsF_r, logZ_r = tp.forward_banded(*cpu, em.cpu(), **kw)
+    ref = tp.backward_posterior(fM_r, lsF_r, logZ_r, *cpu, em.cpu(), **kw)
+    fM, post = fM.cpu(), post.cpu()
+    chip_smoke.check_hmm(fM, lsF.cpu(), logZ.cpu(), post, fM_r, lsF_r,
+                         logZ_r, ref, f"band {band}", quiet=True)
+    rows = torch.arange(1, fM.shape[1] + 1)[None, :]
+    past = rows > cpu[2][:, None]
+    assert bool((fM[past] == 0).all()) and bool((post[past] == 0).all())
+
+
+@pytest.mark.parametrize("P,lo_len,hi_len,band", [
+    (2, 1500, 2049, 512), (2, 1500, 2049, 2048), (1, 1000, 2049, 512),
+    (32, 600, 1025, 512)])
+def test_pairhmm_kernels_at_path_shapes(cuda, P, lo_len, hi_len, band):
+    """The default path's nested launches (two pieces of up to 2048 rows
+    at bands 512 and 2048), one pair, and 32 pairs a launch."""
+    rng = np.random.default_rng(P * band)
+    lens = rng.integers(lo_len, hi_len, P)
+    lens[0] = hi_len - 1
+    _check_pairhmm_vs_plain(_homologous(P + band, lens, band), band, cuda)
+
+
+def test_pairhmm_kernels_diffuse_posteriors(cuda):
+    """Unrelated pieces of 480 and 467 bases at band 512, as the default
+    path's nested refinement sends them: the forward and backward masses
+    of a row lie apart and the posterior's clip at exp(60) binds; it must
+    bind as in the plain version."""
+    rng = np.random.default_rng(512)
+    pairs = [(rng.integers(0, 4, 480).astype(np.uint8),
+              rng.integers(0, 4, 467).astype(np.uint8))]
+    pairs += _homologous(517, [480], 512)
+    _check_pairhmm_vs_plain(pairs, 512, cuda)
+
+
+def _plain_float64():
+    """forward_banded and backward_posterior of ops/pairhmm.py run in
+    float64: the module's source with every torch.float32 made
+    torch.float64."""
+    src = inspect.getsource(tp).replace("torch.float32", "torch.float64")
+    ns = {"__name__": tp.__name__, "__package__": tp.__package__}
+    exec(compile(src, tp.__file__, "exec"), ns)
+    return ns["forward_banded"], ns["backward_posterior"]
+
+
+@pytest.mark.parametrize("m,n,band", [(1500, 1400, 2048), (1500, 1400, 512)])
+def test_pairhmm_kernels_long_unrelated_pieces_vs_float64(cuda, m, n, band):
+    """Unrelated pieces of 1500 and 1400 bases (as nested refinement may
+    send them from the wrong strand), where float32 itself fails: mass
+    that later dominates lies more than float32's range below its row
+    maximum, so the plain version's logZ is tens of nats under a float64
+    run of the same code and its posterior is far from it on a few hundred
+    rows (pinned here: more than 0.5).  On the rows where the plain
+    version holds chip_smoke.HMM_ATOL of float64, the kernels hold
+    HMM_ATOL of the plain version; every value is finite."""
+    rng = np.random.default_rng(band)
+    pairs = [(rng.integers(0, 4, m).astype(np.uint8),
+              rng.integers(0, 4, n).astype(np.uint8))]
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    p = tp.HmmParams()
+    em = torch.from_numpy(p.emissions()).to(cuda)
+    kw = dict(band=band, delta=p.delta, epsilon=p.epsilon)
+    fM, lsF, logZ = pairhmm_cuda.pairhmm_fwd(*args, em, **kw)
+    post = pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ, *args, em, **kw)
+    for x in (fM, lsF, logZ, post):
+        assert torch.isfinite(x).all()
+    cpu = [a.cpu() for a in args]
+    post = post.cpu()[0, :m].double()
+    ref = tp.posterior_banded_batch(*cpu, em.cpu(), **kw)[0, :m].double()
+    fwd64, bwd64 = _plain_float64()
+    f64 = fwd64(*cpu, em.cpu().double(), **kw)
+    ref64 = bwd64(*f64, *cpu, em.cpu().double(), **kw)[0, :m]
+    plain_gap = (ref - ref64).abs().amax(1)
+    assert float(plain_gap.max()) > 0.5, "the plain version now holds " \
+        "float64 here: make this a conformance case"
+    good = plain_gap <= chip_smoke.HMM_ATOL
+    assert int(good.sum()) >= m // 2
+    kernel_gap = (post - ref).abs().amax(1)
+    assert float(kernel_gap[good].max()) <= chip_smoke.HMM_ATOL
+
+
+@pytest.mark.parametrize("band", [128, 512, 1000, 1024, 2048, 4096, 8192,
+                                  16384])
+def test_pairhmm_kernels_step_edges(cuda, band):
+    """m_len around the rescale step (8 rows up to band 2048; 4, 2 and 1
+    at bands 4096, 8192 and 16384, where a step's rows fill the shared
+    ring) and m_len = M, at every launch shape (1 to 16 warps, 4 to 32
+    cells a lane), with code-5 query rows."""
+    lens = [1, 2, 3, 4, 5, 7, 8, 9, 64]
+    _check_pairhmm_vs_plain(_homologous(band + 3, lens, band), band, cuda,
+                            min_rows=64, base5=True)
 
 
 @pytest.mark.parametrize("band,n,max_len", [(128, 8, 300), (1024, 6, 900),
