@@ -97,6 +97,21 @@ def live_width(n_len, band: int) -> int:
     return max(0, min(band, int(n_len.max()) + 1))
 
 
+def check_max_live(n_len, band: int, max_live: int | None) -> int:
+    """max_live (default: the band), checked against the pairs' live
+    widths min(band, n + 1) (`live_width`): raises ValueError, on either
+    device and before any launch, when it is below one of them or below
+    1.  Reading n_len back is a device sync only where max_live is below
+    the band.  Returns it clipped to the band."""
+    if max_live is None:
+        max_live = band
+    widest = live_width(n_len, band) if max_live < band else 0
+    if max_live < max(1, widest):
+        raise ValueError(f"max_live {max_live} is below a pair's live width "
+                         f"{widest} (min(band, n + 1)) or 1")
+    return min(max_live, band)
+
+
 def launch_threads(band: int, max_live: int, pairs: int) -> int:
     """Threads a block banded_dp launches with (csrc/banded.cu
     banded_dp_threads; needs the card)."""
@@ -133,12 +148,7 @@ def banded_dp(q, t_shift, m_len, n_len, lo, submat, band: int,
     anything is launched: reading n_len back is a device sync where
     max_live is below the band.  `launch_banded_dp` is the launch after
     that check."""
-    if max_live is None:
-        max_live = band
-    widest = live_width(n_len, band) if max_live < band else 0
-    if max_live < max(1, widest):
-        raise ValueError(f"max_live {max_live} is below a pair's live width "
-                         f"{widest} (min(band, n + 1)) or 1")
+    max_live = check_max_live(n_len, band, max_live)
     if q.device.type == "cpu":
         return banded_align_batch(q, t_shift, m_len, n_len, lo, submat,
                                   band=band, gap_open=gap_open,

@@ -354,18 +354,20 @@ def backward_posterior5(fM_rows, lsF_rows, logZ, q, t_shift, m_len, n_len,
 
 
 def posterior_banded_batch5(q, t_shift, m_len, n_len, lo, em, band: int,
-                            params: Hmm5Params):
+                            params: Hmm5Params, max_live: int | None = None):
     """Match posteriors over the band, five-state machine: post (P, Mmax,
     B) float32, band cell (i, b) is target position j = i + lo + b
     (1-based rows); rows beyond each pair's m_len are zero.
 
     Runs the CUDA kernels for CUDA tensors and the plain PyTorch versions
-    for CPU tensors (ops/pairhmm5_cuda.py)."""
+    for CPU tensors (ops/pairhmm5_cuda.py).  max_live bounds every row's
+    live width min(band, n + 1) (default: the band); the kernels size
+    their blocks by it, and a value below a pair's width raises."""
     from .pairhmm5_cuda import pairhmm5_bwd, pairhmm5_fwd
-    fM, lsF, logZ = pairhmm5_fwd(q, t_shift, m_len, n_len, lo, em,
-                                 band=band, params=params)
+    kw = dict(band=band, params=params, max_live=max_live)
+    fM, lsF, logZ = pairhmm5_fwd(q, t_shift, m_len, n_len, lo, em, **kw)
     return pairhmm5_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em,
-                        band=band, params=params)
+                        **kw)
 
 
 def posterior_pairs_banded5(pairs, params: Hmm5Params, band: int = 128,
@@ -385,8 +387,11 @@ def posterior_pairs_banded5(pairs, params: Hmm5Params, band: int = 128,
 
     def run(chunk):
         packed, t = pack_to_device(chunk, band, dev)
+        # the widest live row, from the host lengths (no device sync)
+        live = max(min(band, len(tt) + 1) for _q, tt in chunk)
         return banded_hits(
-            posterior_banded_batch5(*t, em, band=band, params=params),
+            posterior_banded_batch5(*t, em, band=band, params=params,
+                                    max_live=live),
             chunk, packed["lo"], gamma)
 
     return dispatch_by_length(pairs, band, run,

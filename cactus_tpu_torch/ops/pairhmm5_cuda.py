@@ -15,9 +15,12 @@ Source: csrc/pairhmm5.cu (see its header for the design).
   4 bytes); the backward pass reads one and writes one
   (PAIRHMM5_BWD_FLOPS_PER_CELL against 8 bytes).  Both sit below the FP32
   units' balance of 20 operations per byte (67 TFLOP/s over 3.35 TB/s).
-- Bands up to 8192 keep the five state rows in shared memory; wider ones
-  in a global-memory scratch row per pair that the wrapper allocates
-  (pairhmm5_scratch_floats), so every band runs.
+- Each pair computes only its live window (rows 1..m, columns j = 0..n),
+  and a launch's blocks are sized by max_live, the widest live row of its
+  pairs (banded_cuda.live_width): 4 cells a lane, one warp up to 128
+  cells.  State rows of up to 8192 cells live in shared memory; wider
+  ones in a global-memory scratch row per pair that the wrapper
+  allocates (pairhmm5_scratch_floats), so every band runs.
 
 Each wrapper checks its tensors, launches on the current CUDA stream and
 adds one to its count in cuda_build.LAUNCHES.  A CPU tensor gets the
@@ -32,6 +35,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .banded_cuda import check_max_live
 from .pairhmm5 import Hmm5Params, backward_posterior5, forward_banded5
 
 # float32 operations per cell that the recurrence needs, whatever order a
@@ -47,9 +51,12 @@ PAIRHMM5_BWD_FLOPS_PER_CELL = 40
 
 _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "pairhmm5_fwd_launch": [_VP] * 6 + [_INT] * 3 + [_F] * 9 + [_VP] * 5,
-    "pairhmm5_bwd_launch": [_VP] * 9 + [_INT] * 3 + [_F] * 9 + [_VP] * 3,
+    "pairhmm5_fwd_launch": [_VP] * 6 + [_INT] * 4 + [_F] * 9 + [_VP] * 5,
+    "pairhmm5_bwd_launch": [_VP] * 9 + [_INT] * 4 + [_F] * 9 + [_VP] * 3,
     "pairhmm5_scratch_floats": [_INT],
+    "pairhmm5_threads": [_INT],
+    "pairhmm5_cells_per_lane": [_INT],
+    "pairhmm5_max_cells": [],
 }
 
 
@@ -71,13 +78,30 @@ def _check_inputs(q, t_shift, m_len, n_len, lo, em, band: int):
     return dev, P, M
 
 
-def _scratch(lib, P: int, band: int, dev):
-    """Global scratch for the state rows of bands too wide for shared
-    memory (None when they fit)."""
-    words = int(lib.pairhmm5_scratch_floats(band))
+def _scratch(lib, P: int, max_live: int, dev):
+    """Global scratch for the state rows of live windows too wide for
+    shared memory (None when they fit).  Raises for a max_live wider than
+    a launch takes."""
+    widest = int(lib.pairhmm5_max_cells())
+    if max_live > widest:
+        raise ValueError(f"max_live {max_live} above the {widest} cells a "
+                         "launch takes")
+    words = int(lib.pairhmm5_scratch_floats(max_live))
     if words == 0:
         return None
     return torch.empty((P, words), dtype=torch.float32, device=dev)
+
+
+def launch_threads(max_live: int) -> int:
+    """Threads a block both kernels launch with for this max_live
+    (csrc/pairhmm5.cu launch_shape; needs the card)."""
+    return int(_lib().pairhmm5_threads(max_live))
+
+
+def cells_per_lane(max_live: int) -> int:
+    """Window cells a lane owns for this max_live (needs the card): a
+    row computes threads x cells_per_lane cells, the lanes' cover."""
+    return int(_lib().pairhmm5_cells_per_lane(max_live))
 
 
 def _ptr(x) -> int | None:
@@ -89,23 +113,37 @@ def _transitions(params: Hmm5Params):
 
 
 def pairhmm5_fwd(q, t_shift, m_len, n_len, lo, em, band: int,
-                 params: Hmm5Params):
+                 params: Hmm5Params, max_live: int | None = None):
     """Forward pass: (fM (P, M, B) f32, lsF (P, M) f32, logZ (P,) f32).
 
     q (P, M) uint8, t_shift (P, M+band) uint8, m_len/n_len/lo (P,)
-    int32, em (6, 6) float32 odds-ratio emissions, all on one device."""
+    int32, em (6, 6) float32 odds-ratio emissions, all on one device.
+    max_live bounds every row's live width (default: the band); the
+    kernel sizes its blocks by it (banded_cuda.check_max_live)."""
+    max_live = check_max_live(n_len, band, max_live)
     if q.device.type == "cpu":
         return forward_banded5(q, t_shift, m_len, n_len, lo, em, band=band,
                                params=params)
+    return launch_pairhmm5_fwd(q, t_shift, m_len, n_len, lo, em, band=band,
+                               params=params, max_live=max_live)
+
+
+def launch_pairhmm5_fwd(q, t_shift, m_len, n_len, lo, em, band: int,
+                        params: Hmm5Params, max_live: int):
+    """The kernel launch of `pairhmm5_fwd` (which checks max_live first,
+    a device sync where it is below the band): checks the CUDA tensors,
+    allocates the outputs, launches on the current stream and counts the
+    launch."""
     dev, P, M = _check_inputs(q, t_shift, m_len, n_len, lo, em, band)
     fM = torch.empty((P, M, band), dtype=torch.float32, device=dev)
     lsF = torch.empty((P, M), dtype=torch.float32, device=dev)
     logZ = torch.empty((P,), dtype=torch.float32, device=dev)
     lib = _lib()
-    scratch = _scratch(lib, P, band, dev)
+    scratch = _scratch(lib, P, max_live, dev)
     code = lib.pairhmm5_fwd_launch(
         q.data_ptr(), t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-        lo.data_ptr(), em.data_ptr(), P, M, band, *_transitions(params),
+        lo.data_ptr(), em.data_ptr(), P, M, band, max_live,
+        *_transitions(params),
         _ptr(scratch), fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(),
         cuda_build.stream(dev))
     cuda_build.check(lib, code, "pairhmm5_fwd")
@@ -114,13 +152,23 @@ def pairhmm5_fwd(q, t_shift, m_len, n_len, lo, em, band: int,
 
 
 def pairhmm5_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em, band: int,
-                 params: Hmm5Params):
+                 params: Hmm5Params, max_live: int | None = None):
     """Backward pass and posterior combine: post (P, M, B) f32, clipped to
     [0, 1.5] and zero past each pair's m_len.  fM, lsF and logZ are
-    pairhmm5_fwd's outputs for the same inputs."""
+    pairhmm5_fwd's outputs for the same inputs; max_live as there."""
+    max_live = check_max_live(n_len, band, max_live)
     if q.device.type == "cpu":
         return backward_posterior5(fM, lsF, logZ, q, t_shift, m_len, n_len,
                                    lo, em, band=band, params=params)
+    return launch_pairhmm5_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo,
+                               em, band=band, params=params,
+                               max_live=max_live)
+
+
+def launch_pairhmm5_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em,
+                        band: int, params: Hmm5Params, max_live: int):
+    """The kernel launch of `pairhmm5_bwd` (after its max_live check), as
+    launch_pairhmm5_fwd."""
     dev, P, M = _check_inputs(q, t_shift, m_len, n_len, lo, em, band)
     check = cuda_build.check_tensor
     check(fM, "fM", torch.float32, (P, M, band), dev)
@@ -128,11 +176,12 @@ def pairhmm5_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em, band: int,
     check(logZ, "logZ", torch.float32, (P,), dev)
     post = torch.empty((P, M, band), dtype=torch.float32, device=dev)
     lib = _lib()
-    scratch = _scratch(lib, P, band, dev)
+    scratch = _scratch(lib, P, max_live, dev)
     code = lib.pairhmm5_bwd_launch(
         fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(), q.data_ptr(),
         t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-        lo.data_ptr(), em.data_ptr(), P, M, band, *_transitions(params),
+        lo.data_ptr(), em.data_ptr(), P, M, band, max_live,
+        *_transitions(params),
         _ptr(scratch), post.data_ptr(), cuda_build.stream(dev))
     cuda_build.check(lib, code, "pairhmm5_bwd")
     cuda_build.count_launch("pairhmm5_bwd")

@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (cactus_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--dump-banded PATH] [--dump-pairhmm PATH]
+                          [--dump-pairhmm5 PATH]
 
 Run from the root of a checkout on a machine with one CUDA GPU and the
 CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
@@ -20,9 +21,9 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    LOGZ_RTOL, and the forward values log(fM) + lsF within FWD_LOG_ATOL
    where the plain fM is above 1e-30: the kernel rescales once per 8 rows
    and rounds its rows differently), and pairhmm5_fwd/pairhmm5_bwd at
-   bands 1024,
-   2048 and 4096 with pieces of up to 3000 rows and at band 16384
-   (posterior max |diff| <= HMM_ATOL).
+   bands 1024, 2048 and 4096 with pieces of up to 3000 rows and at band
+   16384, with max_live as the pecan path passes it (the same three
+   tolerances; it logs the live cells beside the computed ones).
 3. Runs the default path: the evolverMammals-scale regression of
    tests/test_evolver_gate.py (the same 5-genome tree, root_len 600 kb,
    seed 41, tree_workers=2, default Config) through the port's
@@ -56,9 +57,13 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    sets the launch counts to 0 just before it and reads them just after,
    and must have launched pairhmm5_fwd and pairhmm5_bwd; it prints the
    wall, the per-phase split, the device's peak memory, the pair-HMM
-   cells and the widest band.  Then it times the two 5-state kernels and
-   their plain versions on the 600 kb run's largest inputs, and replays
-   the 600 kb run's calls as for pairhmm_fwd / pairhmm_bwd.
+   cells (live, computed, padded) and the widest band.  Then it times the
+   two 5-state kernels and their plain versions on the 600 kb run's
+   largest inputs, with a latency line (the longest pair's rows x the
+   dependent steps of a row, `hmm5_row_steps`), and replays the 600 kb
+   run's calls as for pairhmm_fwd / pairhmm_bwd, each held to the plain
+   versions with step 2's tolerances and logged with its live and
+   computed cells.  With --dump-pairhmm5 it saves those calls' inputs.
 5. Runs `python -m cactus_tpu_torch align` on a small two-genome seqfile
    in subprocesses, with the default config and --maf, then with a pecan
    config XML and --hal and --maf, and checks the MAFs and that the
@@ -382,9 +387,9 @@ def demangle(mangled):
         name = mangled[at:at + n]
         if name.endswith("_kernel") and len(name) == n:
             rest = mangled[at + n:]
-            targs = re.match(r"I((?:Li-?\d+E)+)E", rest)
+            targs = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
             if targs:
-                vals = re.findall(r"Li(-?\d+)E", targs.group(1))
+                vals = re.findall(r"L[ib](-?\d+)E", targs.group(1))
                 return f"{name}<{', '.join(vals)}>"
             return name
     return mangled
@@ -475,8 +480,8 @@ def check_banded(pairs, band, sub_d, dev, errs, what):
 
 def check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, post_r, what,
               quiet=False):
-    """The 3-state pair-HMM kernels' outputs against the plain versions':
-    every value finite, the posterior within HMM_ATOL, logZ within
+    """A pair-HMM's kernels' outputs against the plain versions': every
+    value finite, the posterior within HMM_ATOL, logZ within
     LOGZ_RTOL x max(1, |logZ|), and the forward values in log space,
     log(fM) + lsF, within FWD_LOG_ATOL on the cells where the plain fM is
     above 1e-30 (the value fM * exp(lsF) that both representations hold,
@@ -516,7 +521,7 @@ def phase_kernels_vs_plain(dev, errs):
     import torch
     from cactus_tpu_torch.config import PoaParams
     from cactus_tpu_torch.ops import banded as tb
-    from cactus_tpu_torch.ops import pairhmm5_cuda, pairhmm_cuda
+    from cactus_tpu_torch.ops import banded_cuda, pairhmm5_cuda, pairhmm_cuda
     from cactus_tpu_torch.ops import pairhmm as tp
     from cactus_tpu_torch.ops import pairhmm5 as tp5
 
@@ -562,26 +567,24 @@ def phase_kernels_vs_plain(dev, errs):
                              sub=0.2, indel=0.06)
         packed = tb.pack_band_batch(pairs, band, min_batch=1)
         args = to_device(packed, dev)
+        # max_live as posterior_pairs_banded5 passes it
+        live_w = banded_cuda.live_width(args[3], band)
         hk = dict(band=band, params=p5)
-        fM, lsF, logZ = pairhmm5_cuda.pairhmm5_fwd(*args, em5, **hk)
-        post = pairhmm5_cuda.pairhmm5_bwd(fM, lsF, logZ, *args, em5, **hk)
+        fM, lsF, logZ = pairhmm5_cuda.pairhmm5_fwd(*args, em5, **hk,
+                                                   max_live=live_w)
+        post = pairhmm5_cuda.pairhmm5_bwd(fM, lsF, logZ, *args, em5, **hk,
+                                          max_live=live_w)
         torch.cuda.synchronize()
         fM_r, lsF_r, logZ_r = tp5.forward_banded5(*args, em5, **hk)
         post_r = tp5.backward_posterior5(fM_r, lsF_r, logZ_r, *args, em5,
                                          **hk)
-        if not bool(torch.isfinite(post).all()):
-            raise AssertionError(f"pairhmm5 band {band}: non-finite "
-                                 "posterior")
-        d_post = float((post - post_r).abs().max())
-        d_ls = float((lsF - lsF_r).abs().max())
-        log(f"pairhmm5 band {band} ({args[0].shape[0]} pairs x "
-            f"{args[0].shape[1]} rows, longest {int(args[2].max())}): "
-            f"posterior max|diff| {d_post:.3g} (tolerance {HMM_ATOL}), "
-            f"lsF max|diff| {d_ls:.3g}, max posterior "
-            f"{float(post.max()):.4f}")
-        if d_post > HMM_ATOL:
-            raise AssertionError(f"pairhmm5 band {band}: posterior differs "
-                                 f"by {d_post} > {HMM_ATOL}")
+        d_post, _d_fwd = check_hmm(
+            fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, post_r,
+            f"pairhmm5 band {band} ({args[0].shape[0]} pairs x "
+            f"{args[0].shape[1]} rows, longest {int(args[2].max())})")
+        log(f"pairhmm5 band {band}: {hmm5_cells_line(args, band, live_w)}; "
+            f"lsF max|diff| {float((lsF - lsF_r).abs().max()):.3g}, max "
+            f"posterior {float(post.max()):.4f}")
         errs["pairhmm5_fwd"] = max(errs.get("pairhmm5_fwd", 0.0),
                                    float((fM - fM_r).abs().max()))
         errs["pairhmm5_bwd"] = max(errs.get("pairhmm5_bwd", 0.0), d_post)
@@ -1038,16 +1041,21 @@ def phase_pecan(dev):
             f"{time.time() - t0:.1f} s")
         cfg = Config.default()
         cfg.bar.partial_order_alignment = False
-        work = {"cells": 0, "padded": 0, "band": 0, "calls": 0}
+        work = {"cells": 0, "padded": 0, "band": 0, "calls": 0, "live": 0,
+                "computed": 0}
         lock = threading.Lock()
 
         def cells5(args, kw):
             q, m = args[0], args[2]
+            live, computed, _band = hmm5_cells(args, kw["band"],
+                                               kw["max_live"])
             with lock:
                 work["cells"] += int(m.sum()) * kw["band"]
                 work["padded"] += q.shape[0] * q.shape[1] * kw["band"]
                 work["band"] = max(work["band"], kw["band"])
                 work["calls"] += 1
+                work["live"] += live
+                work["computed"] += computed
             return q.shape[0] * q.shape[1] * kw["band"]
 
         # the backward pass's inputs are made again from the forward
@@ -1085,7 +1093,8 @@ def phase_pecan(dev):
             f"{s.recall:.4f} precision {s.precision:.4f}")
         log(f"pecan {root_len} bp: kernel launches {launches}; 5-state "
             f"pair-HMM: {work['calls']} batches, {work['cells']} query-row x "
-            f"band cells ({work['padded']} padded), widest band "
+            f"band cells ({work['padded']} padded), {work['live']} live "
+            f"cells of {work['computed']} computed, widest band "
             f"{work['band']}; device time in the calls "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in kernel_ms.items()))
         for name in PECAN_KERNELS:
@@ -1121,6 +1130,41 @@ def hmm5_bytes(args, B):
             4 * rows_ + 4 * P)
 
 
+def hmm5_cells(args, band, max_live):
+    """(live cells, computed cells, band cells) of a 5-state call: the
+    cells of the pairs' live windows (rows 1..m, columns 0..n), the cells
+    the kernels compute (rows 1..m x the lanes' cover for this max_live)
+    and the band cells of rows 1..m, which the kernels computed before
+    they kept to the windows."""
+    from cactus_tpu_torch.ops import banded_cuda, pairhmm5_cuda
+    q, m, n, lo = args[0], args[2], args[3], args[4]
+    rows = int(m.sum())
+    cover = (pairhmm5_cuda.launch_threads(max_live)
+             * pairhmm5_cuda.cells_per_lane(max_live))
+    return (banded_cuda.live_cells(m, n, lo, q.shape[1], band), rows * cover,
+            rows * band)
+
+
+def hmm5_cells_line(args, band, max_live) -> str:
+    from cactus_tpu_torch.ops import pairhmm5_cuda
+    live, computed, band_cells = hmm5_cells(args, band, max_live)
+    return (f"max_live {max_live}, {pairhmm5_cuda.launch_threads(max_live)} "
+            f"threads x {pairhmm5_cuda.cells_per_lane(max_live)} cells a "
+            f"lane; {live} live cells of {computed} computed ({band_cells} "
+            "band cells in rows 1..m)")
+
+
+def hmm5_row_steps(max_live) -> int:
+    """The dependent steps a 5-state row cannot avoid, one warp-shuffle
+    latency each: the lanes' affine scan (5 levels and the exclusive
+    shift), the row maximum (5 levels) and the neighbour lane's cell (1);
+    with several warps, the carry walk over up to nw - 1 warps' maps and
+    the barrier (1)."""
+    from cactus_tpu_torch.ops import pairhmm5_cuda
+    nw = pairhmm5_cuda.launch_threads(max_live) // 32
+    return 12 + (nw if nw > 1 else 0)
+
+
 def measure_pecan(recorders, launches, errs, dev):
     """The 5-state kernels and their plain versions on the pecan path's
     largest inputs, beside the bound for the same work."""
@@ -1130,49 +1174,86 @@ def measure_pecan(recorders, launches, errs, dev):
     args, kw = recorders["pairhmm5_fwd"].best
     P, M = args[0].shape
     B = kw["band"]
-    fwd = recorders["pairhmm5_fwd"].fn
-    bwd = recorders["pairhmm5_bwd"].fn
+    # the plain versions take no max_live
+    pkw = {k: v for k, v in kw.items() if k != "max_live"}
+    # the launches alone: the wrappers' max_live check reads n_len back (a
+    # device sync) before each launch where max_live is below the band,
+    # which would put host gaps between the timed launches
+    fwd = pairhmm5_cuda.launch_pairhmm5_fwd
+    bwd = pairhmm5_cuda.launch_pairhmm5_bwd
     fM, lsF, logZ = fwd(*args, **kw)
     post = bwd(fM, lsF, logZ, *args, **kw)
     # the plain versions take tens of seconds here: each is run and timed
     # once, and its output is the reference
     plain = {}
     plain_fwd_ms = time_ms(
-        lambda: plain.update(f=tp5.forward_banded5(*args, **kw)), 1,
+        lambda: plain.update(f=tp5.forward_banded5(*args, **pkw)), 1,
         warmup=False)
     fM_r, lsF_r, logZ_r = plain["f"]
     plain_bwd_ms = time_ms(
         lambda: plain.update(b=tp5.backward_posterior5(fM_r, lsF_r, logZ_r,
-                                                       *args, **kw)), 1,
+                                                       *args, **pkw)), 1,
         warmup=False)
-    d_post = float((post - plain["b"]).abs().max())
-    log(f"pairhmm5 on the pecan path's largest inputs ({P} pairs x {M} "
-        f"rows, band {B}): posterior max|diff| {d_post:.3g} (tolerance "
-        f"{HMM_ATOL})")
-    if d_post > HMM_ATOL:
-        raise AssertionError(f"pairhmm5 posterior differs by {d_post} on the "
-                             "pecan path's inputs")
+    d_post, _d_fwd = check_hmm(
+        fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, plain["b"],
+        f"pairhmm5 on the pecan path's largest inputs ({P} pairs x {M} "
+        f"rows, band {B})")
     errs["pairhmm5_bwd"] = max(errs.get("pairhmm5_bwd", 0.0), d_post)
     errs["pairhmm5_fwd"] = max(errs.get("pairhmm5_fwd", 0.0),
                                float((fM - fM_r).abs().max()))
     del fM_r, lsF_r, logZ_r, post, plain
+
+    def check_replayed(a, k, fM_, lsF_, logZ_, post_):
+        pk = {x: v for x, v in k.items() if x != "max_live"}
+        ref = tp5.forward_banded5(*a, **pk)
+        shape = list(a[0].shape) + [k["band"]]
+        got = check_hmm(fM_, lsF_, logZ_, post_, *ref,
+                        tp5.backward_posterior5(*ref, *a, **pk),
+                        f"pairhmm5 replayed call {shape}", quiet=True)
+        errs["pairhmm5_bwd"] = max(errs["pairhmm5_bwd"], got[0])
+        errs["pairhmm5_fwd"] = max(errs["pairhmm5_fwd"],
+                                   float((fM_ - ref[0]).abs().max()))
+        log(f"pairhmm5 replayed call {shape}: posterior gap {got[0]:.3g}, "
+            f"log(fM) + lsF gap {got[1]:.3g}; "
+            + hmm5_cells_line(a, k["band"], k["max_live"]))
+
     fwd_replayed, bwd_replayed = replay_hmm(
-        "pairhmm5", recorders["pairhmm5_fwd"].calls, fwd, bwd, dev)
+        "pairhmm5", recorders["pairhmm5_fwd"].calls, fwd, bwd, dev,
+        check_replayed)
+    log(f"pairhmm5: every replayed call within the tolerances (largest "
+        f"posterior gap {errs['pairhmm5_bwd']:.3g})")
     in_bytes, cells, scal = hmm5_bytes(args, B)
-    ms = time_ms(lambda: fwd(*args, **kw), 5)
-    rows = [kernel_row(
-        "pairhmm5_fwd", "cactus_tpu_torch/csrc/pairhmm5.cu",
-        "cactus_tpu/ops/pairhmm5_pallas.py:56", launches, errs, ms,
-        plain_fwd_ms, in_bytes + 4 * cells + scal,
-        pairhmm5_cuda.PAIRHMM5_FWD_FLOPS_PER_CELL * cells, FP32_OPS_PER_S,
-        [P, M, B], fwd_replayed)]
-    ms = time_ms(lambda: bwd(fM, lsF, logZ, *args, **kw), 5)
-    rows.append(kernel_row(
-        "pairhmm5_bwd", "cactus_tpu_torch/csrc/pairhmm5.cu",
-        "cactus_tpu/ops/pairhmm5_pallas.py:143", launches, errs, ms,
-        plain_bwd_ms, in_bytes + 4 * cells + scal + 4 * cells,
-        pairhmm5_cuda.PAIRHMM5_BWD_FLOPS_PER_CELL * cells, FP32_OPS_PER_S,
-        [P, M, B], bwd_replayed))
+    live, computed, band_cells = hmm5_cells(args, B, kw["max_live"])
+    log(f"pairhmm5 at [{P}, {M}, {B}]: "
+        + hmm5_cells_line(args, B, kw["max_live"]))
+    # a launch's pairs run side by side; its latency line is the longest
+    # pair's rows x the dependent steps of a row, one warp-shuffle latency
+    # each (SMEM_STEP_CYCLES at the card's maximum SM clock)
+    step_ns, step_what = smem_step_ns()
+    longest = int(args[2].max())
+    steps_row = hmm5_row_steps(kw["max_live"])
+    latency_ms = longest * steps_row * step_ns / 1e6
+    rows = []
+    for name, fn, plain_ms, bytes_, flops, replayed, line in (
+            ("pairhmm5_fwd", lambda: fwd(*args, **kw), plain_fwd_ms,
+             in_bytes + 4 * cells + scal,
+             pairhmm5_cuda.PAIRHMM5_FWD_FLOPS_PER_CELL, fwd_replayed, "56"),
+            ("pairhmm5_bwd", lambda: bwd(fM, lsF, logZ, *args, **kw),
+             plain_bwd_ms, in_bytes + 4 * cells + scal + 4 * cells,
+             pairhmm5_cuda.PAIRHMM5_BWD_FLOPS_PER_CELL, bwd_replayed,
+             "143")):
+        ms = time_ms(fn, 5)
+        rows.append(kernel_row(
+            name, "cactus_tpu_torch/csrc/pairhmm5.cu",
+            f"cactus_tpu/ops/pairhmm5_pallas.py:{line}", launches, errs, ms,
+            plain_ms, bytes_, flops * live, FP32_OPS_PER_S, [P, M, B],
+            replayed))
+        rows[-1].update(us_per_row=ms * 1e3 / longest)
+        log(f"{name} at {[P, M, B]}: {ms * 1e3 / longest:.4f} us a row of "
+            f"the longest pair ({longest} rows); latency line {longest} x "
+            f"{steps_row} steps x {step_ns:.2f} ns = {latency_ms:.4f} ms "
+            f"({step_what}), {ms / latency_ms:.2f}x; bound "
+            f"{rows[-1]['bound_ms']:.6f} ms")
     log("no single PyTorch call computes the 5-state pair-HMM passes: "
         "library_ms is null")
     return rows
@@ -1579,6 +1660,19 @@ def dump_pairhmm(recorder, path):
     log(f"saved the inputs of {len(calls)} pairhmm_fwd calls to {path}")
 
 
+def dump_pairhmm5(recorder, path):
+    """Save the inputs of every pairhmm5_fwd call the pecan path made
+    (host copies; the parameters as a dict) with torch.save, for
+    tests/pairhmm_sweep_report.py --model 5 --replay."""
+    import dataclasses
+    import torch
+    calls = [([x.cpu() for x in a],
+              {k: (dataclasses.asdict(v) if k == "params" else int(v))
+               for k, v in kw.items()}) for a, kw in recorder.calls]
+    torch.save({"calls": calls}, path)
+    log(f"saved the inputs of {len(calls)} pairhmm5_fwd calls to {path}")
+
+
 def run_cli(argv, what):
     """One `python -m cactus_tpu_torch` subprocess; raises unless it
     exits 0."""
@@ -1649,6 +1743,10 @@ def main() -> int:
     ap.add_argument("--dump-pairhmm", metavar="PATH",
                     help="also save the default path's pairhmm_fwd inputs "
                     "there (tests/pairhmm_sweep_report.py --replay)")
+    ap.add_argument("--dump-pairhmm5", metavar="PATH",
+                    help="also save the pecan path's (600 kb) pairhmm5_fwd "
+                    "inputs there (tests/pairhmm_sweep_report.py --model 5 "
+                    "--replay)")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "cactus_tpu_torch")):
         return fail("run from a checkout: cactus_tpu_torch/ is missing")
@@ -1685,6 +1783,8 @@ def main() -> int:
     t0 = time.time()
     p_launches, p_recorders = phase_pecan(dev)
     log(f"phase 4 (pecan path) {time.time() - t0:.1f} s")
+    if opts.dump_pairhmm5:
+        dump_pairhmm5(p_recorders["pairhmm5_fwd"], opts.dump_pairhmm5)
     t0 = time.time()
     rows += measure_pecan(p_recorders, p_launches, errs, dev)
     log(f"5-state kernel timing {time.time() - t0:.1f} s")

@@ -2,7 +2,7 @@
 """Time pairhmm_fwd and pairhmm_bwd on the card at fixed-seed shapes.
 
     python tests/pairhmm_sweep_report.py [--root DIR] [--reps N] [--only S]
-                                         [--replay FILE]
+                                         [--replay FILE] [--model 3|5]
 
 Times the cactus_tpu_torch package of the checkout at --root (default:
 this one), on inputs made here from fixed seeds, so a parent commit
@@ -25,12 +25,23 @@ also every pairhmm_fwd call of the default path that `python3
 chip_smoke.py --dump-pairhmm FILE` saved, one at a time, and pairhmm_bwd
 on each call's forward outputs, summed by band.  Prints the card's
 name and power limit first.  Needs a CUDA device.
+
+With --model 5 it times pairhmm5_fwd and pairhmm5_bwd instead, with
+max_live as posterior_pairs_banded5 passes it where the tree's wrappers
+take one: at chip_smoke.py's four ragged checks (bands 1024, 2048, 4096
+and 16384; p_match 0.7) and at `[512, 256, 1024]`, the shape of the pecan
+path's largest call with every piece 150-255 bases long, and with
+--replay at every call that `python3 chip_smoke.py --dump-pairhmm5 FILE`
+saved.  Each line also carries the live cells of the pairs' windows and
+the cells the tree's kernels compute (rows 1..m x the lanes' cover, or x
+the band for a tree without max_live).
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -44,6 +55,13 @@ SHAPES = (("path-like band 512", 11, 2, 1500, 2049, 512),
           ("chip_smoke band 512", 512 + 7, 4, 2100, 4096, 512),
           ("chip_smoke band 2048", 2048 + 7, 4, 2100, 4096, 2048),
           ("many pairs band 512", 13, 32, 600, 1025, 512))
+# the 5-state shapes: chip_smoke.py's ragged checks (same seeds and
+# mutation rates) and the pecan path's many short pieces
+SHAPES5 = (("chip_smoke band 1024", 1024 + 11, 4, 1500, 3000, 1024),
+           ("chip_smoke band 2048", 2048 + 11, 2, 2000, 3000, 2048),
+           ("chip_smoke band 4096", 4096 + 11, 2, 2500, 3000, 4096),
+           ("chip_smoke band 16384", 16384 + 11, 2, 600, 1000, 16384),
+           ("many short pairs band 1024", 17, 512, 150, 256, 1024))
 
 
 def main() -> int:
@@ -54,7 +72,9 @@ def main() -> int:
                     help="time only the shapes whose name holds this")
     ap.add_argument("--replay", metavar="FILE",
                     help="also time every call saved by chip_smoke.py "
-                    "--dump-pairhmm")
+                    "--dump-pairhmm (--dump-pairhmm5 with --model 5)")
+    ap.add_argument("--model", type=int, choices=(3, 5), default=3,
+                    help="3: pairhmm_fwd/bwd, 5: pairhmm5_fwd/bwd")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -80,10 +100,12 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output", flush=True)
-    for line in cuda_build.build(["pairhmm"]).get("pairhmm", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    source = "pairhmm5" if args.model == 5 else "pairhmm"
+    for line in smoke.ptxas_lines(cuda_build.build([source]).get(source, "")):
+        print(f"ptxas: {line}", flush=True)
     dev = torch.device("cuda", 0)
+    if args.model == 5:
+        return model5(args, smoke, banded_sweep, dev, root)
     p = tp.HmmParams()
     em = torch.from_numpy(p.emissions()).to(dev)
     rel = os.path.relpath(root, HERE)
@@ -118,6 +140,100 @@ def main() -> int:
     if args.replay:
         replay(args.replay, pairhmm_cuda, smoke, banded_sweep, dev, rel,
                args.reps)
+    return 0
+
+
+def model5(args, smoke, banded_sweep, dev, root):
+    """The 5-state kernels at SHAPES5 and, with --replay, the saved pecan
+    calls: one JSON line per kernel and shape."""
+    import torch
+    from cactus_tpu_torch.ops import banded as tb
+    from cactus_tpu_torch.ops import banded_cuda, pairhmm5_cuda
+    from cactus_tpu_torch.ops import pairhmm5 as tp5
+    if not pairhmm5_cuda.__file__.startswith(root + os.sep):
+        raise RuntimeError(f"imported {pairhmm5_cuda.__file__}, not {root}")
+    has_live = "max_live" in inspect.signature(
+        pairhmm5_cuda.pairhmm5_fwd).parameters
+    rel = os.path.relpath(root, HERE)
+
+    def run(case, dargs, band, params, max_live, check):
+        """Times both kernels on one call; returns their JSON lines."""
+        em = torch.from_numpy(params.emissions()).to(dev)
+        kw = dict(band=band, params=params)
+        if has_live:
+            kw["max_live"] = max_live
+        fM, lsF, logZ = pairhmm5_cuda.pairhmm5_fwd(*dargs, em, **kw)
+        post = pairhmm5_cuda.pairhmm5_bwd(fM, lsF, logZ, *dargs, em, **kw)
+        gap = None
+        if check:
+            pkw = dict(band=band, params=params)
+            ref = tp5.forward_banded5(*dargs, em, **pkw)
+            gap = float((post - tp5.backward_posterior5(
+                *ref, *dargs, em, **pkw)).abs().max())
+            del ref
+        P, M = dargs[0].shape
+        m, n, lo = dargs[2], dargs[3], dargs[4]
+        rows = int(m.max())
+        used = int(m.sum())
+        live = banded_cuda.live_cells(m, n, lo, M, band)
+        computed = used * band
+        if has_live:
+            computed = used * pairhmm5_cuda.launch_threads(max_live) * \
+                pairhmm5_cuda.cells_per_lane(max_live)
+        # the launches alone where the tree has them (its wrappers' max_live
+        # check is a device sync before each launch)
+        fwd = getattr(pairhmm5_cuda, "launch_pairhmm5_fwd",
+                      pairhmm5_cuda.pairhmm5_fwd)
+        bwd = getattr(pairhmm5_cuda, "launch_pairhmm5_bwd",
+                      pairhmm5_cuda.pairhmm5_bwd)
+        out = []
+        for kernel, fn in (
+                ("pairhmm5_fwd", lambda: fwd(*dargs, em, **kw)),
+                ("pairhmm5_bwd",
+                 lambda: bwd(fM, lsF, logZ, *dargs, em, **kw))):
+            ms = smoke.time_ms(fn, args.reps)
+            dev_ms = banded_sweep.kernel_device_ms(fn, args.reps, kernel)
+            out.append(dict(
+                root=rel, case=case, kernel=kernel, shape=[P, M, band],
+                max_live=max_live if has_live else None, ms=ms,
+                device_ms=dev_ms, longest_rows=rows,
+                us_per_row=(dev_ms if dev_ms is not None else ms) * 1e3
+                / max(1, rows), live_cells=live, computed_cells=computed,
+                post_gap=gap))
+        return out
+
+    p7 = tp5.Hmm5Params(p_match=0.7)
+    for name, seed, n, lo_len, hi_len, band in SHAPES5:
+        if args.only not in name:
+            continue
+        pairs = smoke.ragged_pairs(seed, n, lo_len, hi_len, band, sub=0.2,
+                                   indel=0.06)
+        packed = tb.pack_band_batch(pairs, band, min_batch=1)
+        dargs = [torch.from_numpy(packed[k]).to(dev) for k in KEYS]
+        for line in run(name, dargs, band, p7,
+                        banded_cuda.live_width(dargs[3], band), True):
+            print(json.dumps(line), flush=True)
+    if args.replay:
+        saved = torch.load(args.replay)
+        totals = {}
+        for tensors, kw in saved["calls"]:
+            dargs = [x.to(dev) for x in tensors[:5]]
+            params = tp5.Hmm5Params(**kw["params"])
+            lines = run("pecan path replay", dargs, kw["band"], params,
+                        kw.get("max_live", kw["band"]), False)
+            for line in lines:
+                tot = totals.setdefault(line["kernel"], dict(
+                    ms=0.0, device_ms=0.0, live_cells=0, computed_cells=0))
+                tot["ms"] += line["ms"]
+                tot["device_ms"] = (None if line["device_ms"] is None
+                                    or tot["device_ms"] is None
+                                    else tot["device_ms"] + line["device_ms"])
+                tot["live_cells"] += line["live_cells"]
+                tot["computed_cells"] += line["computed_cells"]
+        for kernel, tot in totals.items():
+            print(json.dumps(dict(root=rel, case="pecan path replay",
+                                  kernel=kernel, calls=len(saved["calls"]),
+                                  **tot)), flush=True)
     return 0
 
 

@@ -497,6 +497,124 @@ def test_poa_affine_kernels_match_plain(cuda, kernel, P, n, l, band):
 # The kernels below run 32-thread blocks at these widths (pair-HMMs at
 # band <= 32, poa_affine at B 32, poa_chain at B 4096, one warp a block),
 # where a load of the 6x6 matrix by threads 0-35 would leave entries
+def _check_pairhmm5_vs_plain(packed, band, dev, max_live=None, base5=False):
+    """Both 5-state kernels, with max_live as posterior_pairs_banded5
+    passes it (default: the pairs' widest live row), against the plain
+    versions by chip_smoke.check_hmm (every value finite, the posterior
+    within its HMM_ATOL, logZ within LOGZ_RTOL, log(fM) + lsF within
+    FWD_LOG_ATOL where the plain fM is above 1e-30), with fM and post
+    zero outside each row's live window and past m.  Returns the threads
+    a block launched with."""
+    args = [torch.from_numpy(packed[k]).to(dev) for k in KEYS]
+    p = tp5.Hmm5Params(p_match=0.8)
+    em_np = p.emissions().copy()
+    if base5:
+        args = _with_base5(args, np.random.default_rng(band + 2))
+        em_np[5] = ROW5_EM
+    em = torch.from_numpy(em_np).to(dev)
+    if max_live is None:
+        max_live = banded_cuda.live_width(args[3], band)
+    kw = dict(band=band, params=p)
+    n0 = cuda_build.launches()
+    fM, lsF, logZ = pairhmm5_cuda.pairhmm5_fwd(*args, em, **kw,
+                                               max_live=max_live)
+    post = pairhmm5_cuda.pairhmm5_bwd(fM, lsF, logZ, *args, em, **kw,
+                                      max_live=max_live)
+    torch.cuda.synchronize()
+    n1 = cuda_build.launches()
+    assert n1["pairhmm5_fwd"] == n0["pairhmm5_fwd"] + 1
+    assert n1["pairhmm5_bwd"] == n0["pairhmm5_bwd"] + 1
+    cpu = [a.cpu() for a in args]
+    fM_r, lsF_r, logZ_r = tp5.forward_banded5(*cpu, em.cpu(), **kw)
+    ref = tp5.backward_posterior5(fM_r, lsF_r, logZ_r, *cpu, em.cpu(), **kw)
+    fM, post = fM.cpu(), post.cpu()
+    chip_smoke.check_hmm(fM, lsF.cpu(), logZ.cpu(), post, fM_r, lsF_r,
+                         logZ_r, ref, f"pairhmm5 band {band}", quiet=True)
+    live = banded_cuda.live_mask(cpu[2], cpu[3], cpu[4], fM.shape[1], band)
+    assert not bool(fM[~live].any()) and not bool(post[~live].any())
+    return pairhmm5_cuda.launch_threads(max_live)
+
+
+def _codes(rng, k):
+    return rng.integers(0, 4, k).astype(np.uint8)
+
+
+@pytest.mark.parametrize("band,lo_len,hi_len,warps", [
+    (128, 20, 128, 1),       # one warp of 4 cells a lane
+    (256, 150, 256, 2),
+    (512, 300, 512, 4),
+    (1024, 600, 1024, 8),
+    (4096, 3700, 4096, 32)])
+def test_pairhmm5_launch_shapes_and_edge_pairs(cuda, band, lo_len, hi_len,
+                                               warps):
+    """1, 2, 4, 8 and 32 warps a block of 4 cells a lane (8, 16 and 64
+    cells in test_pairhmm5_wide_windows), each batch with m_len 0, 1 and
+    M (the longest query fills the padded rows) and n_len 0."""
+    rng = np.random.default_rng(band + warps)
+    lens = rng.integers(lo_len, hi_len, 3)
+    lens[0] = hi_len
+    pairs = _homologous(band + 9, lens, band)
+    pairs += [(_codes(rng, 0), _codes(rng, 7)), (_codes(rng, 1), _codes(rng, 3)),
+              (_codes(rng, 5), _codes(rng, 0))]
+    packed = tb.pack_band_batch(pairs, band, min_batch=1, min_rows=32)
+    assert packed["q"].shape[1] == hi_len
+    widest = max(min(band, len(t) + 1) for _q, t in pairs)
+    assert widest > 32 * 4 * (warps - 1)
+    threads = _check_pairhmm5_vs_plain(packed, band, cuda)
+    assert threads == 32 * warps
+
+
+def test_pairhmm5_rows_with_empty_windows(cuda):
+    """A pair whose band lies left of j = 0 for its first 36 rows (empty
+    windows, each rescaled by TINY) beside ordinary pairs in one launch."""
+    band = 64
+    rng = np.random.default_rng(64)
+    pairs = _homologous(65, [100, 90], band)
+    pairs.append((_codes(rng, 100), _codes(rng, 60)))
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    packed["lo"][2] = -100       # end cell (100, 60) at band cell 60
+    _check_pairhmm5_vs_plain(packed, band, cuda)
+
+
+def test_pairhmm5_max_live(cuda):
+    """max_live equal to the widest pair's live width runs (2 warps here,
+    against 8 at the band); one below it raises before any launch."""
+    band = 1024
+    pairs = _homologous(11, [200, 150, 230], band)
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    widest = max(min(band, len(t) + 1) for _q, t in pairs)
+    assert _check_pairhmm5_vs_plain(packed, band, cuda, widest) == 64
+    assert _check_pairhmm5_vs_plain(packed, band, cuda, band) == 256
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    p = tp5.Hmm5Params()
+    em = torch.from_numpy(p.emissions()).to(cuda)
+    n0 = cuda_build.launches()
+    with pytest.raises(ValueError, match="max_live"):
+        pairhmm5_cuda.pairhmm5_fwd(*args, em, band=band, params=p,
+                                   max_live=widest - 1)
+    assert cuda_build.launches() == n0
+
+
+@pytest.mark.parametrize("band,n,cells,scratch", [
+    (8192, 5000, 8, False), (16384, 9000, 16, True),
+    (32768, 17000, 64, True)])
+def test_pairhmm5_wide_windows(cuda, band, n, cells, scratch):
+    """Live windows past 32 warps of 4 cells: 8 cells a lane with the
+    state rows in shared memory, 16 and 64 with them in global scratch;
+    a 300-base query inside a long target."""
+    rng = np.random.default_rng(n)
+    q = _codes(rng, 300)
+    t = np.concatenate([_codes(rng, 4000), _mutate(rng, q),
+                        _codes(rng, n - 4000 - 300)])[:n]
+    pairs = [(q, t), (q[:120], q[:118])]
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    live = min(band, len(t) + 1)
+    assert pairhmm5_cuda.cells_per_lane(live) == cells
+    assert (pairhmm5_cuda._lib().pairhmm5_scratch_floats(live) > 0) == \
+        scratch
+    _check_pairhmm5_vs_plain(packed, band, cuda)
+
+
 # 32-35 (row 5, the pad code, columns 2-5) unloaded.  Each puts base 5 in
 # live rows, with a row 5 whose entries all differ.
 ROW5_EM = np.array([0.55, 0.65, 0.75, 0.85, 0.95, 1.05], np.float32)
@@ -531,8 +649,11 @@ def test_pairhmm_base5_rows_in_32_thread_blocks(cuda, band):
     assert float((post.cpu() - ref).abs().max()) <= HMM_ATOL
 
 
-@pytest.mark.parametrize("band", [16, 32])
+@pytest.mark.parametrize("band", [16, 32, 256, 512, 1024, 9000])
 def test_pairhmm5_base5_rows_in_32_thread_blocks(cuda, band):
+    """Code-5 query rows at every launch shape (max_live is the band
+    here): one warp, 2, 4 and 8 warps of 4 cells a lane, and 18 warps of
+    16 with global scratch rows."""
     pairs = _pairs(band + 50, 6, 300, band)
     _packed_np, args = _packed(pairs, band, cuda)
     args = _with_base5(args, np.random.default_rng(band + 1))
