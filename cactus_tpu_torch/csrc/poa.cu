@@ -14,18 +14,31 @@
 //   j = off[v] + b), any DAG of up to 4 predecessors a node:
 //     H (P, N, B) int32, dirs (P, N, B) int16 (13 bits, layout of
 //     poa.py:375-377), ends (P, N) int32.
-// poa_chain_kernel replaces ::_chain_kernel (with _chain_nodes) under the
-//   same contract, for batches whose every node is a source (no
+// poa_chain_kernel replaces ::_chain_kernel (with _chain_nodes) under
+//   the same contract, for batches whose every node is a source (no
 //   predecessor) or has the single predecessor v-1 with a band offset
 //   step off[v] - off[v-1] of 0 or 1 (ops/poa_cuda.py::chain_certified).
 //
-// All three are bit-identical to the plain PyTorch versions in
-// cactus_tpu_torch/ops/poa.py on every cell, pad nodes and columns past a
-// problem's query included: candidates are compared in the contract's
-// order with first-maximum ties (F candidates [opens of slots 0..3,
-// extends of slots 0..3], diag over slots 0..3, moves diag, F1, F2, E1,
-// E2), empty predecessor slots take part as NEG candidates, and a
-// predecessor p >= v reads the NEG rows the contract's scan starts from.
+// poa_linear is bit-identical to its plain PyTorch version
+// (cactus_tpu_torch/ops/poa.py) on every cell.  poa_chain and poa_affine
+// compute only each problem's live cells: its real nodes v < n (the pad
+// nodes of a shape bin come after them) and the band cells b with
+// off[v] + b <= L.  There H and dirs are bit-identical to the plain
+// version, and so is ends on every real node; every other cell is left
+// unwritten (ops/poa_cuda.py::live_mask).  That is sound because a live
+// cell reads only live cells: its predecessor cell at the same column j
+// and at j - 1 (each live in the predecessor's row when inside its band,
+// and the predecessor is a real node), and the insertion chain to its
+// left; and the consumers (poa_msa_batch, poa_align_affine and their
+// traceback) read dirs of real nodes at columns j <= L and ends of real
+// nodes only.  A row's live width is at most min(B, L + 1) for the band
+// offsets the consumers make; the wrapper passes max_live, the widest of
+// the launch, and a predecessor cell at b >= max_live is never live.
+// Candidates are compared in the contract's order with first-maximum
+// ties (F candidates [opens of slots 0..3, extends of slots 0..3], diag
+// over slots 0..3, moves diag, F1, F2, E1, E2), empty predecessor slots
+// take part as NEG candidates, and a predecessor p >= v reads the NEG
+// rows the contract's scan starts from.
 //
 // What bounds them on an H100: the DP is integer work, about 36 int32
 // operations a cell on one predecessor (ops/poa_cuda.py
@@ -33,34 +46,58 @@
 // so int32 issue and the dependence between graph nodes, not the
 // 3.35 TB/s of device memory, set the floor.  Nodes of one problem run in
 // order (a row needs its predecessors' final rows); problems run in
-// parallel.
+// parallel, so a launch of few problems is bound by one node's latency
+// times its longest problem's nodes.
 //
-// Design.  A team of threads owns one problem; each thread owns a
-// contiguous run of cells of the row.  A node is two passes over the
-// thread's cells with a team scan between them:
-//   pass 1: gather the predecessor cells (shifted by the offset step
+// Design of poa_chain and poa_affine.  A team of TL lanes (8, 16 or 32)
+// in NW warps owns one problem, each lane C consecutive cells of the
+// team's cover TL * NW * C, the first of 32, 64, ... 16384 at or above the
+// launch's widest live row (Team<C, TL, NW>; the wrapper picks the shape,
+// ops/poa_cuda.py::team_shape: mostly 2 cells a lane, where a node's
+// latency is shortest).  Narrow rows put 32 / TL problems in a warp
+// (segmented shuffles), which loops to its longest problem; wide rows
+// give one problem up to 16 warps.  C is a compile-time constant of the
+// instance, so a lane's cells live in registers.  Before the node
+// loop, each tile of nodes is staged in shared memory: the node word
+// (band offset, base, source flag; for poa_affine the predecessor slots
+// and each slot's band offset step) and the query codes from the tile's
+// first band offset on (a code outside that window, after an offset jump,
+// comes from device memory).  A node is two passes over the lane's cells
+// with a team scan between them:
+//   pass 1: the predecessor cells (shifted by the offset step
 //     d = off[v] - off[p]), the F1/F2 deletion states and their argmax
-//     codes, the diagonal and h0 = max(diag, F1, F2); stage h0 and the
-//     partial direction code in the output rows; keep the thread's max of
+//     codes, the diagonal and h0 = max(diag, F1, F2), kept in registers
+//     with the partial direction code; the lane's max of
 //     Z_k[b] = h0[b] + e_k * b.
-//   team scan: exclusive max-scan of Z_1 and Z_2 (warp shuffles, plus
-//     shared memory across warps).  The in-row convex insertion chain is
-//     then E_k[b] = max(NEG, max_{b' < b} Z_k[b'] - o_k - e_k * b): the
-//     ramp form of the contract's clamped Kogge-Stone scan (max is exact
-//     in int32, so any scan order gives the same bits).
-//   pass 2: E1, E2, H = max(h0, E1, E2), the NEG mask past the query,
-//     the move decode and the E-extend bits (which need the masked E of
-//     cell b-1: the team's first cell of each thread takes it from its
-//     neighbour after the pass).
-// poa_affine_kernel: the team is a block (B/threads cells a thread); the
-//   predecessor rows are the H output itself and per-problem F1/F2
-//   history planes (P, N, B) that the wrapper allocates.
-// poa_chain_kernel: the team is one warp and a block holds several
-//   problems (the dominant bin is B = 64 with thousands of problems).
-//   There is no history: the previous row's H/F1/F2 and the current one
-//   live in a double-buffered row pair in shared memory (24 bytes a cell,
-//   up to B = 8192) or, wider, in a per-problem global ring the wrapper
-//   allocates (poa_chain_ring_ints).
+//   team scan: exclusive max-scan of Z_1 and Z_2 by warp shuffles; with
+//     several warps, one barrier: each warp publishes its aggregates (and
+//     the values below) in double-buffered shared slots and adds up the
+//     ones before it.  The in-row convex insertion chain is then
+//     E_k[b] = max(NEG, max_{b' < b} Z_k[b'] - o_k - e_k * b): the ramp
+//     form of the contract's clamped Kogge-Stone scan (max is exact in
+//     int32, so any scan order gives the same bits).
+//   pass 2: E1, E2, H = max(h0, E1, E2), the move decode and the
+//     E-extend bits (which need the E of cell b - 1: a lane's first cell takes it from its left lane by a
+//     shuffle, a warp's first cell rebuilds it from the previous warp's
+//     published aggregate without its last cell and that cell's h0).
+//   stores: H and dirs of the live cells, as 16-byte vectors where a
+//     lane's cells are all live; ends at column L.
+// poa_chain_kernel: the predecessor is v - 1 with d = 0 or 1, so its row
+//   stays in registers: a lane reads its own cells and one neighbour cell
+//   each side by shuffles; at a warp's edge the neighbour warp's cell of
+//   the previous row is rebuilt after the barrier from what that warp
+//   published (its first cell's h0/F1/F2, its last cell's h0 and the
+//   carries).  One barrier a node with several warps, none with one.
+// poa_affine_kernel: predecessors are any earlier rows, so each team
+//   keeps a history of its rows (H, F1, F2 of the cover cells): in shared
+//   memory when a block's rows fit and the launch is resident at once
+//   (ops/poa_cuda.py::affine_rows_in_smem), else in global scratch.  The
+//   next node may read the row just written: a warp sync after the
+//   stores, or a second barrier with several warps.
+// Covers 8192 and 16384 give a lane 16 or 32 cells, more values than its
+//   registers hold; the compiler keeps the rest in local memory.  A wider
+//   row raises in the wrapper: the poa engine's window (10,000 bases)
+//   bounds L, so its rows are at most 10,001 cells wide.
 // poa_linear_kernel: one block for the one problem; linear gaps make the
 //   insertion chain a plain prefix max of h0[k] + gap * k minus gap * j.
 
@@ -74,7 +111,6 @@ namespace {
 constexpr int kNeg = -(1 << 28);   // poa.py NEG
 constexpr int kMaxPreds = 4;       // poa.py MAX_PREDS
 constexpr int kMaxThreads = 256;
-constexpr int kChainSmemBand = 8192;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
@@ -105,16 +141,6 @@ __device__ __forceinline__ void warp_incl_max2(int& a, int& b) {
   }
 }
 
-// exclusive max-scan of two ints across the warp, seeded with `seed`
-__device__ __forceinline__ void warp_excl_max2(int& a, int& b, int seed) {
-  warp_incl_max2(a, b);
-  int ea = __shfl_up_sync(kFull, a, 1);
-  int eb = __shfl_up_sync(kFull, b, 1);
-  if ((threadIdx.x & 31) == 0) ea = eb = INT_MIN;
-  a = imax(seed, ea);
-  b = imax(seed, eb);
-}
-
 // exclusive max-scan of two ints across the block (blockDim.x a multiple
 // of 32), seeded with `seed`.  wbuf holds 64 ints; the caller puts a
 // __syncthreads between this call and the next one.
@@ -140,298 +166,645 @@ __device__ __forceinline__ void block_excl_max2(int& a, int& b, int seed,
   b = imax(pb, eb);
 }
 
-// Pass 1 of one affine cell from its per-slot predecessor values (NEG in
-// empty slots).  Returns h0, the masked F1/F2, and the direction code
-// without its E bits; bits 0-2 hold the move when the cell is past the
-// query (H = NEG there) and, for a cell inside it, the first of
-// (diag, F1, F2) equal to h0 — the move whenever H == h0.
-__device__ __forceinline__ void cell_pass1(const int (&Hp)[kMaxPreds],
-                                           const int (&F1p)[kMaxPreds],
-                                           const int (&F2p)[kMaxPreds],
-                                           const int (&Hd)[kMaxPreds],
-                                           int s, bool valid, const Gaps& g,
-                                           int& h0, int& F1o, int& F2o,
-                                           int& code) {
-  const int pen1 = g.o1 + g.e1, pen2 = g.o2 + g.e2;
-  int F1 = Hp[0] - pen1, a1 = 0;
-  int F2 = Hp[0] - pen2, a2 = 0;
-#pragma unroll
-  for (int k = 1; k < kMaxPreds; ++k) {
-    if (Hp[k] - pen1 > F1) { F1 = Hp[k] - pen1; a1 = k; }
-    if (Hp[k] - pen2 > F2) { F2 = Hp[k] - pen2; a2 = k; }
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxPreds; ++k) {
-    if (F1p[k] - g.e1 > F1) { F1 = F1p[k] - g.e1; a1 = kMaxPreds + k; }
-    if (F2p[k] - g.e2 > F2) { F2 = F2p[k] - g.e2; a2 = kMaxPreds + k; }
-  }
-  int diag = Hd[0] + s, ds = 0;
-#pragma unroll
-  for (int k = 1; k < kMaxPreds; ++k) {
-    if (Hd[k] + s > diag) { diag = Hd[k] + s; ds = k; }
-  }
-  h0 = imax(diag, imax(F1, F2));
-  int move;
-  if (valid) {
-    move = diag == h0 ? 0 : (F1 == h0 ? 1 : 2);
-    F1o = F1;
-    F2o = F2;
-  } else {
-    move = diag == kNeg ? 0 : 1;
-    F1o = F2o = kNeg;
-  }
-  code = move | (ds << 3) | ((a1 & 3) << 5) | ((a1 >> 2) << 7) |
-         ((a2 & 3) << 8) | ((a2 >> 2) << 10);
-}
-
-// Pass 2 of one affine cell: r1/r2 are the exclusive prefix maxima of Z_k
-// before cell b.  Returns H and the masked E1/E2, and completes the move.
-__device__ __forceinline__ void cell_pass2(int h0, int& code, int r1, int r2,
-                                           int b, bool valid, const Gaps& g,
-                                           int& H, int& E1, int& E2) {
-  E1 = imax(kNeg, r1 - g.o1 - g.e1 * b);
-  E2 = imax(kNeg, r2 - g.o2 - g.e2 * b);
-  if (valid) {
-    H = imax(h0, imax(E1, E2));
-    if (H != h0) code = (code & ~7) | (H == E1 ? 3 : 4);
-  } else {
-    H = E1 = E2 = kNeg;
-  }
-}
-
 __device__ __forceinline__ int ext_bits(int E1, int E2, int pE1, int pE2,
                                         const Gaps& g) {
   return ((E1 == pE1 - g.e1) ? 2048 : 0) | ((E2 == pE2 - g.e2) ? 4096 : 0);
 }
 
-// ------------------------------------------------------------ kernel 6
+// ------------------------------------------------------------ kernel 7
 
-__global__ void __launch_bounds__(kMaxThreads)
-poa_affine_kernel(const uint8_t* __restrict__ bases,
-                  const int* __restrict__ preds,
-                  const int* __restrict__ off,
-                  const uint8_t* __restrict__ q_ext,
-                  const int* __restrict__ l_len,
-                  const int* __restrict__ submat,
-                  int N, int Lq, int B, Gaps g,
-                  int* H, int16_t* dirs, int* __restrict__ ends,
-                  int* F1h, int* F2h) {
-  __shared__ int s_sub[36];
-  __shared__ int wbuf[64];
-  __shared__ int lastE[2 * kMaxThreads];
-  const int p = blockIdx.x;
-  const int t = threadIdx.x;
-  const int T = blockDim.x;
-  const int C = B / T;
-  const int b0 = t * C, b1 = b0 + C;
-  const int L = l_len[p];
-  const size_t plane = (size_t)p * N * B;
-  int* Hp_ = H + plane;
-  int* F1_ = F1h + plane;
-  int* F2_ = F2h + plane;
-  int16_t* Dp = dirs + plane;
-  const uint8_t* qp = q_ext + (size_t)p * Lq;
-  const int* pp = preds + (size_t)p * N * kMaxPreds;
-  const int* op = off + (size_t)p * N;
-  for (int k = t; k < 36; k += T) s_sub[k] = submat[k];
-  __syncthreads();
+// Team shapes.  A team of TL lanes (8, 16 or 32) in each of NW warps owns
+// one problem, each lane C consecutive band cells: cells b = lane * C ..
+// lane * C + C - 1 of the team's cover TL * NW * C, the first power of two
+// at or above the launch's widest live row (max_live).  With NW == 1 a
+// block is four warps (poa_affine with its rows in shared memory: one)
+// and a warp carries 32 / TL problems; with NW > 1 a block is the one
+// problem's NW warps.
+template <int C, int TL, int NW, int kBlockWarps = 4, int kTile1 = 64>
+struct Team {
+  static constexpr int kThreads = NW > 1 ? 32 * NW : 32 * kBlockWarps;
+  static constexpr int kLanes = TL * NW;
+  static constexpr int kTeams = kThreads / kLanes;
+  static constexpr int kCover = kLanes * C;
+  // nodes staged at a time, and the query codes staged with them: the
+  // tile's first band offset onward, kCover + kNodeTile codes (a chain's
+  // offsets step by at most one a node; a code outside the window is
+  // read from device memory)
+  static constexpr int kNodeTile = NW > 1 ? 32 * NW : kTile1;
+  static constexpr int kQWin = kCover + kNodeTile;
+};
 
-  for (int v = 0; v < N; ++v) {
-    const int off_v = op[v];
-    const int* srow = s_sub + 6 * bases[(size_t)p * N + v];
-    // a slot reads its predecessor's row only when that row is final
-    // (p < v); an empty slot, or a row not computed yet (the contract's
-    // scan reads its NEG init there), gives NEG candidates
-    int pv[kMaxPreds], dv[kMaxPreds];
-    bool has = false, row_ok[kMaxPreds];
+// inclusive max-scan of two ints across each segment of TL lanes
+template <int TL>
+__device__ __forceinline__ void seg_incl_max2(int& a, int& b, int lane_t) {
 #pragma unroll
-    for (int k = 0; k < kMaxPreds; ++k) {
-      pv[k] = pp[v * kMaxPreds + k];
-      has |= pv[k] >= 0;
-      row_ok[k] = pv[k] >= 0 && pv[k] < v;
-      dv[k] = row_ok[k] ? off_v - op[pv[k]] : 0;
+  for (int off = 1; off < TL; off <<= 1) {
+    const int oa = __shfl_up_sync(kFull, a, off, TL);
+    const int ob = __shfl_up_sync(kFull, b, off, TL);
+    if (lane_t >= off) {
+      a = imax(a, oa);
+      b = imax(b, ob);
     }
-    int* hrow = Hp_ + (size_t)v * B;
-    int16_t* drow = Dp + (size_t)v * B;
-    int agg1 = INT_MIN, agg2 = INT_MIN;
-    for (int b = b0; b < b1; ++b) {
-      const int j = off_v + b;
-      const bool valid = j <= L;
-      const int s = srow[qp[imin(imax(j, 0), L)]];
-      int Hk[kMaxPreds], F1k[kMaxPreds], F2k[kMaxPreds], Hd[kMaxPreds];
-#pragma unroll
-      for (int k = 0; k < kMaxPreds; ++k) {
-        Hk[k] = F1k[k] = F2k[k] = Hd[k] = kNeg;
-        if (!row_ok[k]) continue;
-        const int gi = dv[k] + b;
-        const size_t base = (size_t)pv[k] * B;
-        if (gi >= 0 && gi < B) {
-          Hk[k] = Hp_[base + gi];
-          F1k[k] = F1_[base + gi];
-          F2k[k] = F2_[base + gi];
-        }
-        if (gi >= 1 && gi <= B) Hd[k] = Hp_[base + gi - 1];
-      }
-      if (!has) {   // a source reads the virtual start row in slot 0
-        Hk[0] = row0_at(j, g);
-        Hd[0] = row0_at(j - 1, g);
-      }
-      int h0, F1o, F2o, code;
-      cell_pass1(Hk, F1k, F2k, Hd, s, valid, g, h0, F1o, F2o, code);
-      hrow[b] = h0;             // staged until pass 2
-      drow[b] = (int16_t)code;
-      F1_[(size_t)v * B + b] = F1o;
-      F2_[(size_t)v * B + b] = F2o;
-      agg1 = imax(agg1, h0 + g.e1 * b);
-      agg2 = imax(agg2, h0 + g.e2 * b);
-    }
-    int r1 = agg1, r2 = agg2;
-    block_excl_max2(r1, r2, kNeg, wbuf);
-
-    int pE1 = kNeg, pE2 = kNeg, fE1 = kNeg, fE2 = kNeg, fcode = 0;
-    const int bL = L - off_v;
-    for (int b = b0; b < b1; ++b) {
-      const int h0 = hrow[b];
-      int code = drow[b];
-      const bool valid = off_v + b <= L;
-      int Hc, E1, E2;
-      cell_pass2(h0, code, r1, r2, b, valid, g, Hc, E1, E2);
-      if (b == b0) {
-        fE1 = E1;
-        fE2 = E2;
-        fcode = code;
-      } else {
-        drow[b] = (int16_t)(code | ext_bits(E1, E2, pE1, pE2, g));
-      }
-      hrow[b] = Hc;
-      if (b == bL) ends[(size_t)p * N + v] = Hc;
-      r1 = imax(r1, h0 + g.e1 * b);
-      r2 = imax(r2, h0 + g.e2 * b);
-      pE1 = E1;
-      pE2 = E2;
-    }
-    lastE[t] = pE1;
-    lastE[kMaxThreads + t] = pE2;
-    __syncthreads();
-    {
-      const int q1 = t == 0 ? kNeg : lastE[t - 1];
-      const int q2 = t == 0 ? kNeg : lastE[kMaxThreads + t - 1];
-      drow[b0] = (int16_t)(fcode | ext_bits(fE1, fE2, q1, q2, g));
-    }
-    if (t == 0 && (bL < 0 || bL >= B)) ends[(size_t)p * N + v] = kNeg;
-    __syncthreads();   // the row is final before the next node reads it
   }
 }
 
-// ------------------------------------------------------------ kernel 7
+// Pass 1 of a team kernel's cell from packed candidates.  A candidate is
+// value * 4 + 3 - slot, so one integer max keeps the larger value and, on
+// a tie, the lower slot: the contract's first maximum over slots 0..3.
+// Opens (H - o - e) and extends (F - e) are kept apart, since opens come
+// first in the contract's order; diag is Hd + s.  Values stay within
+// 2^29 of 0 (H >= NEG on every cell a live cell reads, F >= NEG - o - e),
+// so the packed ints do not overflow there.  The team kernels keep no
+// NEG mask past the query: such cells are not live and no live cell reads
+// them (see the header), so pass 1 and 2 skip the mask.
+struct Cands {
+  int o1, o2, x1, x2, d;
+};
 
-__global__ void __launch_bounds__(kMaxThreads)
+__device__ __forceinline__ int pack(int v, int k) { return v * 4 + 3 - k; }
+
+// the empty slot k (NEG rows): of equal empty slots only the lowest can
+// be a first maximum, so it stands for them all
+__device__ __forceinline__ void cands_empty(Cands& c, int k, int s,
+                                            const Gaps& g) {
+  c.o1 = pack(kNeg - g.o1 - g.e1, k);
+  c.o2 = pack(kNeg - g.o2 - g.e2, k);
+  c.x1 = pack(kNeg - g.e1, k);
+  c.x2 = pack(kNeg - g.e2, k);
+  c.d = pack(kNeg + s, k);
+}
+
+__device__ __forceinline__ void cands_none(Cands& c) {
+  c.o1 = c.o2 = c.x1 = c.x2 = c.d = INT_MIN;
+}
+
+// slot k's predecessor cells: H and F at the cell's column, H left of it
+__device__ __forceinline__ void cands_slot(Cands& c, int k, int H, int F1,
+                                           int F2, int Hd, int s,
+                                           const Gaps& g) {
+  c.o1 = imax(c.o1, pack(H - g.o1 - g.e1, k));
+  c.o2 = imax(c.o2, pack(H - g.o2 - g.e2, k));
+  c.x1 = imax(c.x1, pack(F1 - g.e1, k));
+  c.x2 = imax(c.x2, pack(F2 - g.e2, k));
+  c.d = imax(c.d, pack(Hd + s, k));
+}
+
+// h0, F1, F2 and the direction code without its E bits: bits 0-2 hold
+// the first of (diag, F1, F2) equal to h0, the move whenever H == h0
+__device__ __forceinline__ void cands_cell(const Cands& c, int& h0, int& F1,
+                                           int& F2, int& code) {
+  const bool open1 = (c.o1 >> 2) >= (c.x1 >> 2);
+  const bool open2 = (c.o2 >> 2) >= (c.x2 >> 2);
+  const int p1 = open1 ? c.o1 : c.x1;
+  const int p2 = open2 ? c.o2 : c.x2;
+  F1 = p1 >> 2;
+  F2 = p2 >> 2;
+  const int diag = c.d >> 2;
+  h0 = imax(diag, imax(F1, F2));
+  const int move = diag == h0 ? 0 : (F1 == h0 ? 1 : 2);
+  code = move | ((3 - (c.d & 3)) << 3) | ((3 - (p1 & 3)) << 5) |
+         (open1 ? 0 : 128) | ((3 - (p2 & 3)) << 8) | (open2 ? 0 : 1024);
+}
+
+// Pass 2 of a cell: r1/r2 are the exclusive prefix maxima of Z_k before
+// cell b.  Returns H and E1/E2, and completes the move (no mask past the
+// query: such cells are not live)
+__device__ __forceinline__ void cell_pass2_live(int h0, int& code, int r1,
+                                                int r2, int b, const Gaps& g,
+                                                int& H, int& E1, int& E2) {
+  E1 = imax(kNeg, r1 - g.o1 - g.e1 * b);
+  E2 = imax(kNeg, r2 - g.o2 - g.e2 * b);
+  H = imax(h0, imax(E1, E2));
+  if (H != h0) code = (code & ~7) | (H == E1 ? 3 : 4);
+}
+
+// H and the E states of a team's edge cell from what its warp published
+// before the node's barrier: the exclusive prefix maxima r1/r2 before
+// cell b and its pass-1 h0.
+__device__ __forceinline__ void edge_cell(int h0, int r1, int r2, int b,
+                                          const Gaps& g, int& H, int& E1,
+                                          int& E2) {
+  int code = 0;
+  cell_pass2_live(h0, code, r1, r2, b, g, H, E1, E2);
+}
+
+// A lane's C ints as one or two vector stores (C = 2, 4 or 8; dst and the
+// lane's first cell aligned to 4 C bytes).
+template <int C>
+__device__ __forceinline__ void store_ints(int* dst, const int (&x)[C]) {
+  if constexpr (C == 2) {
+    *reinterpret_cast<int2*>(dst) = make_int2(x[0], x[1]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; c += 4)
+      *reinterpret_cast<int4*>(dst + c) =
+          make_int4(x[c], x[c + 1], x[c + 2], x[c + 3]);
+  }
+}
+
+// H and dirs of one problem's lane cells on the live cells only
+// (b <= L - off_v, wlive = L - off_v + 1), as vector stores when the
+// lane's cells are all live.
+template <int C>
+__device__ __forceinline__ void store_cells(int* hrow, int16_t* drow,
+                                            const int (&Hc)[C],
+                                            const int (&code)[C], int b0,
+                                            int wlive) {
+  if (b0 + C <= wlive) {
+    store_ints<C>(hrow + b0, Hc);
+    int w[C / 2];
+#pragma unroll
+    for (int c = 0; c < C; c += 2)
+      w[c / 2] = (int)((unsigned)(uint16_t)code[c] |
+                       ((unsigned)(uint16_t)code[c + 1] << 16));
+    if constexpr (C == 2) {
+      *reinterpret_cast<int*>(drow + b0) = w[0];
+    } else {
+      store_ints<C / 2>(reinterpret_cast<int*>(drow + b0), w);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (b0 + c < wlive) {
+        hrow[b0 + c] = Hc[c];
+        drow[b0 + c] = (int16_t)code[c];
+      }
+    }
+  }
+}
+
+// The rest of a node row after pass 1, shared by both kernels: the
+// team's exclusive max-scan of Z_k = h0 + e_k * b (segment shuffles; with
+// several warps each warp publishes its aggregates, the two without its
+// last cell, its first cell's h0/F1/F2 and its last cell's h0 in pub, one
+// barrier, and each warp rebuilds its carry and the edge cells of its
+// neighbour warps from them: xl_H / xr_* for the next node's neighbour
+// reads, the left E for this node's extend bits), pass 2 and the extend
+// bits (the E of cell b0 - 1 by a shuffle inside a warp).
+template <int C, int TL, int NW>
+__device__ __forceinline__ void team_row(
+    const int (&h0)[C], const int (&nF1)[C], const int (&nF2)[C],
+    int (&code)[C], int (&Hc)[C], int agg1, int agg2, int aggx1, int aggx2,
+    int off_v, int L, int b0, int lane_t, int warp_t, int (*pub)[8],
+    const Gaps& g, int& xl_H, int& xr_H, int& xr_F1, int& xr_F2) {
+  // exclusive prefix maxima of Z_k before the lane, inside its warp
+  int r1 = agg1, r2 = agg2;
+  seg_incl_max2<TL>(r1, r2, lane_t);
+  int x1 = __shfl_up_sync(kFull, r1, 1, TL);
+  int x2 = __shfl_up_sync(kFull, r2, 1, TL);
+  if (lane_t == 0) x1 = x2 = INT_MIN;
+  int carry1 = kNeg, carry2 = kNeg;
+  int lE1 = kNeg, lE2 = kNeg;     // E of cell b0 - 1 across a warp edge
+  if constexpr (NW > 1) {
+    if (lane_t == 31) {
+      pub[warp_t][0] = r1;
+      pub[warp_t][1] = r2;
+      pub[warp_t][2] = imax(x1, aggx1);
+      pub[warp_t][3] = imax(x2, aggx2);
+      pub[warp_t][7] = h0[C - 1];
+    }
+    if (lane_t == 0) {
+      pub[warp_t][4] = h0[0];
+      pub[warp_t][5] = nF1[0];
+      pub[warp_t][6] = nF2[0];
+    }
+    __syncthreads();
+    // the carry before warp w - 1, then before w and w + 1
+    int c1 = kNeg, c2 = kNeg;
+    for (int u = 0; u + 1 < warp_t; ++u) {
+      c1 = imax(c1, pub[u][0]);
+      c2 = imax(c2, pub[u][1]);
+    }
+    if (warp_t > 0) {
+      // the previous warp's last cell: its E now (the extend bits of cell
+      // b0), its H for the next node
+      const int bl = warp_t * 32 * C - 1;
+      edge_cell(pub[warp_t - 1][7], imax(c1, pub[warp_t - 1][2]),
+                imax(c2, pub[warp_t - 1][3]), bl, g, xl_H, lE1, lE2);
+      carry1 = imax(c1, pub[warp_t - 1][0]);
+      carry2 = imax(c2, pub[warp_t - 1][1]);
+    }
+    if (warp_t < NW - 1) {
+      // the next warp's first cell, for the next node
+      const int bf = (warp_t + 1) * 32 * C;
+      int E1f, E2f;
+      edge_cell(pub[warp_t + 1][4], imax(carry1, pub[warp_t][0]),
+                imax(carry2, pub[warp_t][1]), bf, g, xr_H, E1f, E2f);
+      xr_F1 = pub[warp_t + 1][5];
+      xr_F2 = pub[warp_t + 1][6];
+    }
+  }
+  // pass 2: E1, E2, H and the move; the extend bits from cell b - 1
+  r1 = imax(carry1, x1);
+  r2 = imax(carry2, x2);
+  int pE1 = kNeg, pE2 = kNeg, fE1 = kNeg, fE2 = kNeg;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int b = b0 + c;
+    int E1, E2;
+    cell_pass2_live(h0[c], code[c], r1, r2, b, g, Hc[c], E1, E2);
+    if (c == 0) {
+      fE1 = E1;
+      fE2 = E2;
+    } else {
+      code[c] |= ext_bits(E1, E2, pE1, pE2, g);
+    }
+    r1 = imax(r1, h0[c] + g.e1 * b);
+    r2 = imax(r2, h0[c] + g.e2 * b);
+    pE1 = E1;
+    pE2 = E2;
+  }
+  int q1 = __shfl_up_sync(kFull, pE1, 1, TL);
+  int q2 = __shfl_up_sync(kFull, pE2, 1, TL);
+  if (lane_t == 0) {
+    q1 = lE1;
+    q2 = lE2;
+  }
+  code[0] |= ext_bits(fE1, fE2, q1, q2, g);
+}
+
+// A node's substitution scores at the lane's cells: the query code of
+// each column from the staged window (from device memory outside it)
+// and the node base's row of the 6x6 matrix.  No operand depends on the
+// previous node, so the kernels load the next node's scores while they
+// finish the current one.
+template <int C, int kQWin>
+__device__ __forceinline__ void node_scores(int wd, int b0, int L, int qlo,
+                                            const uint8_t* sq,
+                                            const uint8_t* qp,
+                                            const int* s_sub, int (&s)[C]) {
+  const int off_v = wd >> 4;
+  const int* srow = s_sub + 6 * ((wd >> 1) & 7);
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int jj = imin(imax(off_v + b0 + c, 0), L);
+    const unsigned k = (unsigned)(jj - qlo);
+    s[c] = srow[k < (unsigned)kQWin ? sq[k] : qp[jj]];
+  }
+}
+
+// poa_chain_kernel: one team a problem, its previous row in registers.
+// Per node: the node's word and query codes from shared memory, the
+// neighbour lanes' previous-row cells by shuffles (at a warp's edges,
+// recomputed from what the neighbour warp published), pass 1, the team's
+// exclusive max-scan (one barrier with several warps), pass 2, the E of
+// cell b0 - 1 for the extend bits by a shuffle, and the live cells'
+// stores.
+template <int C, int TL, int NW>
+__global__ void __launch_bounds__(Team<C, TL, NW>::kThreads)
 poa_chain_kernel(const uint8_t* __restrict__ bases,
-                 const int* __restrict__ preds,
-                 const int* __restrict__ off,
+                 const int* __restrict__ preds, const int* __restrict__ off,
                  const uint8_t* __restrict__ q_ext,
                  const int* __restrict__ l_len,
-                 const int* __restrict__ submat,
-                 int P, int N, int Lq, int B, Gaps g,
-                 int* __restrict__ H, int16_t* dirs,
-                 int* __restrict__ ends, int* ring) {
-  extern __shared__ int4 smem_raw[];
+                 const int* __restrict__ n_nodes,
+                 const int* __restrict__ submat, int P, int N, int Lq, int B,
+                 Gaps g, int* __restrict__ H, int16_t* __restrict__ dirs,
+                 int* __restrict__ ends) {
+  using T = Team<C, TL, NW>;
   __shared__ int s_sub[36];
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
-  const int p = blockIdx.x * (blockDim.x >> 5) + w;
-  for (int k = threadIdx.x; k < 36; k += blockDim.x) s_sub[k] = submat[k];
+  __shared__ int s_node[T::kTeams][T::kNodeTile];
+  __shared__ uint8_t s_q[T::kTeams][T::kQWin];
+  // per warp and node parity: the warp's two aggregates, the two without
+  // its last cell, its first cell's h0/F1/F2 and its last cell's h0
+  __shared__ int s_pub[NW > 1 ? 2 : 1][NW][8];
+  const int tid = threadIdx.x;
+  const int team = tid / T::kLanes;
+  const int tl = tid % T::kLanes;    // lane in the team
+  const int lane_t = tid % TL;       // lane in its shuffle segment
+  const int warp_t = tl / 32;        // warp in the team (NW > 1)
+  for (int k = tid; k < 36; k += T::kThreads) s_sub[k] = submat[k];
   __syncthreads();
-  if (p >= P) return;
-  // two row triples (H, F1, F2): 6 * B ints per problem
-  int* rows = ring != nullptr
-                  ? ring + (size_t)p * 6 * B
-                  : reinterpret_cast<int*>(smem_raw) + (size_t)w * 6 * B;
-  int* prv = rows;
-  int* cur = rows + 3 * B;
-  const int C = B / 32;
-  const int b0 = lane * C, b1 = b0 + C;
-  const int L = l_len[p];
+  const int slot = blockIdx.x * T::kTeams + team;
+  const bool active = slot < P;
+  const int p = active ? slot : 0;
+  const int L = active ? l_len[p] : 0;
+  const int n = active ? n_nodes[p] : 0;
+  if (NW > 1 && !active) return;     // the block is this one team
+  // the loop runs to the warp's longest problem (shuffles need every lane)
+  const int nv = NW > 1 ? n : __reduce_max_sync(kFull, n);
   const uint8_t* qp = q_ext + (size_t)p * Lq;
-  const int* pp = preds + (size_t)p * N * kMaxPreds;
-  const int* op = off + (size_t)p * N;
-  int* Hrows = H + (size_t)p * N * B;
-  int16_t* Drows = dirs + (size_t)p * N * B;
+  const size_t pN = (size_t)p * N;
+  const int b0 = tl * C;
+  int pH[C], pF1[C], pF2[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) pH[c] = pF1[c] = pF2[c] = kNeg;
+  // the neighbour warps' edge cells of the previous row (NW > 1)
+  int xl_H = kNeg, xr_H = kNeg, xr_F1 = kNeg, xr_F2 = kNeg;
   int off_prev = 0;
 
-  for (int v = 0; v < N; ++v) {
-    const int off_v = op[v];
-    const int* srow = s_sub + 6 * bases[(size_t)p * N + v];
-    const bool src = pp[v * kMaxPreds] < 0;
-    const int d = src ? 0 : off_v - off_prev;
-    int* hrow = Hrows + (size_t)v * B;
-    int16_t* drow = Drows + (size_t)v * B;
-    int agg1 = INT_MIN, agg2 = INT_MIN;
-    for (int b = b0; b < b1; ++b) {
-      const int j = off_v + b;
-      const bool valid = j <= L;
-      const int s = srow[qp[imin(imax(j, 0), L)]];
-      int Hk[kMaxPreds] = {kNeg, kNeg, kNeg, kNeg};
-      int F1k[kMaxPreds] = {kNeg, kNeg, kNeg, kNeg};
-      int F2k[kMaxPreds] = {kNeg, kNeg, kNeg, kNeg};
-      int Hd[kMaxPreds] = {kNeg, kNeg, kNeg, kNeg};
-      if (src) {
-        Hk[0] = row0_at(j, g);
-        Hd[0] = row0_at(j - 1, g);
-      } else {
-        const int gi = d + b;
-        if (gi >= 0 && gi < B) {
-          Hk[0] = prv[gi];
-          F1k[0] = prv[B + gi];
-          F2k[0] = prv[2 * B + gi];
-        }
-        if (gi >= 1 && gi <= B) Hd[0] = prv[gi - 1];
+  for (int v0 = 0; v0 < nv; v0 += T::kNodeTile) {
+    if (NW == 1) __syncwarp();
+    // stage the tile's node words (band offset, base, source flag) and
+    // the query codes from its first node's offset on
+    for (int i = tl; i < T::kNodeTile; i += T::kLanes) {
+      const int v = v0 + i;
+      int w = 0;
+      if (v < n) {
+        const int src = preds[(pN + v) * kMaxPreds] < 0;
+        w = off[pN + v] * 16 + (bases[pN + v] << 1) + src;
       }
-      int h0, F1o, F2o, code;
-      cell_pass1(Hk, F1k, F2k, Hd, s, valid, g, h0, F1o, F2o, code);
-      cur[b] = h0;              // staged until pass 2
-      cur[B + b] = F1o;
-      cur[2 * B + b] = F2o;
-      drow[b] = (int16_t)code;
-      agg1 = imax(agg1, h0 + g.e1 * b);
-      agg2 = imax(agg2, h0 + g.e2 * b);
+      s_node[team][i] = w;
     }
-    int r1 = agg1, r2 = agg2;
-    warp_excl_max2(r1, r2, kNeg);
+    const int qlo = v0 < n ? imax(0, off[pN + v0]) : 0;
+    const int qhi = imin(L, Lq - 1);
+    for (int i = tl; i < T::kQWin; i += T::kLanes) {
+      const int j = qlo + i;
+      s_q[team][i] = active && j <= qhi ? qp[j] : 5;
+    }
+    if (NW > 1) __syncthreads();
+    else __syncwarp();
+    const int vend = imin(T::kNodeTile, nv - v0);
+    int wd = s_node[team][0];
+    int sc[C];
+    node_scores<C, T::kQWin>(wd, b0, L, qlo, s_q[team], qp, s_sub, sc);
 
-    int pE1 = kNeg, pE2 = kNeg, fE1 = kNeg, fE2 = kNeg, fcode = 0;
-    const int bL = L - off_v;
-    for (int b = b0; b < b1; ++b) {
-      const int h0 = cur[b];
-      int code = drow[b];
-      const bool valid = off_v + b <= L;
-      int Hc, E1, E2;
-      cell_pass2(h0, code, r1, r2, b, valid, g, Hc, E1, E2);
-      if (b == b0) {
-        fE1 = E1;
-        fE2 = E2;
-        fcode = code;
-      } else {
-        drow[b] = (int16_t)(code | ext_bits(E1, E2, pE1, pE2, g));
+    for (int i = 0; i < vend; ++i) {
+      const int v = v0 + i;
+      const int off_v = wd >> 4;
+      const bool src = wd & 1;
+      const int d = src ? 0 : off_v - off_prev;   // 0 or 1
+      // the previous row's neighbour cells: the left lane's last H, the
+      // right lane's first H/F1/F2; NEG past the team's cover
+      int hl = __shfl_up_sync(kFull, pH[C - 1], 1, TL);
+      int hr = __shfl_down_sync(kFull, pH[0], 1, TL);
+      int f1r = __shfl_down_sync(kFull, pF1[0], 1, TL);
+      int f2r = __shfl_down_sync(kFull, pF2[0], 1, TL);
+      if (lane_t == 0) hl = xl_H;
+      if (lane_t == TL - 1) {
+        hr = xr_H;
+        f1r = xr_F1;
+        f2r = xr_F2;
       }
-      cur[b] = Hc;
-      hrow[b] = Hc;
-      if (b == bL) ends[(size_t)p * N + v] = Hc;
-      r1 = imax(r1, h0 + g.e1 * b);
-      r2 = imax(r2, h0 + g.e2 * b);
-      pE1 = E1;
-      pE2 = E2;
+
+      int h0[C], code[C], nF1[C], nF2[C];
+      int agg1 = INT_MIN, agg2 = INT_MIN, aggx1 = INT_MIN, aggx2 = INT_MIN;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int b = b0 + c;
+        const int j = off_v + b;
+        int Hk, F1k, F2k, Hd;
+        if (src) {
+          Hk = row0_at(j, g);
+          Hd = row0_at(j - 1, g);
+          F1k = F2k = kNeg;
+        } else {
+          const int left = c > 0 ? pH[c - 1] : hl;
+          const int rH = c < C - 1 ? pH[c + 1] : hr;
+          const int rF1 = c < C - 1 ? pF1[c + 1] : f1r;
+          const int rF2 = c < C - 1 ? pF2[c + 1] : f2r;
+          Hk = d ? rH : pH[c];
+          F1k = d ? rF1 : pF1[c];
+          F2k = d ? rF2 : pF2[c];
+          Hd = d ? pH[c] : left;
+        }
+        // slot 0 and the empty slots 1-3
+        Cands cd;
+        cands_empty(cd, 1, sc[c], g);
+        cands_slot(cd, 0, Hk, F1k, F2k, Hd, sc[c], g);
+        cands_cell(cd, h0[c], nF1[c], nF2[c], code[c]);
+        if (c == C - 1) {
+          aggx1 = agg1;
+          aggx2 = agg2;
+        }
+        agg1 = imax(agg1, h0[c] + g.e1 * b);
+        agg2 = imax(agg2, h0[c] + g.e2 * b);
+      }
+      if (i + 1 < vend) {
+        wd = s_node[team][i + 1];
+        node_scores<C, T::kQWin>(wd, b0, L, qlo, s_q[team], qp, s_sub, sc);
+      }
+      int Hc[C];
+      team_row<C, TL, NW>(h0, nF1, nF2, code, Hc, agg1, agg2, aggx1, aggx2,
+                          off_v, L, b0, lane_t, warp_t,
+                          s_pub[NW > 1 ? (v & 1) : 0], g, xl_H, xr_H,
+                          xr_F1, xr_F2);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        pH[c] = Hc[c];
+        pF1[c] = nF1[c];
+        pF2[c] = nF2[c];
+      }
+      off_prev = off_v;
+      if (v < n) {
+        const size_t row = (pN + v) * B;
+        const int bL = L - off_v;
+        store_cells<C>(H + row, dirs + row, Hc, code, b0, bL + 1);
+        if (bL >= 0 && bL < B) {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            if (b0 + c == bL) ends[pN + v] = Hc[c];
+        } else if (tl == 0) {
+          ends[pN + v] = kNeg;
+        }
+      }
     }
-    int q1 = __shfl_up_sync(kFull, pE1, 1);
-    int q2 = __shfl_up_sync(kFull, pE2, 1);
-    if (lane == 0) q1 = q2 = kNeg;
-    drow[b0] = (int16_t)(fcode | ext_bits(fE1, fE2, q1, q2, g));
-    if (lane == 0 && (bL < 0 || bL >= B)) ends[(size_t)p * N + v] = kNeg;
-    __syncwarp();      // the row is final before the next node reads it
-    int* tmp = prv;
-    prv = cur;
-    cur = tmp;
-    off_prev = off_v;
+  }
+}
+
+// ------------------------------------------------------------ kernel 6
+
+// A lane's cells of one history row (H, F1, F2 planes of `cover` cells a
+// node), live cells only, as vector stores when they are all live.
+template <int C>
+__device__ __forceinline__ void store_hist(int* rH, int* rF1, int* rF2,
+                                           const int (&Hc)[C],
+                                           const int (&F1)[C],
+                                           const int (&F2)[C], int b0,
+                                           int wlive) {
+  if (b0 + C <= wlive) {
+    store_ints<C>(rH + b0, Hc);
+    store_ints<C>(rF1 + b0, F1);
+    store_ints<C>(rF2 + b0, F2);
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (b0 + c < wlive) {
+        rH[b0 + c] = Hc[c];
+        rF1[b0 + c] = F1[c];
+        rF2[b0 + c] = F2[c];
+      }
+    }
+  }
+}
+
+// poa_affine_kernel: one team a problem over any DAG.  The rows later
+// nodes read (H, F1, F2 of each real node's first `stride` cells, live
+// cells written) live in the team's history: shared memory when the
+// launch's rows fit (kSmem: one-warp blocks, or the problem's NW warps),
+// else the wrapper's global scratch (P, 3, rows, stride).  Per node: the node's
+// word, its predecessor slots (-1 where the contract reads NEG rows: an
+// empty slot or a predecessor not computed yet, p >= v) and each slot's
+// band offset step, staged by tiles with the query codes; pass 1 from
+// the predecessors' history rows; the team's scan and pass 2 (team_row);
+// the live cells' stores; then the team's sync (a warp sync, or a second
+// barrier with several warps) before the next node reads the row.
+template <int C, int TL, int NW, bool kSmem>
+__global__ void __launch_bounds__(Team<C, TL, NW, kSmem ? 1 : 4, 32>::kThreads)
+poa_affine_kernel(const uint8_t* __restrict__ bases,
+                  const int* __restrict__ preds, const int* __restrict__ off,
+                  const uint8_t* __restrict__ q_ext,
+                  const int* __restrict__ l_len,
+                  const int* __restrict__ n_nodes,
+                  const int* __restrict__ submat, int P, int N, int Lq, int B,
+                  int rows, int stride, Gaps g, int* __restrict__ H,
+                  int16_t* __restrict__ dirs, int* __restrict__ ends,
+                  int* __restrict__ hist) {
+  using T = Team<C, TL, NW, kSmem ? 1 : 4, 32>;
+  extern __shared__ int4 s_dyn[];
+  __shared__ int s_sub[36];
+  __shared__ int s_node[T::kTeams][T::kNodeTile];
+  __shared__ int4 s_pr[T::kTeams][T::kNodeTile];
+  __shared__ int4 s_dv[T::kTeams][T::kNodeTile];
+  __shared__ uint8_t s_q[T::kTeams][T::kQWin];
+  __shared__ int s_pub[NW > 1 ? 2 : 1][NW][8];
+  const int tid = threadIdx.x;
+  const int team = tid / T::kLanes;
+  const int tl = tid % T::kLanes;
+  const int lane_t = tid % TL;
+  const int warp_t = tl / 32;
+  for (int k = tid; k < 36; k += T::kThreads) s_sub[k] = submat[k];
+  __syncthreads();
+  const int p = blockIdx.x * T::kTeams + team;
+  const bool active = p < P;
+  const int L = active ? l_len[p] : 0;
+  const int n = active ? n_nodes[p] : 0;
+  if (NW > 1 && !active) return;
+  const int nv = NW > 1 ? n : __reduce_max_sync(kFull, n);
+  const uint8_t* qp = q_ext + (size_t)(active ? p : 0) * Lq;
+  const size_t pN = (size_t)(active ? p : 0) * N;
+  const size_t plane = (size_t)rows * stride;
+  int* hH = kSmem ? reinterpret_cast<int*>(s_dyn) + team * 3 * plane
+                  : hist + (size_t)(active ? p : 0) * 3 * plane;
+  int* hF1 = hH + plane;
+  int* hF2 = hH + 2 * plane;
+  const int b0 = tl * C;
+  int unused0 = kNeg, unused1 = kNeg, unused2 = kNeg, unused3 = kNeg;
+
+  for (int v0 = 0; v0 < nv; v0 += T::kNodeTile) {
+    if (NW == 1) __syncwarp();
+    for (int i = tl; i < T::kNodeTile; i += T::kLanes) {
+      const int v = v0 + i;
+      int w = 0;
+      int4 pr = make_int4(-1, -1, -1, -1), dd = make_int4(0, 0, 0, 0);
+      if (v < n) {
+        const int ov = off[pN + v];
+        const int4 pv =
+            *reinterpret_cast<const int4*>(preds + (pN + v) * kMaxPreds);
+        const bool has = pv.x >= 0 || pv.y >= 0 || pv.z >= 0 || pv.w >= 0;
+        // a slot reads its predecessor's row only when that row is final
+        // (0 <= p < v); otherwise the contract's NEG candidates
+        if (pv.x >= 0 && pv.x < v) { pr.x = pv.x; dd.x = ov - off[pN + pv.x]; }
+        if (pv.y >= 0 && pv.y < v) { pr.y = pv.y; dd.y = ov - off[pN + pv.y]; }
+        if (pv.z >= 0 && pv.z < v) { pr.z = pv.z; dd.z = ov - off[pN + pv.z]; }
+        if (pv.w >= 0 && pv.w < v) { pr.w = pv.w; dd.w = ov - off[pN + pv.w]; }
+        w = ov * 16 + (bases[pN + v] << 1) + (has ? 0 : 1);
+      }
+      s_node[team][i] = w;
+      s_pr[team][i] = pr;
+      s_dv[team][i] = dd;
+    }
+    const int qlo = v0 < n ? imax(0, off[pN + v0]) : 0;
+    const int qhi = imin(L, Lq - 1);
+    for (int i = tl; i < T::kQWin; i += T::kLanes) {
+      const int j = qlo + i;
+      s_q[team][i] = active && j <= qhi ? qp[j] : 5;
+    }
+    if (NW > 1) __syncthreads();
+    else __syncwarp();
+    const int vend = imin(T::kNodeTile, nv - v0);
+    int wd = s_node[team][0];
+    int sc[C];
+    node_scores<C, T::kQWin>(wd, b0, L, qlo, s_q[team], qp, s_sub, sc);
+
+    for (int i = 0; i < vend; ++i) {
+      const int v = v0 + i;
+      const int off_v = wd >> 4;
+      const bool src = wd & 1;
+      const int4 pr4 = s_pr[team][i];
+      const int4 dv4 = s_dv[team][i];
+      const int prk[kMaxPreds] = {pr4.x, pr4.y, pr4.z, pr4.w};
+      const int dvk[kMaxPreds] = {dv4.x, dv4.y, dv4.z, dv4.w};
+      // the lowest slot that reads NEG rows (a source's slot 0 reads the
+      // virtual start row)
+      int kmin = kMaxPreds;
+#pragma unroll
+      for (int k = kMaxPreds - 1; k >= 0; --k)
+        if (prk[k] < 0 && !(src && k == 0)) kmin = k;
+      Cands cd[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (kmin < kMaxPreds) cands_empty(cd[c], kmin, sc[c], g);
+        else cands_none(cd[c]);
+        if (src) {
+          const int j = off_v + b0 + c;
+          cands_slot(cd[c], 0, row0_at(j, g), kNeg, kNeg, row0_at(j - 1, g),
+                     sc[c], g);
+        }
+      }
+      // slot by slot: the lane's window of the predecessor's history row
+      // (C + 1 H cells, C F1 and F2 cells), all loads in flight at once
+#pragma unroll
+      for (int k = 0; k < kMaxPreds; ++k) {
+        if (prk[k] < 0) continue;
+        const size_t at = (size_t)prk[k] * stride;
+        const int gi0 = dvk[k] + b0;
+        int hw[C + 1], f1w[C], f2w[C];
+#pragma unroll
+        for (int t = 0; t <= C; ++t) {
+          const int gi = gi0 - 1 + t;
+          hw[t] = (unsigned)gi < (unsigned)stride ? hH[at + gi] : kNeg;
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int gi = gi0 + c;
+          const bool ok = (unsigned)gi < (unsigned)stride;
+          f1w[c] = ok ? hF1[at + gi] : kNeg;
+          f2w[c] = ok ? hF2[at + gi] : kNeg;
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          cands_slot(cd[c], k, hw[c + 1], f1w[c], f2w[c], hw[c], sc[c], g);
+      }
+      int h0[C], code[C], nF1[C], nF2[C];
+      int agg1 = INT_MIN, agg2 = INT_MIN, aggx1 = INT_MIN, aggx2 = INT_MIN;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int b = b0 + c;
+        cands_cell(cd[c], h0[c], nF1[c], nF2[c], code[c]);
+        if (c == C - 1) {
+          aggx1 = agg1;
+          aggx2 = agg2;
+        }
+        agg1 = imax(agg1, h0[c] + g.e1 * b);
+        agg2 = imax(agg2, h0[c] + g.e2 * b);
+      }
+      if (i + 1 < vend) {
+        wd = s_node[team][i + 1];
+        node_scores<C, T::kQWin>(wd, b0, L, qlo, s_q[team], qp, s_sub, sc);
+      }
+      int Hc[C];
+      team_row<C, TL, NW>(h0, nF1, nF2, code, Hc, agg1, agg2, aggx1, aggx2,
+                          off_v, L, b0, lane_t, warp_t,
+                          s_pub[NW > 1 ? (v & 1) : 0], g, unused0, unused1,
+                          unused2, unused3);
+      if (v < n) {
+        const size_t row = (pN + v) * B;
+        const int bL = L - off_v;
+        store_cells<C>(H + row, dirs + row, Hc, code, b0, bL + 1);
+        store_hist<C>(hH + (size_t)v * stride, hF1 + (size_t)v * stride,
+                      hF2 + (size_t)v * stride, Hc, nF1, nF2, b0, bL + 1);
+        if (bL >= 0 && bL < B) {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            if (b0 + c == bL) ends[pN + v] = Hc[c];
+        } else if (tl == 0) {
+          ends[pN + v] = kNeg;
+        }
+      }
+      // the row is in the history before a later node reads it
+      if (NW > 1) __syncthreads();
+      else __syncwarp();
+    }
   }
 }
 
@@ -510,11 +883,18 @@ poa_linear_kernel(const uint8_t* __restrict__ bases,
   }
 }
 
-int chain_warps(int B) {
-  if (B > kChainSmemBand) return 4;
-  const int w = (96 * 1024) / (24 * B);
-  return w < 1 ? 1 : (w > 8 ? 8 : w);
-}
+// The team shapes ops/poa_cuda.py::TEAM_SHAPES lists for each kernel,
+// cover by cover (and poa_chain's shape for large cover-64 launches,
+// POA_CHAIN_PACKED): the shapes team_shape picks and no other.
+#define POA_CHAIN_SHAPES(X)                                                  \
+  X(2, 16, 1) X(2, 32, 1) X(4, 16, 1) X(2, 32, 2) X(2, 32, 4) X(4, 32, 4)  \
+  X(4, 32, 8) X(4, 32, 16) X(8, 32, 16) X(16, 32, 16) X(32, 32, 16)
+// NARROW(C, TL, NW) for covers up to 256, which poa_affine also
+// instantiates with its history rows in shared memory; WIDE past them.
+#define POA_AFFINE_SHAPES(NARROW, WIDE)                                      \
+  NARROW(2, 16, 1) NARROW(2, 32, 1) NARROW(2, 32, 2) NARROW(2, 32, 4)        \
+  WIDE(2, 32, 8) WIDE(2, 32, 16) WIDE(4, 32, 16) WIDE(8, 32, 16)             \
+  WIDE(16, 32, 16) WIDE(32, 32, 16)
 
 }  // namespace
 
@@ -524,56 +904,103 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int poa_affine_threads(int B) { return B < kMaxThreads ? B : kMaxThreads; }
-
-// ints of global row scratch a problem of band B needs in poa_chain (0:
-// the rows fit in shared memory)
-int poa_chain_ring_ints(int B) { return B > kChainSmemBand ? 6 * B : 0; }
-
+// poa_affine over any DAG.  (C, TL, NW) is the team shape the wrapper
+// picked from max_live (ops/poa_cuda.py::team_shape), smem whether the
+// history rows live in shared memory or in hist, the global scratch
+// (P, 3, rows, stride): rows nodes of `stride` cells (max_live rounded up
+// to 4; a cell past a launch's widest live row is never live, so no live
+// cell reads one).
 int poa_affine_launch(const void* bases, const void* preds, const void* off,
                       const void* q_ext, const void* l_len,
-                      const void* submat, int P, int N, int Lq, int B,
-                      int o1, int e1, int o2, int e2, void* H, void* dirs,
-                      void* ends, void* F1h, void* F2h, void* stream) {
+                      const void* n_nodes, const void* submat, int P, int N,
+                      int Lq, int B, int C, int TL, int NW, int smem,
+                      int rows, int stride, int o1, int e1, int o2, int e2,
+                      void* H, void* dirs, void* ends, void* hist,
+                      void* stream) {
   if (P <= 0 || N <= 0) return 0;
   if (B < 32 || (B & (B - 1)) != 0) return (int)cudaErrorInvalidValue;
   const Gaps g{o1, e1, o2, e2};
-  poa_affine_kernel<<<P, poa_affine_threads(B), 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bases), static_cast<const int*>(preds),
-      static_cast<const int*>(off), static_cast<const uint8_t*>(q_ext),
-      static_cast<const int*>(l_len), static_cast<const int*>(submat), N,
-      Lq, B, g, static_cast<int*>(H), static_cast<int16_t*>(dirs),
-      static_cast<int*>(ends), static_cast<int*>(F1h),
-      static_cast<int*>(F2h));
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* bs = static_cast<const uint8_t*>(bases);
+  const auto* pr = static_cast<const int*>(preds);
+  const auto* of = static_cast<const int*>(off);
+  const auto* q = static_cast<const uint8_t*>(q_ext);
+  const auto* ll = static_cast<const int*>(l_len);
+  const auto* nn = static_cast<const int*>(n_nodes);
+  const auto* sm = static_cast<const int*>(submat);
+  auto* h = static_cast<int*>(H);
+  auto* d = static_cast<int16_t*>(dirs);
+  auto* e = static_cast<int*>(ends);
+  auto* hs = static_cast<int*>(hist);
+#define POA_AFFINE_RUN(C_, TL_, NW_, SMEM_)                                 \
+  {                                                                         \
+    using T = Team<C_, TL_, NW_, SMEM_ ? 1 : 4, 32>;                        \
+    if (T::kCover > B || rows < 1 || stride < 1 || stride > T::kCover ||    \
+        stride % 4 != 0 || (!SMEM_ && hs == nullptr))                       \
+      return (int)cudaErrorInvalidValue;                                    \
+    const size_t dyn =                                                      \
+        SMEM_ ? (size_t)T::kTeams * 3 * rows * stride * sizeof(int) : 0;    \
+    cudaError_t err = cudaFuncSetAttribute(                                 \
+        poa_affine_kernel<C_, TL_, NW_, SMEM_>,                             \
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);             \
+    if (err != cudaSuccess) return (int)err;                                \
+    poa_affine_kernel<C_, TL_, NW_, SMEM_>                                  \
+        <<<(P + T::kTeams - 1) / T::kTeams, T::kThreads, dyn, st>>>(        \
+            bs, pr, of, q, ll, nn, sm, P, N, Lq, B, rows, stride, g, h, d, e, \
+            hs);                                                            \
+    return (int)cudaGetLastError();                                         \
+  }
+#define POA_AFFINE_SHAPE_SMEM(C_, TL_, NW_)                                 \
+  if (C == C_ && TL == TL_ && NW == NW_) {                                  \
+    if (smem) POA_AFFINE_RUN(C_, TL_, NW_, true)                            \
+    POA_AFFINE_RUN(C_, TL_, NW_, false)                                     \
+  }
+#define POA_AFFINE_SHAPE(C_, TL_, NW_)                                      \
+  if (C == C_ && TL == TL_ && NW == NW_) {                                  \
+    if (smem) return (int)cudaErrorInvalidValue;                            \
+    POA_AFFINE_RUN(C_, TL_, NW_, false)                                     \
+  }
+  POA_AFFINE_SHAPES(POA_AFFINE_SHAPE_SMEM, POA_AFFINE_SHAPE)
+#undef POA_AFFINE_SHAPE_SMEM
+#undef POA_AFFINE_SHAPE
+#undef POA_AFFINE_RUN
+  return (int)cudaErrorInvalidValue;   // not a shape of POA_AFFINE_SHAPES
 }
 
+// poa_chain on a certified chain batch.  (C, TL, NW) is the team shape
+// the wrapper picked from max_live (ops/poa_cuda.py::team_shape).
 int poa_chain_launch(const void* bases, const void* preds, const void* off,
-                     const void* q_ext, const void* l_len, const void* submat,
-                     int P, int N, int Lq, int B, int o1, int e1, int o2,
-                     int e2, void* H, void* dirs, void* ends, void* ring,
+                     const void* q_ext, const void* l_len,
+                     const void* n_nodes, const void* submat, int P, int N,
+                     int Lq, int B, int C, int TL, int NW, int o1, int e1,
+                     int o2, int e2, void* H, void* dirs, void* ends,
                      void* stream) {
   if (P <= 0 || N <= 0) return 0;
   if (B < 32 || (B & (B - 1)) != 0) return (int)cudaErrorInvalidValue;
-  if ((poa_chain_ring_ints(B) > 0) != (ring != nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int W = chain_warps(B);
-  const size_t smem =
-      ring != nullptr ? 0 : (size_t)W * 6 * B * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      poa_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const Gaps g{o1, e1, o2, e2};
-  poa_chain_kernel<<<(P + W - 1) / W, 32 * W, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bases), static_cast<const int*>(preds),
-      static_cast<const int*>(off), static_cast<const uint8_t*>(q_ext),
-      static_cast<const int*>(l_len), static_cast<const int*>(submat), P, N,
-      Lq, B, g, static_cast<int*>(H), static_cast<int16_t*>(dirs),
-      static_cast<int*>(ends), static_cast<int*>(ring));
-  return (int)cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* bs = static_cast<const uint8_t*>(bases);
+  const auto* pr = static_cast<const int*>(preds);
+  const auto* of = static_cast<const int*>(off);
+  const auto* q = static_cast<const uint8_t*>(q_ext);
+  const auto* ll = static_cast<const int*>(l_len);
+  const auto* nn = static_cast<const int*>(n_nodes);
+  const auto* sm = static_cast<const int*>(submat);
+  auto* h = static_cast<int*>(H);
+  auto* d = static_cast<int16_t*>(dirs);
+  auto* e = static_cast<int*>(ends);
+#define POA_CHAIN_SHAPE(C_, TL_, NW_)                                      \
+  if (C == C_ && TL == TL_ && NW == NW_) {                                 \
+    using T = Team<C_, TL_, NW_>;                                          \
+    if (T::kCover > B) return (int)cudaErrorInvalidValue;                  \
+    poa_chain_kernel<C_, TL_, NW_>                                         \
+        <<<(P + T::kTeams - 1) / T::kTeams, T::kThreads, 0, st>>>(         \
+            bs, pr, of, q, ll, nn, sm, P, N, Lq, B, g, h, d, e);           \
+    return (int)cudaGetLastError();                                        \
+  }
+  POA_CHAIN_SHAPES(POA_CHAIN_SHAPE)
+#undef POA_CHAIN_SHAPE
+  return (int)cudaErrorInvalidValue;   // not a shape of POA_CHAIN_SHAPES
 }
 
 int poa_linear_launch(const void* bases, const void* preds, const void* q,

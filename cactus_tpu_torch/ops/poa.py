@@ -583,7 +583,8 @@ def poa_align_affine(graph: PoaGraph, seq: np.ndarray,
     stack = {k: prep[k][None] for k in ("bases", "preds", "off", "q_ext")}
     dirs, ends = align_bin(stack, np.asarray([prep["L"]], np.int32),
                            np.asarray(submat, np.int32), prep["B"],
-                           o1, e1, o2, e2, dev)
+                           o1, e1, o2, e2, dev,
+                           n_nodes=np.asarray([prep["N"]], np.int32))
     N = prep["N"]
     end_v = int(np.argmax(ends[0, :N]))
     return _traceback_affine(graph, dirs[0, :N], prep["off"], end_v,
@@ -641,8 +642,9 @@ def poa_msa_batch(groups: list[list[np.ndarray]], params,
             stack = {k: np.stack([p[k] for _j, _s, p in items])
                      for k in ("bases", "preds", "off", "q_ext")}
             l_arr = np.asarray([p["L"] for _j, _s, p in items], np.int32)
+            n_arr = np.asarray([p["N"] for _j, _s, p in items], np.int32)
             dirs, ends = align_bin(stack, l_arr, submat, B, o1, e1, o2, e2,
-                                   dev)
+                                   dev, n_nodes=n_arr)
             for bi, (job, seq, prep) in enumerate(items):
                 N = prep["N"]
                 end_v = int(np.argmax(ends[bi, :N]))

@@ -9,8 +9,11 @@ Source: csrc/poa.cu (see its header for the design).
   poa_align_scan_affine_pallas_batch); poa_chain replaces
   ::_chain_kernel on batches that chain_certified() admits.  Contract of
   both: ops/poa.py::poa_align_scan_affine (convex gaps, adaptive band,
-  batched over problems), matched bit for bit.  dirs is int16: its 13
-  bits fit, and it halves the bytes the kernels write against int32.
+  batched over problems), matched bit for bit on each problem's live
+  cells (`live_mask`: its n_nodes real nodes, columns off[v] + b <= L),
+  the only cells the consumers read (the kernels write no other).  dirs
+  is int16: its 13 bits fit, and it halves the bytes the kernels write
+  against int32.
 - Bound on an H100: int32 operations (POA_AFFINE_OPS_PER_CELL and
   POA_LINEAR_OPS_PER_CELL a cell, plus a few per extra predecessor),
   against 6 bytes a cell written (H int32 + dirs int16) for the affine
@@ -26,6 +29,7 @@ or an error.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -56,7 +60,8 @@ POA_AFFINE_OPS_PER_EXTRA_PRED = 6
 POA_LINEAR_OPS_PER_CELL = 10
 POA_LINEAR_OPS_PER_PRED = 4
 # bytes a cell written: H int32 + dirs int16 (affine), + dirs uint8
-# (linear); the affine kernel's F1/F2 history adds 8 scratch bytes a cell
+# (linear); poa_affine's history rows in global scratch add at most 12
+# bytes a band cell (H, F1, F2 of max_live cells rounded up to 4)
 POA_AFFINE_OUT_BYTES_PER_CELL = 6
 POA_LINEAR_OUT_BYTES_PER_CELL = 5
 # a launch's device footprint cap in align_bin: outputs + scratch of one
@@ -68,10 +73,9 @@ POA_MAX_LAUNCH_BYTES = 4 << 30
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "poa_affine_launch": [_VP] * 6 + [_INT] * 8 + [_VP] * 6,
-    "poa_chain_launch": [_VP] * 6 + [_INT] * 8 + [_VP] * 5,
+    "poa_affine_launch": [_VP] * 7 + [_INT] * 14 + [_VP] * 5,
+    "poa_chain_launch": [_VP] * 7 + [_INT] * 11 + [_VP] * 4,
     "poa_linear_launch": [_VP] * 3 + [_INT] * 5 + [_VP] * 4,
-    "poa_chain_ring_ints": [_INT],
 }
 
 
@@ -108,6 +112,148 @@ def poa_linear(bases, preds, q, gap: int, match: int, mismatch: int):
     return H, dirs, ends
 
 
+# The team shape (C, TL, NW) of each kernel (csrc/poa.cu Team<C, TL, NW>:
+# C cells a lane, TL lanes a team in each of NW warps) by cover, the first
+# power of two at or above the launch's widest live row (at least 32).
+# The fewest cells a lane (most lanes a problem), which on an H100 won or
+# tied at every call of both poa paths: a launch of few problems is bound
+# by one node's latency, and a large one keeps more warps in flight;
+# poa_chain takes 4 cells a lane from cover 512 on, where 8 warps a
+# problem lost to 4 (its barrier a node), and POA_CHAIN_PACKED (two
+# problems a warp) at cover 64 from POA_CHAIN_PACKED_PROBLEMS problems
+# on (PERF.md section 6).  From cover 8192 a lane holds 16 or 32 cells.
+# csrc/poa.cu POA_CHAIN_SHAPES / POA_AFFINE_SHAPES instantiate these and
+# no other.
+TEAM_SHAPES = {
+    "poa_chain": {32: (2, 16, 1), 64: (2, 32, 1), 128: (2, 32, 2),
+                  256: (2, 32, 4), 512: (4, 32, 4), 1024: (4, 32, 8),
+                  2048: (4, 32, 16), 4096: (8, 32, 16), 8192: (16, 32, 16),
+                  16384: (32, 32, 16)},
+    "poa_affine": {32: (2, 16, 1), 64: (2, 32, 1), 128: (2, 32, 2),
+                   256: (2, 32, 4), 512: (2, 32, 8), 1024: (2, 32, 16),
+                   2048: (4, 32, 16), 4096: (8, 32, 16), 8192: (16, 32, 16),
+                   16384: (32, 32, 16)}}
+POA_CHAIN_PACKED = (4, 16, 1)
+POA_CHAIN_PACKED_PROBLEMS = 4096
+# the widest cover: rows of the poa engine are at most its window (10,000
+# bases) + 1 cells wide
+POA_MAX_COVER = 16384
+
+
+def team_cover(max_live: int) -> int:
+    """The team's cover for a launch's widest live row; raises ValueError
+    past POA_MAX_COVER."""
+    cover = max(32, 1 << (max(1, max_live) - 1).bit_length())
+    if cover > POA_MAX_COVER:
+        raise ValueError(f"max_live {max_live} is wider than the widest team "
+                         f"cover {POA_MAX_COVER}")
+    return cover
+
+
+def team_shape(max_live: int, kernel: str, problems: int):
+    """(C, TL, NW) of a launch of `problems` problems of `kernel`
+    ("poa_chain" or "poa_affine") whose widest live row is max_live."""
+    cover = team_cover(max_live)
+    if (kernel == "poa_chain" and cover == 64
+            and problems >= POA_CHAIN_PACKED_PROBLEMS):
+        return POA_CHAIN_PACKED
+    return TEAM_SHAPES[kernel][cover]
+
+
+def history_stride(max_live: int) -> int:
+    """Cells a poa_affine history row keeps: max_live rounded up to 4 (a
+    cell past the widest live row is never live, and no live cell reads
+    one)."""
+    return -(-max(1, max_live) // 4) * 4
+
+
+# shared memory a poa_affine block may give its teams' history rows, of
+# the H100's 227 KB a block (the rest: the kernel's staging arrays)
+POA_AFFINE_SMEM_ROWS_BYTES = 200 << 10
+
+
+def affine_rows_in_smem(P: int, rows: int, max_live: int, shape,
+                        device) -> bool:
+    """Whether poa_affine keeps its teams' history rows (H, F1, F2 of
+    `rows` nodes x history_stride cells, 12 bytes a cell) in shared
+    memory: for covers up to 256 (csrc/poa.cu instantiates those), when
+    a block's rows fit and every problem of the launch is resident at once
+    (one-warp blocks hold 32 / TL teams; blocks an SM by shared memory).
+    Otherwise the rows go to global scratch, where four-warp blocks keep
+    more teams in flight."""
+    C, TL, NW = shape
+    if C * TL * NW > 256:
+        return False
+    teams = 1 if NW > 1 else 32 // TL
+    block = teams * 3 * rows * history_stride(max_live) * 4
+    if block > POA_AFFINE_SMEM_ROWS_BYTES:
+        return False
+    per_sm = max(1, (227 << 10) // (block + (16 << 10)))
+    return P <= _sm_count(torch.device(device).index or 0) * per_sm * teams
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The card's SM count (read once a device: a launch's host work
+    paces the small poa_affine launches)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def live_mask(off, l_len, n_nodes, band: int):
+    """(P, N, B) bool: the live cells of each problem, its real nodes
+    v < n with the band cells b whose column off[v] + b is at most L.  The
+    kernels compute only these; H, dirs and ends (real nodes) are
+    bit-equal to the plain version there and unspecified elsewhere."""
+    P, N = off.shape
+    dev = off.device
+    v = torch.arange(N, device=dev)[None, :, None]
+    b = torch.arange(band, device=dev)[None, None, :]
+    return ((v < n_nodes.long()[:, None, None])
+            & (off.long()[:, :, None] + b <= l_len.long()[:, None, None]))
+
+
+def check_live(preds, off, l_len, n_nodes, band: int) -> int:
+    """A launch's max_live from its host (numpy) arrays: the widest live
+    row, max over the problems' real nodes of min(B, L + 1 - off[v]), at
+    least 1 (min(B, L + 1) for the band offsets _affine_prepare makes).
+    Raises ValueError when an n is outside 1..N or a node at or past n has
+    a predecessor (the pad nodes past a problem's real nodes are sources,
+    so n must not cut a real node off).  align_bin passes what it returns
+    to the wrappers."""
+    P, N = off.shape
+    if P == 0:
+        return 1
+    n = np.asarray(n_nodes, np.int64)
+    if n.min() < 1 or n.max() > N:
+        raise ValueError(f"n_nodes spans {n.min()}..{n.max()}, outside "
+                         f"1..{N}")
+    real = np.arange(N)[None, :] < n[:, None]
+    if ((preds >= 0).any(axis=2) & ~real).any():
+        raise ValueError("a node at or past its problem's n_nodes has a "
+                         "predecessor: n cuts a real node off")
+    width = np.clip(np.asarray(l_len, np.int64)[:, None] + 1 - off, 0, band)
+    return max(1, int(np.where(real, width, 0).max()))
+
+
+def _live_args(preds, off, l_len, n_nodes, band: int, max_live):
+    """n_nodes (default: every node real) and max_live (default:
+    check_live on host copies of the inputs, one device sync).  A given
+    max_live is the caller's, as chain_certified's certificate is: it
+    must cover every live row (align_bin passes check_live's), or the
+    cells past the team's cover are not computed.  Raises ValueError
+    unless 1 <= max_live <= band and a team cover holds it."""
+    if n_nodes is None:
+        P, N = off.shape
+        n_nodes = torch.full((P,), N, dtype=torch.int32, device=off.device)
+    if max_live is None:
+        max_live = check_live(*(t.cpu().numpy()
+                                for t in (preds, off, l_len, n_nodes)), band)
+    if not 1 <= max_live <= band:
+        raise ValueError(f"max_live {max_live} is outside 1..{band}")
+    team_cover(max_live)
+    return n_nodes, int(max_live)
+
+
 def _check_affine(bases, preds, off, q_ext, l_len, submat, band: int):
     dev = bases.device
     P, N = bases.shape
@@ -127,26 +273,37 @@ def _check_affine(bases, preds, off, q_ext, l_len, submat, band: int):
 
 
 def poa_affine(bases, preds, off, q_ext, l_len, submat, band: int,
-               o1: int, e1: int, o2: int, e2: int):
+               o1: int, e1: int, o2: int, e2: int, n_nodes=None,
+               max_live: int | None = None):
     """Convex-gap adaptive-band POA of P problems over any DAG: (H
     (P, N, B) int32, dirs (P, N, B) int16, ends (P, N) int32).  Inputs as
     ops/poa.py::poa_align_scan_affine takes them, on one device; q_ext
-    must hold at least l_len + 1 codes a row."""
+    must hold at least l_len + 1 codes a row.  On the card only the live
+    cells are specified (`live_mask`); n_nodes and max_live as for
+    poa_chain.  The teams' history rows go to shared memory where
+    `affine_rows_in_smem` says so, else to global scratch."""
     if bases.device.type == "cpu":
         return poa_align_scan_affine(bases, preds, off, q_ext, l_len,
                                      submat, band=band, o1=o1, e1=e1,
                                      o2=o2, e2=e2)
+    n_nodes, max_live = _live_args(preds, off, l_len, n_nodes, band,
+                                   max_live)
     dev, P, N, H, dirs, ends = _check_affine(bases, preds, off, q_ext,
                                              l_len, submat, band)
-    # the F1/F2 history planes the predecessor gather reads
-    F1 = torch.empty((P, N, band), dtype=torch.int32, device=dev)
-    F2 = torch.empty((P, N, band), dtype=torch.int32, device=dev)
+    cuda_build.check_tensor(n_nodes, "n_nodes", torch.int32, (P,), dev)
+    shape = team_shape(max_live, "poa_affine", P)
+    stride = history_stride(max_live)
+    smem = affine_rows_in_smem(P, N, max_live, shape, dev)
+    hist = None if smem else torch.empty((P, 3, N, stride),
+                                         dtype=torch.int32, device=dev)
+    C, TL, NW = shape
     lib = _lib()
     code = lib.poa_affine_launch(
         bases.data_ptr(), preds.data_ptr(), off.data_ptr(), q_ext.data_ptr(),
-        l_len.data_ptr(), submat.data_ptr(), P, N, int(q_ext.shape[1]),
-        band, int(o1), int(e1), int(o2), int(e2), H.data_ptr(),
-        dirs.data_ptr(), ends.data_ptr(), F1.data_ptr(), F2.data_ptr(),
+        l_len.data_ptr(), n_nodes.data_ptr(), submat.data_ptr(), P, N,
+        int(q_ext.shape[1]), band, C, TL, NW, int(smem), N, stride,
+        int(o1), int(e1), int(o2), int(e2), H.data_ptr(), dirs.data_ptr(),
+        ends.data_ptr(), hist.data_ptr() if hist is not None else None,
         cuda_build.stream(dev))
     cuda_build.check(lib, code, "poa_affine")
     cuda_build.count_launch("poa_affine")
@@ -154,26 +311,31 @@ def poa_affine(bases, preds, off, q_ext, l_len, submat, band: int,
 
 
 def poa_chain(bases, preds, off, q_ext, l_len, submat, band: int,
-              o1: int, e1: int, o2: int, e2: int):
+              o1: int, e1: int, o2: int, e2: int, n_nodes=None,
+              max_live: int | None = None):
     """poa_affine's contract on certified chain batches (chain_certified
     holds on preds and off; the caller owns the certificate: a batch
-    outside it gives wrong alignments, not an error)."""
+    outside it gives wrong alignments, not an error), on the live cells
+    (`live_mask`).  n_nodes (P,) int32: each problem's real nodes
+    (default: all N); max_live: the launch's widest live row, which sizes
+    its teams (default: `check_live` on host copies of the inputs, a
+    device sync; align_bin passes it from its host arrays)."""
     if bases.device.type == "cpu":
         return poa_align_scan_affine(bases, preds, off, q_ext, l_len,
                                      submat, band=band, o1=o1, e1=e1,
                                      o2=o2, e2=e2)
+    n_nodes, max_live = _live_args(preds, off, l_len, n_nodes, band,
+                                   max_live)
     dev, P, N, H, dirs, ends = _check_affine(bases, preds, off, q_ext,
                                              l_len, submat, band)
+    cuda_build.check_tensor(n_nodes, "n_nodes", torch.int32, (P,), dev)
+    C, TL, NW = team_shape(max_live, "poa_chain", P)
     lib = _lib()
-    ring_ints = lib.poa_chain_ring_ints(band)
-    ring = (torch.empty((P * ring_ints,), dtype=torch.int32, device=dev)
-            if ring_ints else None)
     code = lib.poa_chain_launch(
         bases.data_ptr(), preds.data_ptr(), off.data_ptr(), q_ext.data_ptr(),
-        l_len.data_ptr(), submat.data_ptr(), P, N, int(q_ext.shape[1]),
-        band, int(o1), int(e1), int(o2), int(e2), H.data_ptr(),
-        dirs.data_ptr(), ends.data_ptr(),
-        ring.data_ptr() if ring is not None else None,
+        l_len.data_ptr(), n_nodes.data_ptr(), submat.data_ptr(), P, N,
+        int(q_ext.shape[1]), band, C, TL, NW, int(o1), int(e1), int(o2),
+        int(e2), H.data_ptr(), dirs.data_ptr(), ends.data_ptr(),
         cuda_build.stream(dev))
     cuda_build.check(lib, code, "poa_chain")
     cuda_build.count_launch("poa_chain")
@@ -209,19 +371,26 @@ def chain_certified(preds: np.ndarray, off: np.ndarray) -> bool:
 
 def align_bin(stack: dict, l_len: np.ndarray, submat: np.ndarray,
               band: int, o1: int, e1: int, o2: int, e2: int, device,
-              max_launch_bytes: int = POA_MAX_LAUNCH_BYTES):
+              max_launch_bytes: int = POA_MAX_LAUNCH_BYTES,
+              n_nodes: np.ndarray | None = None):
     """One shape bin of poa_msa_batch: (dirs (P, N, band) int16, ends
-    (P, N) int32) as numpy arrays.
+    (P, N) int32) as numpy arrays, specified on each problem's live cells
+    (`live_mask`; ends on its real nodes).
 
-    stack holds the stacked numpy inputs (bases, preds, off, q_ext).  On
-    a CUDA device the bin runs poa_chain when chain_certified holds on
-    the host stacks and poa_affine otherwise; on the CPU the plain
-    version.  A bin whose outputs and scratch pass max_launch_bytes runs
-    in chunks of problems: each problem's rows depend on its own inputs
-    only, so a chunked bin equals one launch."""
+    stack holds the stacked numpy inputs (bases, preds, off, q_ext) and
+    n_nodes each problem's real nodes (default: all N).  On a CUDA device
+    the bin runs poa_chain when chain_certified holds on the host stacks
+    and poa_affine otherwise, with max_live from `check_live` on the host
+    arrays (which also checks n_nodes); on the CPU the plain version.  A
+    bin whose
+    outputs and scratch pass max_launch_bytes runs in chunks of problems:
+    each problem's rows depend on its own inputs only, so a chunked bin
+    equals one launch."""
     P, N = stack["bases"].shape
+    if n_nodes is None:
+        n_nodes = np.full(P, N, np.int32)
     chain = chain_certified(stack["preds"], stack["off"])
-    per_cell = POA_AFFINE_OUT_BYTES_PER_CELL + (0 if chain else 8)
+    per_cell = POA_AFFINE_OUT_BYTES_PER_CELL + (0 if chain else 12)
     step = max(1, int(max_launch_bytes // (N * band * per_cell)))
     run = poa_chain if chain else poa_affine
     sub = torch.from_numpy(np.ascontiguousarray(submat, np.int32)).to(device)
@@ -233,8 +402,13 @@ def align_bin(stack: dict, l_len: np.ndarray, submat: np.ndarray,
              for k, v in stack.items()}
         ll = torch.from_numpy(np.ascontiguousarray(l_len[s:e], np.int32)) \
             .to(device)
+        nn = torch.from_numpy(np.ascontiguousarray(n_nodes[s:e], np.int32)) \
+            .to(device)
+        max_live = check_live(stack["preds"][s:e], stack["off"][s:e],
+                              l_len[s:e], n_nodes[s:e], band)
         _H, d, en = run(t["bases"], t["preds"], t["off"], t["q_ext"], ll,
-                        sub, band=band, o1=o1, e1=e1, o2=o2, e2=e2)
+                        sub, band=band, o1=o1, e1=e1, o2=o2, e2=e2,
+                        n_nodes=nn, max_live=max_live)
         dirs[s:e] = d.cpu().numpy()
         ends[s:e] = en.cpu().numpy()
     return dirs, ends

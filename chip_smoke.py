@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (cactus_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--dump-banded PATH] [--dump-pairhmm PATH]
-                          [--dump-pairhmm5 PATH]
+                          [--dump-pairhmm5 PATH] [--dump-poa PATH]
 
 Run from the root of a checkout on a machine with one CUDA GPU and the
 CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
@@ -69,11 +69,15 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    config XML and --hal and --maf, and checks the MAFs and that the
    port's HalArchive reads the HAL back and validates it.
 6. Holds the three POA kernels against their plain versions on the card,
-   bit for bit: poa_affine on bubbled DAGs with forward predecessors
-   (N 64-4096, bands 64, 512, 4096 and 16384, ragged queries, band
-   offsets jumping by up to 3), poa_chain on chains with source pad nodes
-   (the dominant bin P 16,000 x N 64 x B 64, offsets stepping by 0/1, and
-   band 16384 on its global row ring) and poa_linear up to L 2048.
+   bit for bit (POA_SWEEP_CASES): poa_affine on bubbled DAGs with forward
+   predecessors (N 64-4096, bands 64, 512, 4096 and 16384, ragged
+   queries, band offsets jumping by up to 3), poa_chain on chains with
+   source pad nodes (the dominant bin P 16,000 x N 64 x B 64, offsets
+   stepping by 0/1, and band 16384), both on
+   their live cells (real nodes v < n, columns off[v] + b <= L:
+   `poa_live_equal`, ops/poa_cuda.py::live_mask), with n_nodes and
+   max_live as align_bin passes them; and poa_linear up to L 2048 on
+   every cell.
 7. Runs the poa path (BAR msa_engine="poa") on the evolverMammals tree at
    600 kb, seed 41, tree_workers=2, and on a 4-leaf star tree at 200 kb,
    seed 41, each held to the gate's bar and within POA_TOL of the JAX
@@ -81,12 +85,18 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    launch poa_chain, the second poa_affine and poa_chain.  Each run sets
    the launch counts to 0 just before it and reads them just after, and
    prints the wall, the per-phase split, the device's peak memory, the
-   problems and the cells used vs padded, and the largest Nb and B.  Then
-   poa_msa without params (the linear-gap DP) on seeded groups must
-   launch poa_linear and build the graphs the CPU run builds.  Then it
-   times the three POA kernels and their plain versions on the largest
-   inputs their paths gave them, and replays each path's calls (kept as
-   host copies) by bin.
+   problems and the cells used vs padded, the largest Nb and B, and a
+   sha256 of its leaf pair sets (`leaf_pairs_digest`).  Then poa_msa
+   without params (the linear-gap DP) on seeded groups must launch
+   poa_linear and build the graphs the CPU run builds.  Then it times the
+   three POA kernels (through their wrappers, with the path's n_nodes and
+   max_live) and their plain versions on the largest inputs their paths gave them,
+   with a latency line for poa_chain and poa_affine (the longest
+   problem's real nodes x a node's dependent steps, `poa_node_steps`),
+   and replays each path's calls (kept as host copies) by bin, each
+   poa_chain / poa_affine call held to the plain version on its live
+   cells.  With --dump-poa it saves those calls' inputs (poa_chain from
+   the evolverMammals path, poa_affine from the star).
 
 Prints one `{"kernels": [...]}` JSON line (each entry also carries the
 shape it was timed at and `replayed_ms`, the path's calls of the kernel
@@ -149,6 +159,15 @@ POA_RUNS = {
 JAX_CPU_POA_AVG = {"mammals": 0.9488, "star": 0.9693}
 POA_TOL = 0.005
 POA_GAPS = dict(o1=400, e1=30, o2=1200, e2=1)
+# phase 6's POA checks (kernel, P, N, L, B), also tests/poa_sweep_report.py's
+# shapes: bubbled DAGs up to N 4096 and band 16384, chains with source pad
+# nodes up to the dominant bin P 16,000 x N 64 x B 64 and band 16384
+POA_SWEEP_CASES = (
+    ("poa_affine", 8, 64, 60, 64), ("poa_affine", 4, 512, 500, 512),
+    ("poa_affine", 3, 1024, 3000, 512), ("poa_affine", 1, 4096, 3000, 4096),
+    ("poa_affine", 1, 2048, 10000, 16384), ("poa_chain", 16000, 64, 63, 64),
+    ("poa_chain", 64, 200, 900, 128), ("poa_chain", 4, 1024, 3000, 512),
+    ("poa_chain", 1, 512, 9000, 16384))
 # posterior tolerance: the posterior is exp(lsF + lsB - logZ), a
 # difference of float32 sums of per-row log-scales that reach ~1e4 over
 # 4096 rows, where one float32 ulp is ~1e-3; the kernels also sum the
@@ -1310,40 +1329,68 @@ def poa_batch(seed, P, n, l, band, chain):
     return bases, preds, off, q_ext, l_len
 
 
+def poa_live_equal(got, ref, off, l_len, n_nodes, band) -> bool:
+    """poa_chain / poa_affine outputs (H, dirs, ends) against the plain
+    version's: H and dirs on the live cells (ops/poa_cuda.py::live_mask),
+    ends on the real nodes, bit-equal."""
+    import torch
+    from cactus_tpu_torch.ops import poa_cuda
+    live = poa_cuda.live_mask(off, l_len, n_nodes, band)
+    real = (torch.arange(off.shape[1], device=off.device)[None, :]
+            < n_nodes.long()[:, None])
+    return (torch.equal(got[0][live], ref[0][live])
+            and torch.equal(got[1][live], ref[1][live])
+            and torch.equal(got[2][real], ref[2][real]))
+
+
+def poa_node_steps(name, shape) -> int:
+    """The dependent steps a node of poa_chain / poa_affine cannot avoid,
+    one warp-shuffle latency each: the neighbour cells of the previous row
+    (1), the team's max-scan (log2 of its lanes a warp) and its exclusive
+    shift (1), the E of the cell left of each lane (1); with several warps
+    a problem the barrier (1), or two for poa_affine, whose next node
+    reads the rows the other warps wrote.  shape: the team shape
+    (ops/poa_cuda.py::team_shape)."""
+    import math
+    _C, TL, NW = shape
+    steps = 3 + int(math.log2(TL if NW == 1 else 32))
+    if NW > 1:
+        steps += 2 if name == "poa_affine" else 1
+    return steps
+
+
 def phase_poa_kernels_vs_plain(dev, errs):
     """The three POA kernels against their plain versions, bit for bit."""
     import numpy as np
     import torch
     from cactus_tpu_torch.config import PoaParams
     from cactus_tpu_torch.ops import banded as tb
-    from cactus_tpu_torch.ops import poa as tpoa
     from cactus_tpu_torch.ops import poa_cuda
+    from cactus_tpu_torch.ops import poa as tpoa
 
     sub = torch.from_numpy(tb.score_matrix_6(PoaParams().sub_matrix)).to(dev)
-    cases = [  # kernel, P, N, L, B
-        ("poa_affine", 8, 64, 60, 64), ("poa_affine", 4, 512, 500, 512),
-        ("poa_affine", 3, 1024, 3000, 512),
-        ("poa_affine", 1, 4096, 3000, 4096),
-        ("poa_affine", 1, 2048, 10000, 16384),
-        ("poa_chain", 16000, 64, 63, 64),
-        ("poa_chain", 64, 200, 900, 128), ("poa_chain", 4, 1024, 3000, 512),
-        ("poa_chain", 1, 512, 9000, 16384)]
-    for k, (name, P, n, l, band) in enumerate(cases):
+    for k, (name, P, n, l, band) in enumerate(POA_SWEEP_CASES):
         inputs = poa_batch(k, P, n, l, band, chain=name == "poa_chain")
         if poa_cuda.chain_certified(inputs[1], inputs[2]) != (
                 name == "poa_chain"):
             raise AssertionError(f"{name} case {k}: wrong certificate")
         args = [torch.from_numpy(x).to(dev) for x in inputs] + [sub]
-        got = getattr(poa_cuda, name)(*args, band=band, **POA_GAPS)
+        n_nodes = poa_used(args, band)[0].int()
+        max_live = poa_cuda.check_live(inputs[1], inputs[2], inputs[4],
+                                       n_nodes.cpu().numpy(), band)
+        got = getattr(poa_cuda, name)(*args, band=band, **POA_GAPS,
+                                      n_nodes=n_nodes, max_live=max_live)
         torch.cuda.synchronize()
         ref = tpoa.poa_align_scan_affine(*args, band=band, **POA_GAPS)
-        for what, g, r in zip(("H", "dirs", "ends"), got, ref):
-            if not torch.equal(g, r):
-                raise AssertionError(f"{name} P {P} N {n} L {l} B {band}: "
-                                     f"{what} differs from the plain version")
+        if not poa_live_equal(got, ref, args[2], args[4], n_nodes, band):
+            raise AssertionError(f"{name} P {P} N {n} L {l} B {band}: H, "
+                                 "dirs or ends differ from the plain "
+                                 "version on the live cells")
         errs[name] = 0.0
-        log(f"{name} ({P} problems x {n} nodes, L up to {l}, band {band}): "
-            "H, dirs and ends bit-equal")
+        live = int(poa_cuda.live_mask(args[2], args[4], n_nodes, band).sum())
+        log(f"{name} ({P} problems x {n} nodes, L up to {l}, band {band}, "
+            f"max_live {max_live}): H and dirs bit-equal on the {live} live "
+            f"cells of {P * n * band}, ends on the real nodes")
     for n, l, seed in ((64, 100, 1), (1024, 2048, 2)):
         rng = np.random.default_rng(seed)
         bases, preds = poa_dag(rng, n, forward=4)
@@ -1382,6 +1429,22 @@ def _score_all_pairs(sim, result, leaves, what):
                                      f"{s}")
     avg = (float(np.mean(recalls)) + float(np.mean(precisions))) / 2
     return avg, recalls, precisions
+
+
+def leaf_pairs_digest(result, leaves) -> str:
+    """sha256 of every leaf pair's aligned position pairs (the sets the
+    accuracy reading scores), in pair order: equal digests, equal
+    alignments between the leaves."""
+    import numpy as np
+    from cactus_tpu_torch import progressive
+    digest = hashlib.sha256()
+    for i in range(len(leaves)):
+        for j in range(i + 1, len(leaves)):
+            arr = np.ascontiguousarray(progressive.leaf_pairs_arr(
+                result, leaves[i], leaves[j]))
+            digest.update(f"{leaves[i]}~{leaves[j]}:{arr.shape}".encode())
+            digest.update(arr.tobytes())
+    return digest.hexdigest()
 
 
 def phase_poa(dev):
@@ -1468,6 +1531,8 @@ def phase_poa(dev):
                 raise AssertionError(f"the poa {name} path never launched "
                                      f"{k}")
         avg, _r, _p = _score_all_pairs(sim, result, leaves, f"poa {name}")
+        log(f"poa {name}: leaf pair sets sha256 "
+            f"{leaf_pairs_digest(result, leaves)}")
         ref = JAX_CPU_POA_AVG[name]
         log(f"poa {name}: average {avg:.4f} against the JAX package's CPU "
             f"reading {ref:.4f} ({avg - ref:+.4f}, tolerance {POA_TOL}; gate "
@@ -1548,62 +1613,140 @@ def poa_used(args, band):
     return real, cols, extra
 
 
+def poa_teams_by_bin(name, calls, dev) -> str:
+    """The team shapes a path's calls ran, by bin, and for poa_affine
+    where each bin's history rows lived (shared memory or global
+    scratch)."""
+    from cactus_tpu_torch.ops import poa_cuda
+    seen = {}
+    for a, kw in calls:
+        P, N = a[0].shape
+        shape = poa_cuda.team_shape(kw["max_live"], name, P)
+        what = poa_team(shape)
+        if name == "poa_affine":
+            what += (", rows in shared memory"
+                     if poa_cuda.affine_rows_in_smem(P, N, kw["max_live"],
+                                                     shape, dev)
+                     else ", rows in global scratch")
+        seen.setdefault((N, kw["band"]), set()).add(what)
+    return "; ".join(f"{k}: {' / '.join(sorted(v))}"
+                     for k, v in sorted(seen.items()))
+
+
+def poa_launch_kw(kw, dev):
+    """A recorded poa_chain / poa_affine call's keywords for its wrapper:
+    n_nodes on the card, max_live as the path passed it."""
+    out = dict(kw)
+    out["n_nodes"] = kw["n_nodes"].to(dev)
+    return out
+
+
+def poa_work(args, kw):
+    """(live cells, bytes, int32 operations) of an affine POA call on its
+    live cells: bases, preds, off of each real node, the query codes of
+    its live columns, the lengths, n and the matrix in; H and dirs of the
+    live cells and ends of the real nodes out; POA_AFFINE_OPS_PER_CELL a
+    live cell plus POA_AFFINE_OPS_PER_EXTRA_PRED a further predecessor."""
+    import torch
+    from cactus_tpu_torch.ops import poa_cuda
+    preds, off, l_len = args[1], args[2], args[4]
+    n_nodes, B = kw["n_nodes"].to(off.device), kw["band"]
+    P = off.shape[0]
+    live = poa_cuda.live_mask(off, l_len, n_nodes, B)
+    per_node = live.sum(dim=2)
+    cells = int(per_node.sum())
+    real = int(n_nodes.long().sum())
+    cols = int(torch.clamp(l_len.long() + 1, max=B).sum())
+    extra = ((preds >= 0).sum(dim=2) - 1).clamp(min=0)
+    bytes_ = (real * (1 + 16 + 4 + 4) + cols + 8 * P + 144
+              + cells * poa_cuda.POA_AFFINE_OUT_BYTES_PER_CELL)
+    ops = (poa_cuda.POA_AFFINE_OPS_PER_CELL * cells
+           + poa_cuda.POA_AFFINE_OPS_PER_EXTRA_PRED
+           * int((extra * per_node).sum()))
+    return cells, bytes_, ops
+
+
+def poa_team(shape) -> str:
+    """A team shape (ops/poa_cuda.py::team_shape), for logs."""
+    C, TL, NW = shape
+    return (f"{C} cells a lane x {TL} lanes" + (f" x {NW} warps" if NW > 1
+                                                 else "")
+            + f" (cover {C * TL * NW})")
+
+
 def measure_poa(recorders, launches, errs, dev):
     """The three POA kernels and their plain versions on the largest
-    inputs their paths gave them, beside the bound for the same work, and
-    each path's calls replayed one at a time, by bin."""
+    inputs their paths gave them, beside the bound for the same work (on
+    the live cells for poa_affine and poa_chain, with a latency line: the
+    longest problem's real nodes x a node's dependent steps), and each
+    path's calls replayed one at a time, by bin, each held to the plain
+    version on its live cells."""
     import torch
     from cactus_tpu_torch.ops import poa as tpoa
     from cactus_tpu_torch.ops import poa_cuda
 
     rows = []
 
-    def replayed(name, shape_of):
-        """The path's calls of `name` replayed, by bin: the shape but P."""
-        fn = recorders[name].fn
-
-        def timed(a, k):
-            a = on_device(a, dev)
-            return lambda: fn(*a, **k)
-
+    def replayed(name, shape_of, timed):
         return replay_calls(name, recorders[name].calls, timed,
                             lambda a, k: tuple(shape_of(a, k)[-2:]),
                             shape_of, "bin")
 
+    step_ns, step_what = smem_step_ns()
     for name in ("poa_affine", "poa_chain"):
+        # the wrapper with the path's max_live: no device sync before its
+        # launch, as on the path
+        launch = getattr(poa_cuda, name)
+
+        def timed(a, k, name=name, launch=launch):
+            # each replayed call is held to the plain version first
+            a = on_device(a, dev)
+            k = poa_launch_kw(k, dev)
+            pk = {x: v for x, v in k.items()
+                  if x not in ("n_nodes", "max_live")}
+            if not poa_live_equal(launch(*a, **k),
+                                  tpoa.poa_align_scan_affine(*a, **pk),
+                                  a[2], a[4], k["n_nodes"], k["band"]):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     "on a replayed call's live cells")
+            return lambda: launch(*a, **k)
+
         args, kw = recorders[name].best
         args = on_device(args, dev)
+        kw = poa_launch_kw(kw, dev)
+        pkw = {x: v for x, v in kw.items() if x not in ("n_nodes", "max_live")}
         P, N = args[0].shape
         B = kw["band"]
-        fn = recorders[name].fn
-        got = fn(*args, **kw)
+        got = launch(*args, **kw)
         plain = {}
         plain_ms = time_ms(lambda: plain.update(
-            r=tpoa.poa_align_scan_affine(*args, **kw)), 1, warmup=False)
-        for g, r in zip(got, plain["r"]):
-            if not torch.equal(g, r):
-                raise AssertionError(f"{name} differs from its plain version "
-                                     "on its path's largest input")
+            r=tpoa.poa_align_scan_affine(*args, **pkw)), 1, warmup=False)
+        if not poa_live_equal(got, plain["r"], args[2], args[4],
+                              kw["n_nodes"], B):
+            raise AssertionError(f"{name} differs from its plain version "
+                                 "on its path's largest input")
         errs[name] = 0.0
         del got, plain
-        ms = time_ms(lambda: fn(*args, **kw), 10)
-        real, cols, extra = poa_used(args, B)
-        cells = int((real * cols).sum())
-        # bases, preds, off per real node, the query codes, the lengths and
-        # the matrix in; H and dirs of the used cells and ends out
-        bytes_ = (int(real.sum()) * (1 + 16 + 4 + 4) + int(cols.sum())
-                  + 4 * P + 144
-                  + cells * poa_cuda.POA_AFFINE_OUT_BYTES_PER_CELL)
-        ops = (poa_cuda.POA_AFFINE_OPS_PER_CELL * cells
-               + poa_cuda.POA_AFFINE_OPS_PER_EXTRA_PRED
-               * int((extra * cols).sum()))
+        ms = time_ms(lambda: launch(*args, **kw), 10)
+        cells, bytes_, ops = poa_work(args, kw)
         line = {"poa_affine": "cactus_tpu/ops/poa_pallas.py:397",
                 "poa_chain": "cactus_tpu/ops/poa_pallas.py:915"}[name]
-        total = replayed(name, lambda a, k: [*a[0].shape, k["band"]])
+        total = replayed(name, lambda a, k: [*a[0].shape, k["band"]], timed)
+        log(f"{name}: every replayed call bit-equal to the plain version on "
+            "its live cells; teams by bin: " + poa_teams_by_bin(
+                name, recorders[name].calls, dev))
         rows.append(kernel_row(name, "cactus_tpu_torch/csrc/poa.cu", line,
                                launches, errs, ms, plain_ms, bytes_, ops,
                                INT32_OPS_PER_S, [P, N, B], total))
-        log(f"{name}: {cells} cells used of {P * N * B} computed")
+        longest = int(kw["n_nodes"].max())
+        shape = poa_cuda.team_shape(kw["max_live"], name, P)
+        steps = poa_node_steps(name, shape)
+        latency_ms = longest * steps * step_ns / 1e6
+        log(f"{name} at {[P, N, B]}: max_live {kw['max_live']}, team "
+            f"{poa_team(shape)}; {cells} live cells of "
+            f"{P * N * B} band cells; latency line {longest} nodes x {steps} "
+            f"steps x {step_ns:.2f} ns = {latency_ms:.4f} ms ({step_what}), "
+            f"{ms / latency_ms:.2f}x; bound {rows[-1]['bound_ms']:.6f} ms")
 
     (bases, preds, q), kw = recorders["poa_linear"].best
     bases, preds, q = on_device((bases, preds, q), dev)
@@ -1631,7 +1774,8 @@ def measure_poa(recorders, launches, errs, dev):
         + poa_cuda.POA_LINEAR_OPS_PER_PRED * slots * (L + 1),
         INT32_OPS_PER_S, [int(bases.shape[0]), int(q.shape[0]) + 1],
         replayed("poa_linear", lambda a, k: [a[0].shape[0],
-                                             a[2].shape[0] + 1]))
+                                             a[2].shape[0] + 1],
+                 lambda a, k: (lambda a=on_device(a, dev): fn(*a, **k))))
     rows.append(row)
     log(f"poa_linear: {cells} cells used of "
         f"{bases.shape[0] * (q.shape[0] + 1)} computed")
@@ -1671,6 +1815,22 @@ def dump_pairhmm5(recorder, path):
                for k, v in kw.items()}) for a, kw in recorder.calls]
     torch.save({"calls": calls}, path)
     log(f"saved the inputs of {len(calls)} pairhmm5_fwd calls to {path}")
+
+
+def dump_poa(recorders, path):
+    """Save the inputs of every poa_chain and poa_affine call the poa paths
+    made (host copies; n_nodes too) with torch.save, for
+    tests/poa_sweep_report.py --replay."""
+    import torch
+    out = {}
+    for name, rec in recorders.items():
+        if name in ("poa_chain", "poa_affine"):
+            out[name] = [([x.cpu() for x in a],
+                          {k: (v.cpu() if torch.is_tensor(v) else v)
+                           for k, v in kw.items()}) for a, kw in rec.calls]
+    torch.save(out, path)
+    log(f"saved the inputs of " + ", ".join(
+        f"{len(v)} {k}" for k, v in out.items()) + f" calls to {path}")
 
 
 def run_cli(argv, what):
@@ -1747,6 +1907,9 @@ def main() -> int:
                     help="also save the pecan path's (600 kb) pairhmm5_fwd "
                     "inputs there (tests/pairhmm_sweep_report.py --model 5 "
                     "--replay)")
+    ap.add_argument("--dump-poa", metavar="PATH",
+                    help="also save both poa paths' poa_chain and poa_affine "
+                    "inputs there (tests/poa_sweep_report.py --replay)")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "cactus_tpu_torch")):
         return fail("run from a checkout: cactus_tpu_torch/ is missing")
@@ -1796,6 +1959,8 @@ def main() -> int:
     log(f"phase 6 (POA kernels vs plain versions) {time.time() - t0:.1f} s")
     t0 = time.time()
     poa_launches, poa_recorders = phase_poa(dev)
+    if opts.dump_poa:
+        dump_poa(poa_recorders, opts.dump_poa)
     lin_launches, lin_recorders = phase_poa_linear(dev)
     log(f"phase 7 (poa path) {time.time() - t0:.1f} s")
     t0 = time.time()

@@ -7,8 +7,9 @@ one.  This file imports no jax, so it also runs where jax is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Banded DP outputs are bit-identical to the plain version on the live
-cells (the kernel computes only those, see ops/banded_cuda.py), POA
-outputs on every cell.  Pair-HMM
+cells (the kernel computes only those, see ops/banded_cuda.py), and so
+are poa_chain's and poa_affine's (ops/poa_cuda.py::live_mask; ends on
+each problem's real nodes); poa_linear's on every cell.  Pair-HMM
 posteriors (3-state and 5-state) agree to HMM_ATOL: the kernels sum the
 in-row chains in another order than the plain version's Kogge-Stone scan,
 and the posterior is exp of a difference of float32 log-scale sums that
@@ -30,6 +31,7 @@ from cactus_tpu_torch.ops import (banded_cuda, cuda_build, pairhmm5_cuda,
                                   pairhmm_cuda, poa_cuda)
 from cactus_tpu_torch.ops import pairhmm as tp
 from cactus_tpu_torch.ops import pairhmm5 as tp5
+from cactus_tpu_torch.ops import poa as tpoa
 
 pytestmark = pytest.mark.cuda
 
@@ -473,6 +475,22 @@ def _poa_batch(rng, P, n, l, band, chain):
     return bases, preds, off, q_ext, l_len
 
 
+def _real_nodes(preds):
+    """Each problem's real nodes: up to its last node with a predecessor
+    (the pad nodes after them are sources)."""
+    has = (preds >= 0).any(axis=2)
+    idx = np.arange(preds.shape[1])[None, :]
+    return (np.where(has, idx, 0).max(axis=1) + 1).astype(np.int32)
+
+
+def _assert_poa_live(got, ref, off, l_len, n_nodes, band):
+    """H and dirs on the live cells and ends on the real nodes, bit-equal
+    (chip_smoke.poa_live_equal on the host copies)."""
+    assert chip_smoke.poa_live_equal(
+        [x.cpu() for x in got], [x.cpu() for x in ref], off.cpu(),
+        l_len.cpu(), n_nodes.cpu(), band)
+
+
 @pytest.mark.parametrize("kernel,P,n,l,band", [
     ("poa_affine", 6, 64, 50, 64), ("poa_affine", 3, 128, 600, 256),
     ("poa_affine", 2, 96, 300, 512), ("poa_chain", 40, 64, 60, 64),
@@ -483,15 +501,119 @@ def test_poa_affine_kernels_match_plain(cuda, kernel, P, n, l, band):
     assert poa_cuda.chain_certified(inputs[1], inputs[2]) == (
         kernel == "poa_chain")
     args = [torch.from_numpy(x).to(cuda) for x in inputs]
+    n_nodes = torch.from_numpy(_real_nodes(inputs[1])).to(cuda)
     sub = torch.from_numpy(SUBMAT).to(cuda)
     kw = dict(band=band, o1=400, e1=30, o2=1200, e2=1)
     n0 = cuda_build.launches()[kernel]
-    got = getattr(poa_cuda, kernel)(*args, sub, **kw)
+    got = getattr(poa_cuda, kernel)(*args, sub, **kw, n_nodes=n_nodes)
     torch.cuda.synchronize()
     assert cuda_build.launches()[kernel] == n0 + 1
     ref = poa_cuda.poa_affine(*[a.cpu() for a in args], sub.cpu(), **kw)
-    for g, r in zip(got, ref):
-        assert torch.equal(g.cpu(), r)
+    _assert_poa_live(got, ref, args[2], args[4], n_nodes, band)
+
+
+@pytest.mark.parametrize("kernel,P,N,lq,band,n_lo", [
+    ("poa_chain", 16, 64, 60, 64, 1),       # n = 1 and n = Nb, L + 1 <= B
+    ("poa_chain", 24, 64, 300, 64, 1),      # L + 1 > B, offsets stepping
+    ("poa_chain", 40, 100, 120, 128, 1),    # ragged widths sharing warps
+    ("poa_chain", 16000, 64, 63, 64, 1),    # the dominant bin
+    ("poa_chain", 1, 512, 511, 512, 512),   # P 1 at (512, 512): 4 warps
+    ("poa_chain", 3, 300, 2000, 1024, 100),  # 8 warps a problem, banded
+    ("poa_chain", 2, 80, 4000, 4096, 60),   # 16 warps of 8 cells
+    ("poa_chain", 2, 100, 6000, 8192, 50),  # 16 cells a lane
+    ("poa_chain", 2, 200, 9000, 16384, 50),  # 32 cells a lane
+    ("poa_affine", 16, 64, 60, 64, 1),
+    ("poa_affine", 24, 64, 300, 64, 1),
+    ("poa_affine", 40, 100, 120, 128, 1),
+    ("poa_affine", 4866, 64, 63, 64, 1),    # the star path's largest bin
+    ("poa_affine", 1, 512, 511, 512, 512),
+    ("poa_affine", 3, 300, 2000, 1024, 100),
+    ("poa_affine", 2, 100, 6000, 8192, 50),
+    ("poa_affine", 1, 600, 9000, 16384, 50)])
+def test_poa_live_cells_match_plain(cuda, kernel, P, N, lq, band, n_lo):
+    from test_torch_poa_live import ragged_batch
+    chain = kernel == "poa_chain"
+    inputs = ragged_batch(P + N + band, P, N, lq, band, chain, n_lo=n_lo)
+    assert poa_cuda.chain_certified(inputs[1], inputs[2]) == chain
+    args = [torch.from_numpy(x).to(cuda) for x in inputs]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    kw = dict(band=band, o1=400, e1=30, o2=1200, e2=1)
+    max_live = poa_cuda.check_live(inputs[1], inputs[2], inputs[4],
+                                   inputs[5], band)
+    n0 = cuda_build.launches()[kernel]
+    got = getattr(poa_cuda, kernel)(*args[:5], sub, **kw, n_nodes=args[5],
+                                    max_live=max_live)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()[kernel] == n0 + 1
+    ref = tpoa.poa_align_scan_affine(*args[:5], sub, **kw)
+    _assert_poa_live(got, ref, args[2], args[4], args[5], band)
+
+
+def _poa_shipped():
+    """(kernel, shape, cover, problems, smem): each team shape the
+    wrappers pick, at a launch size they pick it for; poa_affine's covers
+    up to 256 once with few problems (history rows in shared memory) and
+    once with more than the card holds at once (global scratch)."""
+    from test_torch_poa_live import _shipped
+    out = [("poa_chain", s, c, p, False) for s, c, p in _shipped("poa_chain")]
+    for s, c, p in _shipped("poa_affine"):
+        out.append(("poa_affine", s, c, p, c <= 256))
+        if c <= 256:
+            out.append(("poa_affine", s, c, 1200, False))
+    return out
+
+
+@pytest.mark.parametrize("kernel,shape,band,problems,smem", _poa_shipped())
+def test_poa_every_team_shape(cuda, kernel, shape, band, problems, smem):
+    """Each team shape (and poa_affine's history in shared memory or
+    global scratch) the wrappers ship, through the wrapper on a batch
+    whose widest row fills the shape's cover."""
+    from test_torch_poa_live import ragged_batch
+    chain = kernel == "poa_chain"
+    inputs = ragged_batch(band + shape[0], problems, 40, band + 40, band,
+                          chain, n_lo=10)
+    inputs[4][:] = np.minimum(inputs[4], band - 1 + inputs[2][:, 0])
+    inputs[4][0] = band - 1
+    max_live = poa_cuda.check_live(inputs[1], inputs[2], inputs[4],
+                                   inputs[5], band)
+    assert poa_cuda.team_shape(max_live, kernel, problems) == shape
+    if not chain:
+        assert poa_cuda.affine_rows_in_smem(problems, 40, max_live, shape,
+                                            cuda) == smem
+    args = [torch.from_numpy(x).to(cuda) for x in inputs]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    kw = dict(band=band, o1=400, e1=30, o2=1200, e2=1)
+    got = getattr(poa_cuda, kernel)(*args[:5], sub, **kw, n_nodes=args[5],
+                                    max_live=max_live)
+    torch.cuda.synchronize()
+    ref = tpoa.poa_align_scan_affine(*args[:5], sub, **kw)
+    _assert_poa_live(got, ref, args[2], args[4], args[5], band)
+
+
+def test_poa_wrappers_check_the_live_contract(cuda):
+    """Without max_live the wrappers check n_nodes and size the teams by
+    check_live on host copies; a max_live outside 1..B, or wider than the
+    widest team cover, raises before any launch."""
+    from test_torch_poa_live import ragged_batch
+    inputs = ragged_batch(3, 4, 32, 60, 64, True)
+    args = [torch.from_numpy(x).to(cuda) for x in inputs]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    kw = dict(band=64, o1=400, e1=30, o2=1200, e2=1)
+    got = poa_cuda.poa_chain(*args[:5], sub, **kw, n_nodes=args[5])
+    ref = tpoa.poa_align_scan_affine(*args[:5], sub, **kw)
+    _assert_poa_live(got, ref, args[2], args[4], args[5], 64)
+    cut = args[5].clone()
+    cut[0] = 31          # problem 0 fills the bin: cuts a real node off
+    for kernel in ("poa_chain", "poa_affine"):
+        with pytest.raises(ValueError, match="cuts a real node off"):
+            getattr(poa_cuda, kernel)(*args[:5], sub, **kw, n_nodes=cut)
+        for wrong in (0, 65):
+            with pytest.raises(ValueError, match="max_live"):
+                getattr(poa_cuda, kernel)(*args[:5], sub, **kw,
+                                          n_nodes=args[5], max_live=wrong)
+    with pytest.raises(ValueError, match="widest team cover"):
+        poa_cuda.poa_affine(*args[:5], sub, **dict(kw, band=32768),
+                            n_nodes=args[5], max_live=16385)
 
 
 # The kernels below run 32-thread blocks at these widths (pair-HMMs at
@@ -686,8 +808,8 @@ def test_poa_base5_nodes_in_32_thread_blocks(cuda, kernel, P, n, l, band):
     args = [torch.from_numpy(x).to(cuda)
             for x in (bases, preds, off, q_ext, l_len, sub_np)]
     kw = dict(band=band, o1=400, e1=30, o2=1200, e2=1)
-    got = getattr(poa_cuda, kernel)(*args, **kw)
+    n_nodes = torch.from_numpy(_real_nodes(preds)).to(cuda)
+    got = getattr(poa_cuda, kernel)(*args, **kw, n_nodes=n_nodes)
     torch.cuda.synchronize()
     ref = poa_cuda.poa_affine(*[a.cpu() for a in args], **kw)
-    for g, r in zip(got, ref):
-        assert torch.equal(g.cpu(), r)
+    _assert_poa_live(got, ref, args[2], args[4], n_nodes, band)
