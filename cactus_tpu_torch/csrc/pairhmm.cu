@@ -62,6 +62,10 @@
 //    loads the next row's fM cells while the current row runs.
 //  - The row loop is not unrolled: eight copies of a row overflow the
 //    instruction cache (2.5x slower at 16 cells a lane).
+//  - Bands past 16384 cells (16 warps of 32 cells a lane) take the wide
+//    kernels below, which loop a block over tiles of the band with the
+//    state rows in global scratch (the wrapper routes by band,
+//    ops/pairhmm_cuda.py::pairhmm_route).
 // Float results follow the plain PyTorch version to rounding: the in-row
 // chains are summed in another order than its Kogge-Stone scan, multiplies
 // and adds may contract into FMAs, the rows of a step are not renormalised
@@ -800,6 +804,427 @@ pairhmm_bwd_kernel(const float* __restrict__ fM,
   cp_async_wait_all();
 }
 
+// ------------------------------------------------------------ wide bands
+
+// Bands wider than the narrow kernels' kMaxWarps warps of 32 cells (16384)
+// take the wide kernels.  One block of kWideThreads threads a pair walks
+// each row's band in tiles of kWideTile cells (lane t owns the kWideC
+// cells t kWideC .. of each tile, so a warp's loads and stores are
+// contiguous runs), with the state rows in a per-pair global scratch row
+// (pairhmm_wide_scratch_floats) that L2 keeps.  A row's Y chain is the
+// narrow kernels' scan (the lane's fold, the warp's Kogge-Stone scan,
+// the warps' totals through shared memory at one barrier a tile) with
+// the chain's value at the tile's first cell carried from tile to tile.
+// Rescaling and the row-maximum bookkeeping are the narrow kernels':
+// the state is scaled once per kStepRows rows by the reciprocal of the
+// step's last row maximum (applied as the next step's first row reads
+// the state), each row's maximum is reduced when its step ends, and each
+// row is stored divided by its own maximum (forward; the backward pass
+// scales its posterior alike) with the plain version's running
+// log-scale.  A step's rows wait in the output, unscaled, until the step
+// ends; each thread then rescales its own cells in place.  Every row
+// ends at a barrier, so the next row reads the state whole.
+constexpr int kWideC = 8;
+constexpr int kWideThreads = kMaxThreads;
+constexpr int kWideTile = kWideC * kWideThreads;
+
+__host__ __device__ inline int wide_cover(int B) {
+  return (B + kWideTile - 1) / kWideTile * kWideTile;
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+pairhmm_fwd_wide_kernel(const uint8_t* __restrict__ q,
+                        const uint8_t* __restrict__ t_shift,
+                        const int* __restrict__ m_len,
+                        const int* __restrict__ n_len,
+                        const int* __restrict__ lo,
+                        const float* __restrict__ em, int M, int B, float d,
+                        float e, float tMM, float omE,
+                        float* __restrict__ scratch,
+                        float* __restrict__ fM_out,
+                        float* __restrict__ lsF_out,
+                        float* __restrict__ logZ_out) {
+  constexpr int C = kWideC;
+  constexpr int R = kStepRows;
+  __shared__ Shared sh;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int Bp = wide_cover(B);
+  const int ntiles = Bp / kWideTile;
+
+  const int p = blockIdx.x;
+  const int lo_p = lo[p];
+  const int m = min(m_len[p], M);
+  const int n = n_len[p];
+  const int b_end = n - m - lo_p;
+  const int end_row = m > 1 ? m : 1;
+  const uint8_t* qp = q + (size_t)p * M;
+  const uint8_t* tp = t_shift + (size_t)p * (M + B);
+  float* fp = fM_out + (size_t)p * M * B;
+  float* lp = lsF_out + (size_t)p * M;
+  float* sM = scratch + (size_t)p * 3 * Bp;
+  float* sX = sM + Bp;
+  float* sY = sX + Bp;
+
+  for (int k = t; k < 36; k += blockDim.x) sh.em[k] = em[k];
+  if (t < 3) sh.end[t] = 0.f;
+  float lev[6], lane_mult;
+  chain_constants<C>(e, lane, lev, &lane_mult);
+  const float warp_mult = lev[5];      // e^(32 C)
+  float epow[C], wgt[C];
+  epow[0] = 1.f;
+#pragma unroll
+  for (int c = 1; c < C; ++c) epow[c] = epow[c - 1] * e;
+#pragma unroll
+  for (int c = 0; c < C; ++c) wgt[c] = d * epow[C - 1 - c];
+  // row 0: M at j == 0, Y from that cell; zero past the band
+  for (int b = t; b < Bp; b += blockDim.x) {
+    const int j0 = lo_p + b;
+    sM[b] = (j0 == 0 && b < B) ? 1.f : 0.f;
+    sX[b] = 0.f;
+    sY[b] = (j0 >= 1 && j0 <= n && b < B)
+                ? d * powf(e, (float)(j0 - 1 > 0 ? j0 - 1 : 0))
+                : 0.f;
+  }
+  __syncthreads();
+
+  float S = 0.f;    // the plain version's running log-scale, row by row
+  float rs = 1.f;   // the scale the state waits for (a step's last row)
+  int step = 0;
+  for (int i0 = 1; i0 <= m; i0 += R, ++step) {
+    const int rows = min(R, m - i0 + 1);
+    float pmax[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) pmax[r] = 0.f;
+#pragma unroll 1
+    for (int r = 0; r < rows; ++r) {
+      const int i = i0 + r;
+      const float k_in = r == 0 ? rs : 1.f;
+      const float* erow = sh.em + 6 * qp[i - 1];
+      float* frow = fp + (size_t)(i - 1) * B;
+      float Y = 0.f;      // the chain at the tile's first cell
+      float lmax = 0.f;
+#pragma unroll 1
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const int b0 = tile * kWideTile + t * C;
+        // the previous row's cells b0 .. b0 + C (mX reads b + 1)
+        float fm[C + 1], fx[C + 1], fy[C], emit[C];
+#pragma unroll
+        for (int c = 0; c <= C; ++c) {
+          const int b = b0 + c;
+          fm[c] = b < B ? sM[b] * k_in : 0.f;
+          fx[c] = b < B ? sX[b] * k_in : 0.f;
+          if (c < C) {
+            fy[c] = b < B ? sY[b] * k_in : 0.f;
+            emit[c] = b < B ? erow[tp[i - 1 + b]] : 0.f;
+          }
+        }
+        const int jb = i + lo_p + b0;   // j of cell c is jb + c
+        const int okM1 = min(n + 1 - jb, B - b0);
+        const int okM0 = 1 - jb;
+        float mM[C], mX[C], fold[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float vM = emit[c] * (tMM * fm[c] + omE * (fx[c] + fy[c]));
+          mM[c] = c >= okM0 && c < okM1 ? vM : 0.f;
+          const float vX = d * fm[c + 1] + e * fx[c + 1];
+          mX[c] = c >= okM0 - 1 && c < okM1 ? vX : 0.f;
+          fold[c] = wgt[c] * mM[c];
+        }
+#pragma unroll
+        for (int st = 1; st < C; st *= 2) {
+#pragma unroll
+          for (int c = 0; c + st < C; c += 2 * st)
+            fold[c] = fold[c] + fold[c + st];
+        }
+        const float inc = warp_chain_scan<false>(fold[0], lev, lane);
+        float y0[C];
+        y0[0] = 0.f;
+#pragma unroll
+        for (int c = 1; c < C; ++c) y0[c] = d * mM[c - 1] + e * y0[c - 1];
+        float w = __shfl_up_sync(kFull, inc, 1);
+        if (lane == 0) w = 0.f;
+        if (lane == 31) sh.tot[tile & 1][warp] = inc;
+        __syncthreads();
+        // the chain at the warp's first cell, from the tile's carry and
+        // the warps before; the next tile's carry from all of them
+        float cw = Y;
+        for (int v = 0; v < nwarps; ++v) {
+          if (v == warp) w = w + lane_mult * cw;
+          cw = warp_mult * cw + sh.tot[tile & 1][v];
+        }
+        Y = cw;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int b = b0 + c;
+          const float vY = y0[c] + epow[c] * w;
+          const float mY = c >= okM0 && c < okM1 ? vY : 0.f;
+          lmax = fmaxf(lmax, (mM[c] + mX[c]) + mY);
+          sM[b] = mM[c];
+          sX[b] = mX[c];
+          sY[b] = mY;
+          if (b < B) frow[b] = mM[c];
+          if (i == end_row && b == b_end) {
+            sh.end[0] = mM[c];
+            sh.end[1] = mX[c];
+            sh.end[2] = mY;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        if (k == r) pmax[k] = lmax;
+      __syncthreads();   // the row is whole before the next one reads it
+    }
+    block_step_max<R>(pmax, sh.max[step & 1], lane, warp, nwarps);
+    // the plain version's per-row scales: each row maximum over the one
+    // before it (the step's carry has maximum 1)
+    float prev = 1.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= rows) continue;
+      const float mk = pmax[r];
+      const float s = prev > 0.f ? fmaxf(mk / prev, kTiny) : kTiny;
+      S = S + logf(s);
+      if (t == r) lp[i0 + r - 1] = S;
+      if (t == 0 && i0 + r == end_row) {
+        const float mc = fmaxf(mk, kTiny);
+        const float tot = sh.end[0] / mc + (sh.end[1] / mc + sh.end[2] / mc);
+        logZ_out[p] = logf(fmaxf(tot, kTiny)) + S;
+      }
+      prev = mk;
+    }
+    // each row divided by its own maximum, as the plain version stores it
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= rows) continue;
+      const float k = 1.f / fmaxf(pmax[r], kTiny);
+      float* frow = fp + (size_t)(i0 + r - 1) * B;
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const int b0 = tile * kWideTile + t * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (b0 + c < B) frow[b0 + c] = frow[b0 + c] * k;
+      }
+    }
+    rs = 1.f / fmaxf(pmax[rows - 1], kTiny);
+  }
+
+  // past the pair's end every state is masked to exactly 0 and the row
+  // scale is TINY
+  const size_t done = (size_t)(m > 0 ? m : 0) * B;
+  for (size_t k = done + t; k < (size_t)M * B; k += blockDim.x) fp[k] = 0.f;
+  if (t == 0) {
+    const float ltiny = logf(kTiny);
+    for (int i = (m > 0 ? m : 0) + 1; i <= M; ++i) {
+      S = S + ltiny;
+      lp[i - 1] = S;
+      if (i == end_row) logZ_out[p] = ltiny + S;
+    }
+    if (M < end_row) logZ_out[p] = ltiny + S;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+pairhmm_bwd_wide_kernel(const float* __restrict__ fM,
+                        const float* __restrict__ lsF,
+                        const float* __restrict__ logZ,
+                        const uint8_t* __restrict__ q,
+                        const uint8_t* __restrict__ t_shift,
+                        const int* __restrict__ m_len,
+                        const int* __restrict__ n_len,
+                        const int* __restrict__ lo,
+                        const float* __restrict__ em, int M, int B, float d,
+                        float e, float tMM, float omE,
+                        float* __restrict__ scratch,
+                        float* __restrict__ post) {
+  constexpr int C = kWideC;
+  constexpr int R = kStepRows;
+  __shared__ Shared sh;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int Bp = wide_cover(B);
+  const int ntiles = Bp / kWideTile;
+
+  const int p = blockIdx.x;
+  const int lo_p = lo[p];
+  const int m = m_len[p];
+  const int n = n_len[p];
+  const uint8_t* qp = q + (size_t)p * M;
+  const uint8_t* tp = t_shift + (size_t)p * (M + B);
+  const float* fp = fM + (size_t)p * M * B;
+  const float* lsp = lsF + (size_t)p * M;
+  float* pp = post + (size_t)p * M * B;
+  const float lz = logZ[p];
+  // bM and bX of the carried row (bY of a row feeds only its maximum)
+  float* sM = scratch + (size_t)p * 3 * Bp;
+  float* sX = sM + Bp;
+
+  for (int k = t; k < 36; k += blockDim.x) sh.em[k] = em[k];
+  // rows past the pair's end have zero posterior (every row when m_len
+  // is 0, or beyond the padded row count, where no terminal row exists)
+  const bool live = m >= 1 && m <= M;
+  for (size_t k = (size_t)(live ? m : 0) * B + t; k < (size_t)M * B;
+       k += blockDim.x)
+    pp[k] = 0.f;
+  if (!live) return;
+  float lev[6], lane_mult;
+  chain_constants<C>(e, 31 - lane, lev, &lane_mult);
+  const float warp_mult = lev[5];
+  float epow[C], wgt[C];
+  epow[0] = 1.f;
+#pragma unroll
+  for (int c = 1; c < C; ++c) epow[c] = epow[c - 1] * e;
+#pragma unroll
+  for (int c = 0; c < C; ++c) wgt[c] = omE * epow[c];
+
+  // terminal row i = m (the backward closed form at the pair's end) and
+  // its posterior
+  {
+    const float g = expf(fminf(fmaxf(lsp[m - 1] - lz, -60.f), 60.f));
+    const float* frow = fp + (size_t)(m - 1) * B;
+    float* prow = pp + (size_t)(m - 1) * B;
+    for (int b = t; b < Bp; b += blockDim.x) {
+      const int jn = n - (m + lo_p + b);
+      const float bm = b >= B ? 0.f
+                       : jn == 0
+                           ? 1.f
+                           : (jn > 0 ? d * powf(e, (float)(jn - 1 > 0 ? jn - 1
+                                                                     : 0))
+                                     : 0.f);
+      sM[b] = bm;
+      sX[b] = (b < B && jn == 0) ? 1.f : 0.f;
+      if (b < B) prow[b] = fminf(fmaxf((frow[b] * bm) * g, 0.f), 1.5f);
+    }
+  }
+  __syncthreads();
+
+  float S = 0.f;    // the plain version's running log-scale lsB
+  float rs = 1.f;   // the scale the state waits for (a step's last row)
+  int step = 0;
+  for (int r0 = m - 1; r0 >= 1; r0 -= R, ++step) {
+    const int rows = min(R, r0);
+    float lsf_r[R], pmax[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      lsf_r[r] = r < rows ? lsp[r0 - r - 1] : 0.f;
+      pmax[r] = 0.f;
+    }
+#pragma unroll 1
+    for (int r = 0; r < rows; ++r) {
+      const int i = r0 - r;        // the new row, from the carry row i + 1
+      const float k_in = r == 0 ? rs : 1.f;
+      const float* erow = sh.em + 6 * qp[i];
+      const float* frow = fp + (size_t)(i - 1) * B;
+      float* prow = pp + (size_t)(i - 1) * B;
+      float Y = 0.f;      // the chain past the tile's last cell
+      float lmax = 0.f;
+#pragma unroll 1
+      for (int tile = ntiles - 1; tile >= 0; --tile) {
+        const int b0 = tile * kWideTile + t * C;
+        // the carry row's bM at b0 .. b0 + C - 1, bX at b0 - 1 .. (x
+        // reads b - 1)
+        float bm[C], bx[C + 1], emit[C];
+#pragma unroll
+        for (int c = 0; c <= C; ++c) {
+          const int b = b0 - 1 + c;
+          bx[c] = b >= 0 && b < B ? sX[b] * k_in : 0.f;
+          if (c < C) {
+            const int bc = b0 + c;
+            bm[c] = bc < B ? sM[bc] * k_in : 0.f;
+            emit[c] = bc < B ? erow[tp[i + bc]] : 0.f;
+          }
+        }
+        const int jb = i + lo_p + b0;   // jprev of cell c is jb + c
+        const int nb = B - b0;
+        const int mm1 = min(n - jb, nb);
+        const int ok0 = -jb;
+        const int x1 = n + 1 - jb;
+        const int ok1 = min(x1, nb);
+        float mm[C], xs[C], fold[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          mm[c] = c < mm1 ? emit[c] * bm[c] : 0.f;
+          xs[c] = c >= ok0 && c < x1 ? bx[c] : 0.f;
+          fold[c] = wgt[c] * mm[c];
+        }
+#pragma unroll
+        for (int st = 1; st < C; st *= 2) {
+#pragma unroll
+          for (int c = 0; c + st < C; c += 2 * st)
+            fold[c] = fold[c] + fold[c + st];
+        }
+        const float inc = warp_chain_scan<true>(fold[0], lev, lane);
+        float y0[C];
+        y0[C - 1] = 0.f;
+#pragma unroll
+        for (int c = C - 2; c >= 0; --c)
+          y0[c] = omE * mm[c + 1] + e * y0[c + 1];
+        float yn = __shfl_down_sync(kFull, inc, 1);
+        if (lane == 31) yn = 0.f;
+        if (lane == 0) sh.tot[tile & 1][warp] = inc;
+        __syncthreads();
+        // the chain past the warp's last cell, from the tile's carry and
+        // the warps after; the next (lower) tile's carry from all of them
+        float cw = Y;
+        for (int v = nwarps - 1; v >= 0; --v) {
+          if (v == warp) yn = yn + lane_mult * cw;
+          cw = warp_mult * cw + sh.tot[tile & 1][v];
+        }
+        Y = cw;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int b = b0 + c;
+          const float ync = y0[c] + epow[C - 1 - c] * yn;  // y at cell c + 1
+          const float y = omE * mm[c] + e * ync;
+          const float nM = (tMM * mm[c] + d * xs[c]) + d * ync;
+          const float nX = omE * mm[c] + e * xs[c];
+          const bool ok = c >= ok0 && c < ok1;
+          const float vm = ok ? nM : 0.f;
+          const float vx = ok ? nX : 0.f;
+          lmax = fmaxf(lmax, (vm + vx) + (ok ? y : 0.f));
+          sM[b] = vm;
+          sX[b] = vx;
+          // fM x bM of the row, before its scale
+          if (b < B) prow[b] = frow[b] * vm;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+        if (k == r) pmax[k] = lmax;
+      __syncthreads();   // the row is whole before the next one reads it
+    }
+    block_step_max<R>(pmax, sh.max[step & 1], lane, warp, nwarps);
+    // each row's posterior: fM x (bM over the row's maximum, as the plain
+    // version scales it) x exp(clip(lsF + lsB - logZ)) with lsB the plain
+    // version's running log-scale, so that the clip sees its exponent
+    float prev = 1.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r >= rows) continue;
+      const float mk = pmax[r];
+      const float s = prev > 0.f ? fmaxf(mk / prev, kTiny) : kTiny;
+      S = S + logf(s);
+      const float g = expf(fminf(fmaxf((lsf_r[r] + S) - lz, -60.f), 60.f));
+      const float k = 1.f / fmaxf(mk, kTiny);
+      prev = mk;
+      float* prow = pp + (size_t)(r0 - r - 1) * B;
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const int b0 = tile * kWideTile + t * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (b0 + c < B)
+            prow[b0 + c] = fminf(fmaxf((prow[b0 + c] * k) * g, 0.f), 1.5f);
+      }
+    }
+    rs = 1.f / fmaxf(pmax[rows - 1], kTiny);
+  }
+}
+
 // Cells a lane and threads a block for band B: C = B / 256 rounded up to
 // a power of two, within 4..16 (at most 8 warps a pair up to band 4096;
 // measured on the H100, 4 warps at band 512 and 8 at band 2048 beat
@@ -934,6 +1359,48 @@ int pairhmm_bwd_launch(const void* fM, const void* lsF, const void* logZ,
                    static_cast<const float*>(lsF),
                    static_cast<const float*>(logZ),
                    static_cast<float*>(post));
+}
+
+// The wide route (bands past kMaxWarps warps of 32 cells): float32 words
+// of global scratch a pair, and the two launches.
+int pairhmm_wide_scratch_floats(int B) { return 3 * wide_cover(B); }
+
+int pairhmm_fwd_wide_launch(const void* q, const void* t_shift,
+                            const void* m_len, const void* n_len,
+                            const void* lo, const void* em, int P, int M,
+                            int B, float d, float e, float tMM, float omE,
+                            void* scratch, void* fM, void* lsF, void* logZ,
+                            void* stream) {
+  if (P <= 0) return 0;
+  if (B < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  pairhmm_fwd_wide_kernel<<<P, kWideThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t_shift),
+      static_cast<const int*>(m_len), static_cast<const int*>(n_len),
+      static_cast<const int*>(lo), static_cast<const float*>(em), M, B, d, e,
+      tMM, omE, static_cast<float*>(scratch), static_cast<float*>(fM),
+      static_cast<float*>(lsF), static_cast<float*>(logZ));
+  return (int)cudaGetLastError();
+}
+
+int pairhmm_bwd_wide_launch(const void* fM, const void* lsF,
+                            const void* logZ, const void* q,
+                            const void* t_shift, const void* m_len,
+                            const void* n_len, const void* lo,
+                            const void* em, int P, int M, int B, float d,
+                            float e, float tMM, float omE, void* scratch,
+                            void* post, void* stream) {
+  if (P <= 0) return 0;
+  if (B < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  pairhmm_bwd_wide_kernel<<<P, kWideThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(fM), static_cast<const float*>(lsF),
+      static_cast<const float*>(logZ), static_cast<const uint8_t*>(q),
+      static_cast<const uint8_t*>(t_shift), static_cast<const int*>(m_len),
+      static_cast<const int*>(n_len), static_cast<const int*>(lo),
+      static_cast<const float*>(em), M, B, d, e, tMM, omE,
+      static_cast<float*>(scratch), static_cast<float*>(post));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

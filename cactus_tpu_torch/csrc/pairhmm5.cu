@@ -76,6 +76,11 @@
 //    without that cell.
 // tests/test_torch_pairhmm5_live.py holds a numpy model of this schedule
 // to the plain version and the JAX package.
+// A launch whose widest live row passes kMaxCells (65,536 cells: 32 warps
+// of 64 cells a lane) takes the wide kernels (pairhmm5_fwd_wide_kernel,
+// pairhmm5_bwd_wide_kernel): the whole band of every row, a block's
+// threads looping over it, the state rows in global scratch.  The
+// wrapper routes by max_live (ops/pairhmm5_cuda.py::pairhmm5_route).
 
 #include <cuda_runtime.h>
 
@@ -89,8 +94,11 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 32;
 // the widest cover (lanes x cells) whose state rows live in shared memory
 constexpr int kSmemMaxCells = 8192;
-// the widest live row a launch takes (32 warps of 64 cells a lane)
+// the widest live row a narrow launch takes (32 warps of 64 cells a
+// lane); wider launches take the wide kernels
 constexpr int kMaxCells = 32 * kMaxWarps * 64;
+// the wide kernels' block
+constexpr int kWideThreads = 512;
 
 struct Trans {
   float mc, os, ol, es, el, wsl, wls, ms, ml;
@@ -171,6 +179,57 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
   return v;
+}
+
+// Exclusive scan of the threads' chain maps over the block, applied to
+// y = 0: the chain value entering this thread's first cell.  Forward: the
+// maps of lower threads apply first.  Reverse: those of higher threads.
+template <bool kReverse>
+__device__ float2 block_chain_carry(Aff x, Aff* buf) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const Aff o = shfl_aff<kReverse>(x, off);
+    const bool has = kReverse ? (lane + off < 32) : (lane >= off);
+    if (has) x = compose(x, o);   // the other lanes' maps apply first
+  }
+  Aff ex = shfl_aff<kReverse>(x, 1);   // lane-exclusive map
+  if (lane == (kReverse ? 31 : 0)) ex = aff_identity();
+  if (lane == (kReverse ? 0 : 31)) buf[warp] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    Aff acc = aff_identity();
+    for (int k = 0; k < nwarps; ++k) {
+      const int w = kReverse ? nwarps - 1 - k : k;
+      const Aff tot = buf[w];
+      buf[w] = acc;
+      acc = compose(tot, acc);
+    }
+  }
+  __syncthreads();
+  const Aff wp = buf[warp];
+  return make_float2((ex.a11 * wp.v1 + ex.a12 * wp.v2) + ex.v1,
+                     (ex.a21 * wp.v1 + ex.a22 * wp.v2) + ex.v2);
+}
+
+__device__ float block_max(float v, float* buf) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if (lane == 0) buf[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float acc = buf[0];
+    for (int w = 1; w < nwarps; ++w) acc = fmaxf(acc, buf[w]);
+    buf[32] = acc;
+  }
+  __syncthreads();
+  return buf[32];
 }
 
 // The exchange between the warps of a pair, double-buffered by row parity
@@ -980,6 +1039,380 @@ pairhmm5_bwd_kernel(const float* __restrict__ fM,
   posterior_row<C>(fp, pp, bm, k0, win.jlo - 1 - lo_p, win.wd, g);
 }
 
+// ------------------------------------------------------------ wide rows
+
+// The wide kernels take a launch whose widest live row passes kMaxCells:
+// one block of kWideThreads threads a pair, each thread a contiguous run
+// of B / kWideThreads cells of every row's whole band (masked to the
+// contract's zeros outside the live window), the state rows in a
+// per-pair global scratch row (pairhmm5_wide_scratch_floats), three
+// passes a row with a block scan of the chain maps and a block maximum
+// between them, and every row rescaled by division as the plain version
+// does.  They are the full-band kernels of the port's first design.
+__global__ void __launch_bounds__(kWideThreads)
+pairhmm5_fwd_wide_kernel(const uint8_t* __restrict__ q,
+                    const uint8_t* __restrict__ t_shift,
+                    const int* __restrict__ m_len,
+                    const int* __restrict__ n_len,
+                    const int* __restrict__ lo,
+                    const float* __restrict__ em, int M, int B, Trans tr,
+                    float* scratch, float* __restrict__ fM_out,
+                    float* __restrict__ lsF_out,
+                    float* __restrict__ logZ_out) {
+  __shared__ Aff aff_buf[32];
+  __shared__ float max_buf[33];
+  __shared__ float s_em[36];
+  __shared__ float s_end;
+  const int W = row_words(B);
+  float* sM = scratch + (size_t)blockIdx.x * 5 * W;
+  float* sSX = sM + W;
+  float* sLX = sSX + W;
+  float* sSY = sLX + W;
+  float* sLY = sSY + W;
+
+  const int p = blockIdx.x;
+  const int T = blockDim.x;
+  const int t = threadIdx.x;
+  const int C = (B + T - 1) / T;
+  const int b0 = min(t * C, B);
+  const int b1 = min(b0 + C, B);
+  const int lo_p = lo[p];
+  const int m = m_len[p];
+  const int n = n_len[p];
+  const int b_end = n - m - lo_p;
+  const int end_row = m > 1 ? m : 1;
+  const uint8_t* qp = q + (size_t)p * M;
+  const uint8_t* tp = t_shift + (size_t)p * (M + B);
+  float* fp = fM_out + (size_t)p * M * B;
+  // forward chain matrix A = [[es, wls], [wsl, el]]
+  const float a11 = tr.es, a12 = tr.wls, a21 = tr.wsl, a22 = tr.el;
+  const float A[4] = {a11, a12, a21, a22};
+
+  for (int k = t; k < 36; k += T) s_em[k] = em[k];
+  if (t == 0) s_end = 0.f;
+  // row 0: M at j == 0; the SY/LY chains seeded by that M cell
+  for (int b = b0; b < b1; ++b) {
+    sM[pix(b)] = lo_p + b == 0 ? 1.f : 0.f;
+    sSX[pix(b)] = 0.f;
+    sLX[pix(b)] = 0.f;
+  }
+  __syncthreads();
+  {
+    Aff a = aff_identity();
+    for (int b = b0; b < b1; ++b) {
+      const int j0 = lo_p + b;
+      const bool ok = j0 >= 1 && j0 <= n;
+      const float prev = b > 0 ? sM[pix(b - 1)] : 0.f;
+      a = push_cell(a, A, ok ? tr.os * prev : 0.f,
+                    ok ? tr.ol * prev : 0.f);
+    }
+    const float2 y0 = block_chain_carry<false>(a, aff_buf);
+    float y1 = y0.x, y2 = y0.y;
+    for (int b = b0; b < b1; ++b) {
+      const int j0 = lo_p + b;
+      const bool ok = j0 >= 1 && j0 <= n;
+      const float prev = b > 0 ? sM[pix(b - 1)] : 0.f;
+      const float c1 = ok ? tr.os * prev : 0.f;
+      const float c2 = ok ? tr.ol * prev : 0.f;
+      const float n1 = (a11 * y1 + a12 * y2) + c1;
+      const float n2 = (a21 * y1 + a22 * y2) + c2;
+      y1 = n1;
+      y2 = n2;
+      sSY[pix(b)] = ok ? y1 : 0.f;
+      sLY[pix(b)] = ok ? y2 : 0.f;
+    }
+  }
+  float ls = 0.f;
+  __syncthreads();
+
+  const bool vec_ok = (B % 4) == 0;
+  for (int i = 1; i <= M; ++i) {
+    float* frow = fp + (size_t)(i - 1) * B;
+    if (i > m) {
+      // past the pair's end every state is masked to exactly 0 and the
+      // row scale is TINY
+      if (vec_ok) {
+        float4* dst = reinterpret_cast<float4*>(frow);
+        for (int k = t; k < B / 4; k += T) dst[k] = make_float4(0, 0, 0, 0);
+      } else {
+        for (int k = t; k < B; k += T) frow[k] = 0.f;
+      }
+      ls = ls + logf(kTiny);
+      if (t == 0) {
+        lsF_out[(size_t)p * M + i - 1] = ls;
+        if (i == end_row) logZ_out[p] = logf(kTiny) + ls;
+      }
+      continue;
+    }
+    const float* erow = s_em + 6 * qp[i - 1];
+    // the right neighbour's first cell of the previous row, read before
+    // that thread overwrites it
+    float nbM = 0.f, nbSX = 0.f, nbLX = 0.f;
+    if (b1 < B && b0 < b1) {
+      nbM = sM[pix(b1)];
+      nbSX = sSX[pix(b1)];
+      nbLX = sLX[pix(b1)];
+    }
+    __syncthreads();
+
+    // pass 1: mM, mSX, mLX from the previous row (cell b and b + 1)
+    for (int b = b0; b < b1; ++b) {
+      const float fm = sM[pix(b)], fsx = sSX[pix(b)], flx = sLX[pix(b)];
+      const float fsy = sSY[pix(b)], fly = sLY[pix(b)];
+      const bool last = b + 1 >= b1;
+      const float fmu = last ? nbM : sM[pix(b + 1)];
+      const float fsxu = last ? nbSX : sSX[pix(b + 1)];
+      const float flxu = last ? nbLX : sLX[pix(b + 1)];
+      const float emit = erow[tp[i - 1 + b]];
+      const int j = i + lo_p + b;
+      float mM = emit * ((tr.mc * fm + tr.ms * (fsx + fsy)) +
+                         tr.ml * (flx + fly));
+      if (!(j >= 1 && j <= n)) mM = 0.f;
+      float mSX = (tr.os * fmu + tr.es * fsxu) + tr.wls * flxu;
+      float mLX = (tr.ol * fmu + tr.el * flxu) + tr.wsl * fsxu;
+      if (!(j >= 0 && j <= n)) {
+        mSX = 0.f;
+        mLX = 0.f;
+      }
+      sM[pix(b)] = mM;
+      sSX[pix(b)] = mSX;
+      sLX[pix(b)] = mLX;
+    }
+    __syncthreads();
+
+    // compose this thread's chain maps y -> A y + ok*(os, ol)*mM[b-1]
+    Aff a = aff_identity();
+    for (int b = b0; b < b1; ++b) {
+      const int j = i + lo_p + b;
+      const bool ok = j >= 1 && j <= n;
+      const float prev = b > 0 ? sM[pix(b - 1)] : 0.f;
+      a = push_cell(a, A, ok ? tr.os * prev : 0.f,
+                    ok ? tr.ol * prev : 0.f);
+    }
+    const float2 carry = block_chain_carry<false>(a, aff_buf);
+
+    // pass 2: replay the chain from the exact carry; the band maximum
+    float y1 = carry.x, y2 = carry.y;
+    float lmax = -INFINITY;
+    for (int b = b0; b < b1; ++b) {
+      const int j = i + lo_p + b;
+      const bool ok = j >= 1 && j <= n;
+      const float prev = b > 0 ? sM[pix(b - 1)] : 0.f;
+      const float c1 = ok ? tr.os * prev : 0.f;
+      const float c2 = ok ? tr.ol * prev : 0.f;
+      const float n1 = (a11 * y1 + a12 * y2) + c1;
+      const float n2 = (a21 * y1 + a22 * y2) + c2;
+      y1 = n1;
+      y2 = n2;
+      const float mSY = ok ? y1 : 0.f;
+      const float mLY = ok ? y2 : 0.f;
+      sSY[pix(b)] = mSY;
+      sLY[pix(b)] = mLY;
+      lmax = fmaxf(lmax, (((sM[pix(b)] + sSX[pix(b)]) + sLX[pix(b)]) + mSY) +
+                             mLY);
+    }
+    const float scale = fmaxf(block_max(lmax, max_buf), kTiny);
+
+    // pass 3: rescale
+    for (int b = b0; b < b1; ++b) {
+      const int k = pix(b);
+      const float nM = sM[k] / scale;
+      const float nSX = sSX[k] / scale;
+      const float nLX = sLX[k] / scale;
+      const float nSY = sSY[k] / scale;
+      const float nLY = sLY[k] / scale;
+      sM[k] = nM;
+      sSX[k] = nSX;
+      sLX[k] = nLX;
+      sSY[k] = nSY;
+      sLY[k] = nLY;
+      if (i == end_row && b == b_end)
+        s_end = nM + (((nSX + nLX) + nSY) + nLY);
+    }
+    ls = ls + logf(scale);
+    __syncthreads();
+    for (int k = t; k < B; k += T) frow[k] = sM[pix(k)];
+    if (t == 0) {
+      lsF_out[(size_t)p * M + i - 1] = ls;
+      if (i == end_row) logZ_out[p] = logf(fmaxf(s_end, kTiny)) + ls;
+    }
+  }
+  if (M < end_row && t == 0) logZ_out[p] = logf(kTiny) + ls;
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+pairhmm5_bwd_wide_kernel(const float* __restrict__ fM,
+                    const float* __restrict__ lsF,
+                    const float* __restrict__ logZ,
+                    const uint8_t* __restrict__ q,
+                    const uint8_t* __restrict__ t_shift,
+                    const int* __restrict__ m_len,
+                    const int* __restrict__ n_len,
+                    const int* __restrict__ lo,
+                    const float* __restrict__ em, int M, int B, Trans tr,
+                    float* scratch, float* __restrict__ post) {
+  __shared__ Aff aff_buf[32];
+  __shared__ float max_buf[33];
+  __shared__ float s_em[36];
+  const int W = row_words(B);
+  // bM, bSX, bLX of the carried row; sx and lx (bSX, bLX of the cell to
+  // the left, masked) between the two passes of a row.  bSY and bLY of a
+  // row feed only its rescale, so they are never stored.
+  float* sM = scratch + (size_t)blockIdx.x * 5 * W;
+  float* sSX = sM + W;
+  float* sLX = sSX + W;
+  float* sTX = sLX + W;
+  float* sTL = sTX + W;
+
+  const int p = blockIdx.x;
+  const int T = blockDim.x;
+  const int t = threadIdx.x;
+  const int C = (B + T - 1) / T;
+  const int b0 = min(t * C, B);
+  const int b1 = min(b0 + C, B);
+  const int lo_p = lo[p];
+  const int m = m_len[p];
+  const int n = n_len[p];
+  const uint8_t* qp = q + (size_t)p * M;
+  const uint8_t* tp = t_shift + (size_t)p * (M + B);
+  const float* fp = fM + (size_t)p * M * B;
+  float* pp = post + (size_t)p * M * B;
+  const float lz = logZ[p];
+  // backward chain matrix A^T = [[es, wsl], [wls, el]]
+  const float a11 = tr.es, a12 = tr.wsl, a21 = tr.wls, a22 = tr.el;
+  const float A[4] = {a11, a12, a21, a22};
+
+  for (int k = t; k < 36; k += T) s_em[k] = em[k];
+  // rows past the pair's end have zero posterior (every row when m_len
+  // is 0, or beyond the padded row count, where no terminal row exists)
+  const bool live = m >= 1 && m <= M;
+  for (size_t k = (size_t)(live ? m : 0) * B + t; k < (size_t)M * B; k += T)
+    pp[k] = 0.f;
+  if (!live) return;
+
+  // terminal row i = m: only the Y-gap chains remain,
+  // ty[b] = A^T ty[b+1] + (1, 1)[j == n], and bM = opens . ty[b+1]
+  {
+    Aff a = aff_identity();
+    for (int b = b1 - 1; b >= b0; --b) {
+      const float c = n - (m + lo_p + b) == 0 ? 1.f : 0.f;
+      a = push_cell(a, A, c, c);
+    }
+    const float2 carry = block_chain_carry<true>(a, aff_buf);
+    // ty of the cell to the right, masked (sl of the masked chain)
+    float r1 = 0.f, r2 = 0.f;
+    if (b1 < B) {
+      const int j1 = m + lo_p + b1;
+      if (n - j1 >= 0 && j1 >= 0) {
+        r1 = carry.x;
+        r2 = carry.y;
+      }
+    }
+    float y1 = carry.x, y2 = carry.y;
+    for (int b = b1 - 1; b >= b0; --b) {
+      const int j = m + lo_p + b;
+      const int jn = n - j;
+      const bool at_end = jn == 0;
+      const bool okc = jn >= 0 && j >= 0;
+      const float c = at_end ? 1.f : 0.f;
+      const float n1 = (a11 * y1 + a12 * y2) + c;
+      const float n2 = (a21 * y1 + a22 * y2) + c;
+      y1 = n1;
+      y2 = n2;
+      sM[pix(b)] = at_end ? 1.f : (okc ? tr.os * r1 + tr.ol * r2 : 0.f);
+      sSX[pix(b)] = c;
+      sLX[pix(b)] = c;
+      r1 = okc ? y1 : 0.f;
+      r2 = okc ? y2 : 0.f;
+    }
+  }
+  float ls = 0.f;
+  __syncthreads();
+
+  for (int i = m; i >= 1; --i) {
+    // posterior of row i from fM, the current bM and the log-scales
+    {
+      const float g = expf(fminf(fmaxf((lsF[(size_t)p * M + i - 1] + ls) - lz,
+                                       -60.f), 60.f));
+      const float* frow = fp + (size_t)(i - 1) * B;
+      float* prow = pp + (size_t)(i - 1) * B;
+      for (int k = t; k < B; k += T) {
+        const float v = (frow[k] * sM[pix(k)]) * g;
+        prow[k] = fminf(fmaxf(v, 0.f), 1.5f);
+      }
+    }
+    if (i == 1) break;
+    const float* erow = s_em + 6 * qp[i - 1];
+    // the left neighbour's last cell, read before that thread overwrites it
+    float nbSX = 0.f, nbLX = 0.f;
+    if (b0 > 0 && b0 < b1) {
+      nbSX = sSX[pix(b0 - 1)];
+      nbLX = sLX[pix(b0 - 1)];
+    }
+    __syncthreads();
+
+    // pass 1 (descending): mm, sx, lx, nSX, nLX; compose the reverse chain
+    // maps y -> A^T y + (ms, ml) * mm
+    Aff a = aff_identity();
+    for (int b = b1 - 1; b >= b0; --b) {
+      const int jprev = i - 1 + lo_p + b;
+      float mm = erow[tp[i - 1 + b]] * sM[pix(b)];
+      if (!(jprev + 1 <= n)) mm = 0.f;
+      const bool first = b <= b0;
+      float sx = first ? nbSX : sSX[pix(b - 1)];
+      float lx = first ? nbLX : sLX[pix(b - 1)];
+      if (!(jprev >= 0 && jprev <= n)) {
+        sx = 0.f;
+        lx = 0.f;
+      }
+      sM[pix(b)] = mm;
+      sSX[pix(b)] = (tr.ms * mm + tr.es * sx) + tr.wsl * lx;
+      sLX[pix(b)] = (tr.ml * mm + tr.el * lx) + tr.wls * sx;
+      sTX[pix(b)] = sx;
+      sTL[pix(b)] = lx;
+      a = push_cell(a, A, tr.ms * mm, tr.ml * mm);
+    }
+    // y at b1 = composite of every later cell's map applied to y[B] = 0
+    const float2 carry = block_chain_carry<true>(a, aff_buf);
+
+    // pass 2 (descending): the chain, nM, masks, band maximum
+    float y1 = carry.x, y2 = carry.y;   // the chain at b + 1 (unmasked)
+    float lmax = -INFINITY;
+    for (int b = b1 - 1; b >= b0; --b) {
+      const int jprev = i - 1 + lo_p + b;
+      const int k = pix(b);
+      const float mm = sM[k], sx = sTX[k], lx = sTL[k];
+      const float c1 = tr.ms * mm, c2 = tr.ml * mm;
+      const float n1 = (a11 * y1 + a12 * y2) + c1;
+      const float n2 = (a21 * y1 + a22 * y2) + c2;
+      float nM = (tr.mc * mm + tr.os * (sx + y1)) + tr.ol * (lx + y2);
+      float nSX = sSX[k], nLX = sLX[k], nSY = n1, nLY = n2;
+      if (!(jprev >= 0 && jprev <= n)) {
+        nM = 0.f;
+        nSX = 0.f;
+        nLX = 0.f;
+        nSY = 0.f;
+        nLY = 0.f;
+      }
+      lmax = fmaxf(lmax, (((nM + nSX) + nLX) + nSY) + nLY);
+      sM[k] = nM;
+      sSX[k] = nSX;
+      sLX[k] = nLX;
+      y1 = n1;
+      y2 = n2;
+    }
+    const float scale = fmaxf(block_max(lmax, max_buf), kTiny);
+    for (int b = b0; b < b1; ++b) {
+      const int k = pix(b);
+      sM[k] = sM[k] / scale;
+      sSX[k] = sSX[k] / scale;
+      sLX[k] = sLX[k] / scale;
+    }
+    ls = ls + logf(scale);
+    __syncthreads();
+  }
+}
+
 // Cells a lane and threads a block for the launch's widest live row W:
 // one warp of 4 cells a lane up to W = 128, else the fewest cells a lane
 // of 4, 8, 16 and 64 with which 32 warps cover W, in ceil(W / 32 C)
@@ -1087,8 +1520,8 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// the widest max_live a launch takes
-int pairhmm5_max_cells() { return kMaxCells; }
+// float32 words of global scratch a wide launch needs per pair of band B
+int pairhmm5_wide_scratch_floats(int B) { return 5 * row_words(B); }
 
 // float32 words of global scratch a launch needs per pair for max_live W
 // (0 when the state rows fit shared memory)
@@ -1151,6 +1584,50 @@ int pairhmm5_bwd_launch(const void* fM, const void* lsF, const void* logZ,
                     static_cast<const float*>(lsF),
                     static_cast<const float*>(logZ),
                     static_cast<float*>(post));
+}
+
+// The wide route (max_live past kMaxCells): full-band kernels with the
+// state rows in `scratch`, pairhmm5_wide_scratch_floats(B) words a pair.
+int pairhmm5_fwd_wide_launch(const void* q, const void* t_shift,
+                             const void* m_len, const void* n_len,
+                             const void* lo, const void* em, int P, int M,
+                             int B, float mc, float os, float ol, float es,
+                             float el, float wsl, float wls, float ms,
+                             float ml, void* scratch, void* fM, void* lsF,
+                             void* logZ, void* stream) {
+  if (P <= 0) return 0;
+  if (B < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  pairhmm5_fwd_wide_kernel<<<P, kWideThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t_shift),
+      static_cast<const int*>(m_len), static_cast<const int*>(n_len),
+      static_cast<const int*>(lo), static_cast<const float*>(em), M, B,
+      Trans{mc, os, ol, es, el, wsl, wls, ms, ml},
+      static_cast<float*>(scratch), static_cast<float*>(fM),
+      static_cast<float*>(lsF), static_cast<float*>(logZ));
+  return (int)cudaGetLastError();
+}
+
+int pairhmm5_bwd_wide_launch(const void* fM, const void* lsF,
+                             const void* logZ, const void* q,
+                             const void* t_shift, const void* m_len,
+                             const void* n_len, const void* lo,
+                             const void* em, int P, int M, int B, float mc,
+                             float os, float ol, float es, float el,
+                             float wsl, float wls, float ms, float ml,
+                             void* scratch, void* post, void* stream) {
+  if (P <= 0) return 0;
+  if (B < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  pairhmm5_bwd_wide_kernel<<<P, kWideThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(fM), static_cast<const float*>(lsF),
+      static_cast<const float*>(logZ), static_cast<const uint8_t*>(q),
+      static_cast<const uint8_t*>(t_shift), static_cast<const int*>(m_len),
+      static_cast<const int*>(n_len), static_cast<const int*>(lo),
+      static_cast<const float*>(em), M, B,
+      Trans{mc, os, ol, es, el, wsl, wls, ms, ml},
+      static_cast<float*>(scratch), static_cast<float*>(post));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -19,8 +19,13 @@
 //   predecessor) or has the single predecessor v-1 with a band offset
 //   step off[v] - off[v-1] of 0 or 1 (ops/poa_cuda.py::chain_certified).
 //
-// poa_linear is bit-identical to its plain PyTorch version
-// (cactus_tpu_torch/ops/poa.py) on every cell.  poa_chain and poa_affine
+// poa_linear computes only the live cells of its one problem: real nodes
+// v < n and columns j <= L, the live query length (ops/poa_cuda.py::
+// linear_live_mask; with n = N and L the whole query, every cell).  There
+// H and dirs are bit-identical to the plain PyTorch version
+// (cactus_tpu_torch/ops/poa.py), and so is ends (column Lq) on the real
+// nodes when L is the whole query; every other cell is left unwritten.
+// poa_chain and poa_affine
 // compute only each problem's live cells: its real nodes v < n (the pad
 // nodes of a shape bin come after them) and the band cells b with
 // off[v] + b <= L.  There H and dirs are bit-identical to the plain
@@ -95,11 +100,21 @@
 //   next node may read the row just written: a warp sync after the
 //   stores, or a second barrier with several warps.
 // Covers 8192 and 16384 give a lane 16 or 32 cells, more values than its
-//   registers hold; the compiler keeps the rest in local memory.  A wider
-//   row raises in the wrapper: the poa engine's window (10,000 bases)
-//   bounds L, so its rows are at most 10,001 cells wide.
-// poa_linear_kernel: one block for the one problem; linear gaps make the
-//   insertion chain a plain prefix max of h0[k] + gap * k minus gap * j.
+//   registers hold; the compiler keeps the rest in local memory.
+// poa_linear_kernel: the same teams for the one problem (one block, NW
+//   warps, cover by the live row L + 1); linear gaps make the insertion
+//   chain a plain prefix max of h0[k] + gap * k minus gap * j, so a node is
+//   pass 1, one max-scan and pass 2 in registers, with one barrier when
+//   the team has several warps.  The previous node's row stays in
+//   registers (most nodes' predecessor); other predecessor rows are read
+//   from device memory.
+// Rows wider than the widest cover (16384 cells; the poa engine's default
+//   window of 10,000 bases keeps its rows under 10,002 cells, but the
+//   window is a config knob) take the wide kernels, which loop a block's
+//   threads over the whole row and keep every row in device memory:
+//   poa_wide_kernel for poa_affine and poa_chain (their contract is one),
+//   poa_linear_wide_kernel for poa_linear.  The wrappers route by width
+//   (ops/poa_cuda.py::poa_route).
 
 #include <cuda_runtime.h>
 
@@ -110,7 +125,8 @@ namespace {
 
 constexpr int kNeg = -(1 << 28);   // poa.py NEG
 constexpr int kMaxPreds = 4;       // poa.py MAX_PREDS
-constexpr int kMaxThreads = 256;
+constexpr int kMaxThreads = 256;   // poa_linear_wide_kernel's block
+constexpr int kWideThreads = 512;  // poa_wide_kernel's block
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
@@ -810,12 +826,202 @@ poa_affine_kernel(const uint8_t* __restrict__ bases,
 
 // ------------------------------------------------------------ kernel 5
 
-__global__ void __launch_bounds__(kMaxThreads)
+// poa_linear_kernel: the one problem's team, NW warps of C cells a lane
+// (lane t owns columns j = t C .. t C + C - 1 of the cover 32 NW C, the
+// first power of two at or above the live row l_len + 1; one block).
+// Only the live cells are computed: real nodes v < n, columns j <= L
+// (the live query length).  A live cell reads its predecessors' cells at
+// j and j - 1 and the insertion chain to its left, all live.  Per node:
+// the node's base and its predecessor slots from a staged tile (a slot
+// holds -1 where the contract reads NEG rows: empty, or p >= v), pass 1
+// from the predecessor rows (the previous node's row from registers, its
+// cell left of the lane by a shuffle and, at a warp's edge, rebuilt from
+// the warp carries; any other row from device memory, where it is final
+// and L2-resident), packed first-maximum candidates, the warp's max-scan
+// of h0[j] + gap j and, with several warps, one barrier a node (each
+// warp publishes its aggregate), pass 2 in registers, then the live
+// cells' stores.  The lane's query codes stay in registers for the
+// whole launch: its columns are the same at every node.
+template <int C, int NW>
+__global__ void __launch_bounds__(32 * NW)
 poa_linear_kernel(const uint8_t* __restrict__ bases,
                   const int* __restrict__ preds,
-                  const uint8_t* __restrict__ q, int N, int L, int gap,
-                  int match, int mismatch, int* H, uint8_t* dirs,
-                  int* __restrict__ ends) {
+                  const uint8_t* __restrict__ q, int n, int Lq, int L,
+                  int gap, int match, int mismatch, int* __restrict__ H,
+                  uint8_t* __restrict__ dirs, int* __restrict__ ends) {
+  constexpr int kLanes = 32 * NW;
+  constexpr int kTile = NW > 1 ? kLanes : 64;
+  __shared__ int s_base[kTile];
+  __shared__ int4 s_pr[kTile];
+  __shared__ int s_pub[2][NW];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const size_t W = (size_t)Lq + 1;   // row stride
+  const int b0 = tid * C;            // the lane's first column
+  const int bw = warp * 32 * C;      // the warp's first column
+  int qc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int j = b0 + c;
+    qc[c] = j >= 1 && j <= L ? q[j - 1] : 5;
+  }
+  int pH[C];        // the previous node's final row
+#pragma unroll
+  for (int c = 0; c < C; ++c) pH[c] = kNeg;
+  int xl = kNeg;    // its cell at column bw - 1, across the warp's edge
+
+  for (int v0 = 0; v0 < n; v0 += kTile) {
+    if (NW > 1) __syncthreads();
+    else __syncwarp();
+    for (int i = tid; i < kTile; i += kLanes) {
+      const int v = v0 + i;
+      int w = 0;
+      int4 pr = make_int4(-1, -1, -1, -1);
+      if (v < n) {
+        const int4 pv =
+            *reinterpret_cast<const int4*>(preds + (size_t)v * kMaxPreds);
+        const bool has = pv.x >= 0 || pv.y >= 0 || pv.z >= 0 || pv.w >= 0;
+        // a slot reads its predecessor's row only when that row is final
+        // (0 <= p < v); otherwise the contract's NEG rows
+        if (pv.x >= 0 && pv.x < v) pr.x = pv.x;
+        if (pv.y >= 0 && pv.y < v) pr.y = pv.y;
+        if (pv.z >= 0 && pv.z < v) pr.z = pv.z;
+        if (pv.w >= 0 && pv.w < v) pr.w = pv.w;
+        w = (bases[v] << 1) | (has ? 0 : 1);
+      }
+      s_base[i] = w;
+      s_pr[i] = pr;
+    }
+    if (NW > 1) __syncthreads();
+    else __syncwarp();
+    const int vend = imin(kTile, n - v0);
+    for (int i = 0; i < vend; ++i) {
+      const int v = v0 + i;
+      const int wd = s_base[i];
+      const int4 pr4 = s_pr[i];
+      const bool src = wd & 1;
+      const int base = wd >> 1;
+      const int prk[kMaxPreds] = {pr4.x, pr4.y, pr4.z, pr4.w};
+      // the previous row's cell left of the lane's first cell
+      int hl = __shfl_up_sync(kFull, pH[C - 1], 1);
+      if (lane == 0) hl = xl;
+      // the lowest slot that reads NEG rows stands for every such slot
+      // (of equal candidates only the lowest can be a first maximum); a
+      // source's slot 0 reads the virtual start row -gap j
+      int kmin = kMaxPreds;
+#pragma unroll
+      for (int k = kMaxPreds - 1; k >= 0; --k)
+        if (prk[k] < 0 && !(src && k == 0)) kmin = k;
+      int sc[C], cd[C], cl[C];   // scores; packed diag and deletion maxima
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = b0 + c;
+        sc[c] = qc[c] == base ? match : mismatch;
+        if (kmin < kMaxPreds) {
+          cd[c] = pack(j > 0 ? kNeg + sc[c] : kNeg, kmin);
+          cl[c] = pack(kNeg - gap, kmin);
+        } else {
+          cd[c] = cl[c] = INT_MIN;
+        }
+        if (src) {
+          cd[c] = imax(cd[c], pack(j > 0 ? -gap * (j - 1) + sc[c] : kNeg, 0));
+          cl[c] = imax(cl[c], pack(-gap * j - gap, 0));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxPreds; ++k) {
+        const int p = prk[k];
+        if (p < 0) continue;
+        // the predecessor row at columns b0 - 1 .. b0 + C - 1
+        int hw[C + 1];
+        if (p == v - 1) {
+          hw[0] = hl;
+#pragma unroll
+          for (int c = 0; c < C; ++c) hw[c + 1] = pH[c];
+        } else {
+          const int* prow = H + (size_t)p * W;
+#pragma unroll
+          for (int t = 0; t <= C; ++t) {
+            const int j = b0 - 1 + t;
+            hw[t] = j >= 0 && j <= L ? prow[j] : kNeg;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int j = b0 + c;
+          cd[c] = imax(cd[c], pack(j > 0 ? hw[c] + sc[c] : kNeg, k));
+          cl[c] = imax(cl[c], pack(hw[c + 1] - gap, k));
+        }
+      }
+      // pass 1: h0 and the move; the lane's max of h0[j] + gap j
+      int h0[C], code[C];
+      int agg = INT_MIN;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int bd = cd[c] >> 2, bl = cl[c] >> 2;
+        h0[c] = imax(bd, bl);
+        code[c] = bd >= bl ? ((3 - (cd[c] & 3)) << 2)
+                           : (1 | ((3 - (cl[c] & 3)) << 2));
+        agg = imax(agg, h0[c] + gap * (b0 + c));
+      }
+      // the team's exclusive max-scan: the warp's by shuffles, the warps
+      // before it through shared memory (one barrier)
+      int r = agg;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(kFull, r, off);
+        if (lane >= off) r = imax(r, o);
+      }
+      int x = __shfl_up_sync(kFull, r, 1);
+      if (lane == 0) x = INT_MIN;
+      int carry = INT_MIN;
+      if constexpr (NW > 1) {
+        if (lane == 31) s_pub[v & 1][warp] = r;
+        __syncthreads();
+        for (int u = 0; u < warp; ++u) carry = imax(carry, s_pub[v & 1][u]);
+        // the previous warp's last cell, final, for the next node
+        if (warp > 0) xl = carry - gap * (bw - 1);
+      }
+      // pass 2: the insertion chain y[j] = max_{k <= j} h0[k] + gap k
+      // minus gap j
+      r = imax(carry, x);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = b0 + c;
+        r = imax(r, h0[c] + gap * j);
+        const int y = r - gap * j;
+        if (y != h0[c]) code[c] = (code[c] & ~3) | 2;
+        pH[c] = y;
+      }
+      int* hrow = H + (size_t)v * W;
+      uint8_t* drow = dirs + (size_t)v * W;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = b0 + c;
+        if (j <= L) {
+          hrow[j] = pH[c];
+          drow[j] = (uint8_t)code[c];
+          if (j == Lq) ends[v] = pH[c];
+        }
+      }
+      // the row is in device memory before a later node reads it (with
+      // several warps, the next node's barrier orders it)
+      if (NW == 1) __syncwarp();
+    }
+  }
+}
+
+// poa_linear_wide_kernel: the linear DP at any width (rows wider than the
+// widest team cover): one block of up to 256 threads loops over the
+// whole row, every column of every node up to n, h0 and the partial
+// direction code staged in the output row between the two passes.
+__global__ void __launch_bounds__(kMaxThreads)
+poa_linear_wide_kernel(const uint8_t* __restrict__ bases,
+                       const int* __restrict__ preds,
+                       const uint8_t* __restrict__ q, int N, int L, int gap,
+                       int match, int mismatch, int* H, uint8_t* dirs,
+                       int* __restrict__ ends) {
   __shared__ int wbuf[64];
   const int W = L + 1;
   const int T = blockDim.x;
@@ -883,6 +1089,193 @@ poa_linear_kernel(const uint8_t* __restrict__ bases,
   }
 }
 
+// ------------------------------------------------------------ wide rows
+
+// Pass 1 of one affine cell from its per-slot predecessor values (NEG in
+// empty slots).  Returns h0, the masked F1/F2, and the direction code
+// without its E bits; bits 0-2 hold the move when the cell is past the
+// query (H = NEG there) and, for a cell inside it, the first of
+// (diag, F1, F2) equal to h0: the move whenever H == h0.
+__device__ __forceinline__ void cell_pass1(const int (&Hp)[kMaxPreds],
+                                           const int (&F1p)[kMaxPreds],
+                                           const int (&F2p)[kMaxPreds],
+                                           const int (&Hd)[kMaxPreds],
+                                           int s, bool valid, const Gaps& g,
+                                           int& h0, int& F1o, int& F2o,
+                                           int& code) {
+  const int pen1 = g.o1 + g.e1, pen2 = g.o2 + g.e2;
+  int F1 = Hp[0] - pen1, a1 = 0;
+  int F2 = Hp[0] - pen2, a2 = 0;
+#pragma unroll
+  for (int k = 1; k < kMaxPreds; ++k) {
+    if (Hp[k] - pen1 > F1) { F1 = Hp[k] - pen1; a1 = k; }
+    if (Hp[k] - pen2 > F2) { F2 = Hp[k] - pen2; a2 = k; }
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxPreds; ++k) {
+    if (F1p[k] - g.e1 > F1) { F1 = F1p[k] - g.e1; a1 = kMaxPreds + k; }
+    if (F2p[k] - g.e2 > F2) { F2 = F2p[k] - g.e2; a2 = kMaxPreds + k; }
+  }
+  int diag = Hd[0] + s, ds = 0;
+#pragma unroll
+  for (int k = 1; k < kMaxPreds; ++k) {
+    if (Hd[k] + s > diag) { diag = Hd[k] + s; ds = k; }
+  }
+  h0 = imax(diag, imax(F1, F2));
+  int move;
+  if (valid) {
+    move = diag == h0 ? 0 : (F1 == h0 ? 1 : 2);
+    F1o = F1;
+    F2o = F2;
+  } else {
+    move = diag == kNeg ? 0 : 1;
+    F1o = F2o = kNeg;
+  }
+  code = move | (ds << 3) | ((a1 & 3) << 5) | ((a1 >> 2) << 7) |
+         ((a2 & 3) << 8) | ((a2 >> 2) << 10);
+}
+
+// Pass 2 of one affine cell: r1/r2 are the exclusive prefix maxima of Z_k
+// before cell b.  Returns H and the masked E1/E2, and completes the move.
+__device__ __forceinline__ void cell_pass2(int h0, int& code, int r1, int r2,
+                                           int b, bool valid, const Gaps& g,
+                                           int& H, int& E1, int& E2) {
+  E1 = imax(kNeg, r1 - g.o1 - g.e1 * b);
+  E2 = imax(kNeg, r2 - g.o2 - g.e2 * b);
+  if (valid) {
+    H = imax(h0, imax(E1, E2));
+    if (H != h0) code = (code & ~7) | (H == E1 ? 3 : 4);
+  } else {
+    H = E1 = E2 = kNeg;
+  }
+}
+
+// poa_wide_kernel: poa_affine's contract (and so poa_chain's) at rows
+// wider than the widest team cover.  One block of kWideThreads threads a
+// problem, each thread a contiguous run of B / kWideThreads band cells
+// of every real node's row, all B cells (the NEG mask past the query
+// included, as the contract computes them).  The predecessor rows are
+// the H output itself and per-problem F1/F2 history planes (P, N, B) the
+// wrapper allocates; h0 and the partial direction code wait in the
+// output rows between the two passes, and a block scan (two barriers)
+// joins the threads' runs.
+__global__ void __launch_bounds__(kWideThreads)
+poa_wide_kernel(const uint8_t* __restrict__ bases,
+                const int* __restrict__ preds, const int* __restrict__ off,
+                const uint8_t* __restrict__ q_ext,
+                const int* __restrict__ l_len,
+                const int* __restrict__ n_nodes,
+                const int* __restrict__ submat, int N, int Lq, int B, Gaps g,
+                int* H, int16_t* dirs, int* __restrict__ ends, int* F1h,
+                int* F2h) {
+  __shared__ int s_sub[36];
+  __shared__ int wbuf[64];
+  __shared__ int lastE[2 * kWideThreads];
+  const int p = blockIdx.x;
+  const int t = threadIdx.x;
+  const int T = blockDim.x;
+  const int C = B / T;
+  const int b0 = t * C, b1 = b0 + C;
+  const int L = l_len[p];
+  const int n = n_nodes[p];
+  const size_t plane = (size_t)p * N * B;
+  int* Hp_ = H + plane;
+  int* F1_ = F1h + plane;
+  int* F2_ = F2h + plane;
+  int16_t* Dp = dirs + plane;
+  const uint8_t* qp = q_ext + (size_t)p * Lq;
+  const int* pp = preds + (size_t)p * N * kMaxPreds;
+  const int* op = off + (size_t)p * N;
+  for (int k = t; k < 36; k += T) s_sub[k] = submat[k];
+  __syncthreads();
+
+  for (int v = 0; v < n; ++v) {
+    const int off_v = op[v];
+    const int* srow = s_sub + 6 * bases[(size_t)p * N + v];
+    // a slot reads its predecessor's row only when that row is final
+    // (p < v); an empty slot, or a row not computed yet (the contract's
+    // scan reads its NEG init there), gives NEG candidates
+    int pv[kMaxPreds], dv[kMaxPreds];
+    bool has = false, row_ok[kMaxPreds];
+#pragma unroll
+    for (int k = 0; k < kMaxPreds; ++k) {
+      pv[k] = pp[v * kMaxPreds + k];
+      has |= pv[k] >= 0;
+      row_ok[k] = pv[k] >= 0 && pv[k] < v;
+      dv[k] = row_ok[k] ? off_v - op[pv[k]] : 0;
+    }
+    int* hrow = Hp_ + (size_t)v * B;
+    int16_t* drow = Dp + (size_t)v * B;
+    int agg1 = INT_MIN, agg2 = INT_MIN;
+    for (int b = b0; b < b1; ++b) {
+      const int j = off_v + b;
+      const bool valid = j <= L;
+      const int s = srow[qp[imin(imax(j, 0), L)]];
+      int Hk[kMaxPreds], F1k[kMaxPreds], F2k[kMaxPreds], Hd[kMaxPreds];
+#pragma unroll
+      for (int k = 0; k < kMaxPreds; ++k) {
+        Hk[k] = F1k[k] = F2k[k] = Hd[k] = kNeg;
+        if (!row_ok[k]) continue;
+        const int gi = dv[k] + b;
+        const size_t base = (size_t)pv[k] * B;
+        if (gi >= 0 && gi < B) {
+          Hk[k] = Hp_[base + gi];
+          F1k[k] = F1_[base + gi];
+          F2k[k] = F2_[base + gi];
+        }
+        if (gi >= 1 && gi <= B) Hd[k] = Hp_[base + gi - 1];
+      }
+      if (!has) {   // a source reads the virtual start row in slot 0
+        Hk[0] = row0_at(j, g);
+        Hd[0] = row0_at(j - 1, g);
+      }
+      int h0, F1o, F2o, code;
+      cell_pass1(Hk, F1k, F2k, Hd, s, valid, g, h0, F1o, F2o, code);
+      hrow[b] = h0;             // staged until pass 2
+      drow[b] = (int16_t)code;
+      F1_[(size_t)v * B + b] = F1o;
+      F2_[(size_t)v * B + b] = F2o;
+      agg1 = imax(agg1, h0 + g.e1 * b);
+      agg2 = imax(agg2, h0 + g.e2 * b);
+    }
+    int r1 = agg1, r2 = agg2;
+    block_excl_max2(r1, r2, kNeg, wbuf);
+
+    int pE1 = kNeg, pE2 = kNeg, fE1 = kNeg, fE2 = kNeg, fcode = 0;
+    const int bL = L - off_v;
+    for (int b = b0; b < b1; ++b) {
+      const int h0 = hrow[b];
+      int code = drow[b];
+      const bool valid = off_v + b <= L;
+      int Hc, E1, E2;
+      cell_pass2(h0, code, r1, r2, b, valid, g, Hc, E1, E2);
+      if (b == b0) {
+        fE1 = E1;
+        fE2 = E2;
+        fcode = code;
+      } else {
+        drow[b] = (int16_t)(code | ext_bits(E1, E2, pE1, pE2, g));
+      }
+      hrow[b] = Hc;
+      if (b == bL) ends[(size_t)p * N + v] = Hc;
+      r1 = imax(r1, h0 + g.e1 * b);
+      r2 = imax(r2, h0 + g.e2 * b);
+      pE1 = E1;
+      pE2 = E2;
+    }
+    lastE[t] = pE1;
+    lastE[kWideThreads + t] = pE2;
+    __syncthreads();
+    {
+      const int q1 = t == 0 ? kNeg : lastE[t - 1];
+      const int q2 = t == 0 ? kNeg : lastE[kWideThreads + t - 1];
+      drow[b0] = (int16_t)(fcode | ext_bits(fE1, fE2, q1, q2, g));
+    }
+    if (t == 0 && (bL < 0 || bL >= B)) ends[(size_t)p * N + v] = kNeg;
+    __syncthreads();   // the row is final before the next node reads it
+  }
+}
+
 // The team shapes ops/poa_cuda.py::TEAM_SHAPES lists for each kernel,
 // cover by cover (and poa_chain's shape for large cover-64 launches,
 // POA_CHAIN_PACKED): the shapes team_shape picks and no other.
@@ -895,6 +1288,10 @@ poa_linear_kernel(const uint8_t* __restrict__ bases,
   NARROW(2, 16, 1) NARROW(2, 32, 1) NARROW(2, 32, 2) NARROW(2, 32, 4)        \
   WIDE(2, 32, 8) WIDE(2, 32, 16) WIDE(4, 32, 16) WIDE(8, 32, 16)             \
   WIDE(16, 32, 16) WIDE(32, 32, 16)
+// poa_linear's one team a launch (TL is 32: one problem)
+#define POA_LINEAR_SHAPES(X)                                                 \
+  X(1, 32, 1) X(2, 32, 1) X(2, 32, 2) X(2, 32, 4) X(4, 32, 4) X(4, 32, 8)   \
+  X(4, 32, 16) X(8, 32, 16) X(16, 32, 16) X(32, 32, 16)
 
 }  // namespace
 
@@ -1003,17 +1400,67 @@ int poa_chain_launch(const void* bases, const void* preds, const void* off,
   return (int)cudaErrorInvalidValue;   // not a shape of POA_CHAIN_SHAPES
 }
 
+// poa_linear on the live cells (nodes v < n, columns j <= L) of one
+// problem whose rows have stride Lq + 1.  (C, TL, NW) is the team shape
+// the wrapper picked from L + 1 (ops/poa_cuda.py::team_shape).
 int poa_linear_launch(const void* bases, const void* preds, const void* q,
-                      int N, int L, int gap, int match, int mismatch,
-                      void* H, void* dirs, void* ends, void* stream) {
-  if (N <= 0) return 0;
+                      int n, int Lq, int L, int C, int TL, int NW, int gap,
+                      int match, int mismatch, void* H, void* dirs,
+                      void* ends, void* stream) {
+  if (n <= 0) return 0;
+  if (L < 0 || L > Lq) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define POA_LINEAR_SHAPE(C_, TL_, NW_)                                     \
+  if (C == C_ && TL == TL_ && NW == NW_) {                                 \
+    if (32 * NW_ * C_ < L + 1) return (int)cudaErrorInvalidValue;          \
+    poa_linear_kernel<C_, NW_><<<1, 32 * NW_, 0, st>>>(                    \
+        static_cast<const uint8_t*>(bases), static_cast<const int*>(preds), \
+        static_cast<const uint8_t*>(q), n, Lq, L, gap, match, mismatch,     \
+        static_cast<int*>(H), static_cast<uint8_t*>(dirs),                 \
+        static_cast<int*>(ends));                                          \
+    return (int)cudaGetLastError();                                        \
+  }
+  POA_LINEAR_SHAPES(POA_LINEAR_SHAPE)
+#undef POA_LINEAR_SHAPE
+  return (int)cudaErrorInvalidValue;   // not a shape of POA_LINEAR_SHAPES
+}
+
+// poa_linear at any width: every column of nodes v < n, rows of stride
+// L + 1.
+int poa_linear_wide_launch(const void* bases, const void* preds,
+                           const void* q, int n, int L, int gap, int match,
+                           int mismatch, void* H, void* dirs, void* ends,
+                           void* stream) {
+  if (n <= 0) return 0;
   const int W = L + 1;
   const int T = W >= kMaxThreads ? kMaxThreads : ((W + 31) / 32) * 32;
-  poa_linear_kernel<<<1, T, 0, static_cast<cudaStream_t>(stream)>>>(
+  poa_linear_wide_kernel<<<1, T, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bases), static_cast<const int*>(preds),
-      static_cast<const uint8_t*>(q), N, L, gap, match, mismatch,
+      static_cast<const uint8_t*>(q), n, L, gap, match, mismatch,
       static_cast<int*>(H), static_cast<uint8_t*>(dirs),
       static_cast<int*>(ends));
+  return (int)cudaGetLastError();
+}
+
+// poa_affine's contract at rows wider than the widest team cover (the
+// wide route of both poa_affine and poa_chain): one block a problem;
+// F1h and F2h are (P, N, B) int32 history planes.
+int poa_wide_launch(const void* bases, const void* preds, const void* off,
+                    const void* q_ext, const void* l_len, const void* n_nodes,
+                    const void* submat, int P, int N, int Lq, int B, int o1,
+                    int e1, int o2, int e2, void* H, void* dirs, void* ends,
+                    void* F1h, void* F2h, void* stream) {
+  if (P <= 0 || N <= 0) return 0;
+  if (B < kWideThreads || B % kWideThreads != 0)
+    return (int)cudaErrorInvalidValue;
+  const Gaps g{o1, e1, o2, e2};
+  poa_wide_kernel<<<P, kWideThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(bases), static_cast<const int*>(preds),
+      static_cast<const int*>(off), static_cast<const uint8_t*>(q_ext),
+      static_cast<const int*>(l_len), static_cast<const int*>(n_nodes),
+      static_cast<const int*>(submat), N, Lq, B, g, static_cast<int*>(H),
+      static_cast<int16_t*>(dirs), static_cast<int*>(ends),
+      static_cast<int*>(F1h), static_cast<int*>(F2h));
   return (int)cudaGetLastError();
 }
 

@@ -35,10 +35,14 @@ _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BOUND: set[str] = set()
 
-# launches of each kernel, counted by its wrapper where it launches it
+# launches of each kernel, counted by its wrapper where it launches it;
+# the *_wide names are the routes of rows past a kernel's widest narrow
+# launch (ops/pairhmm_cuda.py, ops/pairhmm5_cuda.py, ops/poa_cuda.py)
 KERNELS = ("banded_dp", "banded_traceback", "pairhmm_fwd", "pairhmm_bwd",
            "pairhmm5_fwd", "pairhmm5_bwd", "poa_linear", "poa_affine",
-           "poa_chain")
+           "poa_chain", "pairhmm_fwd_wide", "pairhmm_bwd_wide",
+           "pairhmm5_fwd_wide", "pairhmm5_bwd_wide", "poa_linear_wide",
+           "poa_wide")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 

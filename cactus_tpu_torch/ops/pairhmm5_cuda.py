@@ -20,7 +20,12 @@ Source: csrc/pairhmm5.cu (see its header for the design).
   pairs (banded_cuda.live_width): 4 cells a lane, one warp up to 128
   cells.  State rows of up to 8192 cells live in shared memory; wider
   ones in a global-memory scratch row per pair that the wrapper
-  allocates (pairhmm5_scratch_floats), so every band runs.
+  allocates (pairhmm5_scratch_floats).
+- A launch whose max_live passes PAIRHMM5_MAX_CELLS (65,536 cells, the
+  widest the live-window blocks take) runs the wide kernels
+  (`pairhmm5_route`): a block's threads loop over every row's whole band,
+  the state rows in per-pair global scratch; they count their launches
+  as "pairhmm5_fwd_wide" and "pairhmm5_bwd_wide".  So every band runs.
 
 Each wrapper checks its tensors, launches on the current CUDA stream and
 adds one to its count in cuda_build.LAUNCHES.  A CPU tensor gets the
@@ -56,8 +61,22 @@ _SIGNATURES = {
     "pairhmm5_scratch_floats": [_INT],
     "pairhmm5_threads": [_INT],
     "pairhmm5_cells_per_lane": [_INT],
-    "pairhmm5_max_cells": [],
+    "pairhmm5_wide_scratch_floats": [_INT],
+    "pairhmm5_fwd_wide_launch": [_VP] * 6 + [_INT] * 3 + [_F] * 9
+    + [_VP] * 5,
+    "pairhmm5_bwd_wide_launch": [_VP] * 9 + [_INT] * 3 + [_F] * 9
+    + [_VP] * 3,
 }
+# the widest live row the live-window kernels take (csrc/pairhmm5.cu
+# kMaxCells: 32 warps of 64 cells a lane)
+PAIRHMM5_MAX_CELLS = 32 * 32 * 64
+
+
+def pairhmm5_route(max_live: int) -> str:
+    """Which kernels a launch whose widest live row is max_live runs:
+    "narrow" (the live-window kernels) or "wide" (full-band rows, past
+    PAIRHMM5_MAX_CELLS)."""
+    return "narrow" if max_live <= PAIRHMM5_MAX_CELLS else "wide"
 
 
 def _lib() -> ctypes.CDLL:
@@ -78,23 +97,21 @@ def _check_inputs(q, t_shift, m_len, n_len, lo, em, band: int):
     return dev, P, M
 
 
-def _scratch(lib, P: int, max_live: int, dev):
+def _scratch(lib, P: int, max_live: int, band: int, dev):
     """Global scratch for the state rows of live windows too wide for
-    shared memory (None when they fit).  Raises for a max_live wider than
-    a launch takes."""
-    widest = int(lib.pairhmm5_max_cells())
-    if max_live > widest:
-        raise ValueError(f"max_live {max_live} above the {widest} cells a "
-                         "launch takes")
-    words = int(lib.pairhmm5_scratch_floats(max_live))
+    shared memory (None when they fit), or of the wide route's bands."""
+    if pairhmm5_route(max_live) == "wide":
+        words = int(lib.pairhmm5_wide_scratch_floats(band))
+    else:
+        words = int(lib.pairhmm5_scratch_floats(max_live))
     if words == 0:
         return None
     return torch.empty((P, words), dtype=torch.float32, device=dev)
 
 
 def launch_threads(max_live: int) -> int:
-    """Threads a block both kernels launch with for this max_live
-    (csrc/pairhmm5.cu launch_shape; needs the card)."""
+    """Threads a block both live-window kernels launch with for this
+    max_live (csrc/pairhmm5.cu launch_shape; needs the card)."""
     return int(_lib().pairhmm5_threads(max_live))
 
 
@@ -132,22 +149,28 @@ def launch_pairhmm5_fwd(q, t_shift, m_len, n_len, lo, em, band: int,
                         params: Hmm5Params, max_live: int):
     """The kernel launch of `pairhmm5_fwd` (which checks max_live first,
     a device sync where it is below the band): checks the CUDA tensors,
-    allocates the outputs, launches on the current stream and counts the
-    launch."""
+    allocates the outputs, launches the route's kernel
+    (`pairhmm5_route`) on the current stream and counts the launch."""
     dev, P, M = _check_inputs(q, t_shift, m_len, n_len, lo, em, band)
     fM = torch.empty((P, M, band), dtype=torch.float32, device=dev)
     lsF = torch.empty((P, M), dtype=torch.float32, device=dev)
     logZ = torch.empty((P,), dtype=torch.float32, device=dev)
     lib = _lib()
-    scratch = _scratch(lib, P, max_live, dev)
-    code = lib.pairhmm5_fwd_launch(
-        q.data_ptr(), t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-        lo.data_ptr(), em.data_ptr(), P, M, band, max_live,
-        *_transitions(params),
-        _ptr(scratch), fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(),
-        cuda_build.stream(dev))
-    cuda_build.check(lib, code, "pairhmm5_fwd")
-    cuda_build.count_launch("pairhmm5_fwd")
+    scratch = _scratch(lib, P, max_live, band, dev)
+    ins = (q.data_ptr(), t_shift.data_ptr(), m_len.data_ptr(),
+           n_len.data_ptr(), lo.data_ptr(), em.data_ptr(), P, M, band)
+    outs = (_ptr(scratch), fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(),
+            cuda_build.stream(dev))
+    if pairhmm5_route(max_live) == "wide":
+        name = "pairhmm5_fwd_wide"
+        code = lib.pairhmm5_fwd_wide_launch(*ins, *_transitions(params),
+                                            *outs)
+    else:
+        name = "pairhmm5_fwd"
+        code = lib.pairhmm5_fwd_launch(*ins, max_live, *_transitions(params),
+                                       *outs)
+    cuda_build.check(lib, code, name)
+    cuda_build.count_launch(name)
     return fM, lsF, logZ
 
 
@@ -176,13 +199,19 @@ def launch_pairhmm5_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em,
     check(logZ, "logZ", torch.float32, (P,), dev)
     post = torch.empty((P, M, band), dtype=torch.float32, device=dev)
     lib = _lib()
-    scratch = _scratch(lib, P, max_live, dev)
-    code = lib.pairhmm5_bwd_launch(
-        fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(), q.data_ptr(),
-        t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-        lo.data_ptr(), em.data_ptr(), P, M, band, max_live,
-        *_transitions(params),
-        _ptr(scratch), post.data_ptr(), cuda_build.stream(dev))
-    cuda_build.check(lib, code, "pairhmm5_bwd")
-    cuda_build.count_launch("pairhmm5_bwd")
+    scratch = _scratch(lib, P, max_live, band, dev)
+    ins = (fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(), q.data_ptr(),
+           t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
+           lo.data_ptr(), em.data_ptr(), P, M, band)
+    outs = (_ptr(scratch), post.data_ptr(), cuda_build.stream(dev))
+    if pairhmm5_route(max_live) == "wide":
+        name = "pairhmm5_bwd_wide"
+        code = lib.pairhmm5_bwd_wide_launch(*ins, *_transitions(params),
+                                            *outs)
+    else:
+        name = "pairhmm5_bwd"
+        code = lib.pairhmm5_bwd_launch(*ins, max_live, *_transitions(params),
+                                       *outs)
+    cuda_build.check(lib, code, name)
+    cuda_build.count_launch(name)
     return post

@@ -18,6 +18,11 @@ Source: csrc/pairhmm.cu (see its header for the design).
   pairs whose rows depend on each other, so what bounds it in practice is
   the longest pair's rows times a row's dependent chain (chip_smoke.py's
   latency line).
+- Bands past PAIRHMM_MAX_NARROW_BAND (16384: 16 warps of 32 cells a lane)
+  run the wide kernels (`pairhmm_route`): a block loops over tiles of
+  the band with the state rows in per-pair global scratch, the same
+  8-row rescale and the same stored rows; they count their launches as
+  "pairhmm_fwd_wide" and "pairhmm_bwd_wide".
 
 Each wrapper checks its tensors, launches on the current CUDA stream and
 adds one to its count in cuda_build.LAUNCHES.  A CPU tensor gets the
@@ -46,7 +51,22 @@ _VP, _INT, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "pairhmm_fwd_launch": [_VP] * 6 + [_INT] * 3 + [_F] * 4 + [_VP] * 4,
     "pairhmm_bwd_launch": [_VP] * 9 + [_INT] * 3 + [_F] * 4 + [_VP] * 2,
+    "pairhmm_wide_scratch_floats": [_INT],
+    "pairhmm_fwd_wide_launch": [_VP] * 6 + [_INT] * 3 + [_F] * 4
+    + [_VP] * 5,
+    "pairhmm_bwd_wide_launch": [_VP] * 9 + [_INT] * 3 + [_F] * 4
+    + [_VP] * 3,
 }
+# the widest band the narrow kernels take (csrc/pairhmm.cu: kMaxWarps
+# warps of 32 cells a lane)
+PAIRHMM_MAX_NARROW_BAND = 16 * 32 * 32
+
+
+def pairhmm_route(band: int) -> str:
+    """Which kernels a launch of this band runs: "narrow" (a pair's band
+    in registers) or "wide" (tiles of the band over global scratch, past
+    PAIRHMM_MAX_NARROW_BAND)."""
+    return "narrow" if band <= PAIRHMM_MAX_NARROW_BAND else "wide"
 
 
 def _lib() -> ctypes.CDLL:
@@ -62,9 +82,15 @@ def _check_inputs(q, t_shift, m_len, n_len, lo, em, band: int):
     for name, x in (("m_len", m_len), ("n_len", n_len), ("lo", lo)):
         check(x, name, torch.int32, (P,), dev)
     check(em, "em", torch.float32, (6, 6), dev)
-    if not 1 <= band <= 16384:
-        raise ValueError(f"band {band} outside 1..16384")
+    if band < 1:
+        raise ValueError(f"band {band} < 1")
     return dev, P, M
+
+
+def _scratch(lib, P: int, band: int, dev):
+    """The wide kernels' per-pair state rows in global scratch."""
+    words = int(lib.pairhmm_wide_scratch_floats(band))
+    return torch.empty((P, words), dtype=torch.float32, device=dev)
 
 
 def _params(delta: float, epsilon: float):
@@ -89,13 +115,20 @@ def pairhmm_fwd(q, t_shift, m_len, n_len, lo, em, band: int, delta: float,
     lsF = torch.empty((P, M), dtype=torch.float32, device=dev)
     logZ = torch.empty((P,), dtype=torch.float32, device=dev)
     lib = _lib()
-    code = lib.pairhmm_fwd_launch(
-        q.data_ptr(), t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-        lo.data_ptr(), em.data_ptr(), P, M, band, *_params(delta, epsilon),
-        fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(),
-        cuda_build.stream(dev))
-    cuda_build.check(lib, code, "pairhmm_fwd")
-    cuda_build.count_launch("pairhmm_fwd")
+    ins = (q.data_ptr(), t_shift.data_ptr(), m_len.data_ptr(),
+           n_len.data_ptr(), lo.data_ptr(), em.data_ptr(), P, M, band,
+           *_params(delta, epsilon))
+    outs = (fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(),
+            cuda_build.stream(dev))
+    if pairhmm_route(band) == "wide":
+        name = "pairhmm_fwd_wide"
+        code = lib.pairhmm_fwd_wide_launch(
+            *ins, _scratch(lib, P, band, dev).data_ptr(), *outs)
+    else:
+        name = "pairhmm_fwd"
+        code = lib.pairhmm_fwd_launch(*ins, *outs)
+    cuda_build.check(lib, code, name)
+    cuda_build.count_launch(name)
     return fM, lsF, logZ
 
 
@@ -115,11 +148,18 @@ def pairhmm_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em, band: int,
     check(logZ, "logZ", torch.float32, (P,), dev)
     post = torch.empty((P, M, band), dtype=torch.float32, device=dev)
     lib = _lib()
-    code = lib.pairhmm_bwd_launch(
-        fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(), q.data_ptr(),
-        t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-        lo.data_ptr(), em.data_ptr(), P, M, band, *_params(delta, epsilon),
-        post.data_ptr(), cuda_build.stream(dev))
-    cuda_build.check(lib, code, "pairhmm_bwd")
-    cuda_build.count_launch("pairhmm_bwd")
+    ins = (fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(), q.data_ptr(),
+           t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
+           lo.data_ptr(), em.data_ptr(), P, M, band,
+           *_params(delta, epsilon))
+    outs = (post.data_ptr(), cuda_build.stream(dev))
+    if pairhmm_route(band) == "wide":
+        name = "pairhmm_bwd_wide"
+        code = lib.pairhmm_bwd_wide_launch(
+            *ins, _scratch(lib, P, band, dev).data_ptr(), *outs)
+    else:
+        name = "pairhmm_bwd"
+        code = lib.pairhmm_bwd_launch(*ins, *outs)
+    cuda_build.check(lib, code, name)
+    cuda_build.count_launch(name)
     return post

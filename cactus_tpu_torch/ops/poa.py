@@ -417,7 +417,9 @@ def poa_align(graph: PoaGraph, seq: np.ndarray, gap: int = 30,
     add_alignment.  DP on the device (kernel poa_linear on a GPU),
     traceback on the host.  Node and query dims pad to power-of-two bins
     as the JAX package's do; pad nodes behave as detached sources and are
-    masked out of the end-cell argmax."""
+    masked out of the end-cell argmax.  The kernel computes only the
+    cells read here, the graph's N nodes and the columns j <= len(seq)
+    (ops/poa_cuda.py::linear_live_mask)."""
     from .poa_cuda import poa_linear
     dev = resolve_device(device)
     bases, preds = graph.tensors()
@@ -433,7 +435,7 @@ def poa_align(graph: PoaGraph, seq: np.ndarray, gap: int = 30,
     H, dirs, _ends = poa_linear(
         torch.from_numpy(bases_p).to(dev), torch.from_numpy(preds_p).to(dev),
         torch.from_numpy(q_p).to(dev), gap=gap, match=match,
-        mismatch=mismatch)
+        mismatch=mismatch, n_nodes=N, l_len=len(seq))
     L = len(seq)
     # pull only the final DP column (the end-cell argmax input) and dirs
     ends = H[:, L].cpu().numpy()[:N]

@@ -4,7 +4,9 @@
 Source: csrc/poa.cu (see its header for the design).
 - poa_linear replaces the Pallas TPU kernel
   cactus_tpu/ops/poa_pallas.py::_kernel (entry poa_align_scan_pallas).
-  Contract: ops/poa.py::poa_align_scan (linear gaps, full width).
+  Contract: ops/poa.py::poa_align_scan (linear gaps, full width), matched
+  bit for bit on the live cells (`linear_live_mask`: the real nodes
+  v < n_nodes, columns j <= l_len), the only cells poa_align reads.
 - poa_affine replaces ::_affine_kernel (entry
   poa_align_scan_affine_pallas_batch); poa_chain replaces
   ::_chain_kernel on batches that chain_certified() admits.  Contract of
@@ -14,6 +16,10 @@ Source: csrc/poa.cu (see its header for the design).
   the only cells the consumers read (the kernels write no other).  dirs
   is int16: its 13 bits fit, and it halves the bytes the kernels write
   against int32.
+- Rows wider than the widest team cover (POA_MAX_COVER cells) take the
+  wide kernels (`poa_route`): poa_affine and poa_chain both the one wide
+  affine kernel, poa_linear its wide kernel; each counts its launches
+  under its own name ("poa_wide", "poa_linear_wide").
 - Bound on an H100: int32 operations (POA_AFFINE_OPS_PER_CELL and
   POA_LINEAR_OPS_PER_CELL a cell, plus a few per extra predecessor),
   against 6 bytes a cell written (H int32 + dirs int16) for the affine
@@ -61,9 +67,12 @@ POA_LINEAR_OPS_PER_CELL = 10
 POA_LINEAR_OPS_PER_PRED = 4
 # bytes a cell written: H int32 + dirs int16 (affine), + dirs uint8
 # (linear); poa_affine's history rows in global scratch add at most 12
-# bytes a band cell (H, F1, F2 of max_live cells rounded up to 4)
+# bytes a band cell (H, F1, F2 of max_live cells rounded up to 4), the
+# wide kernel's F1/F2 history planes 8
 POA_AFFINE_OUT_BYTES_PER_CELL = 6
 POA_LINEAR_OUT_BYTES_PER_CELL = 5
+POA_AFFINE_SCRATCH_BYTES_PER_CELL = 12
+POA_WIDE_SCRATCH_BYTES_PER_CELL = 8
 # a launch's device footprint cap in align_bin: outputs + scratch of one
 # chunk of a shape bin.  4 GiB is 5% of the H100's 80 GB, so the two
 # ancestor threads of the progressive driver and the caching allocator
@@ -75,7 +84,9 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "poa_affine_launch": [_VP] * 7 + [_INT] * 14 + [_VP] * 5,
     "poa_chain_launch": [_VP] * 7 + [_INT] * 11 + [_VP] * 4,
-    "poa_linear_launch": [_VP] * 3 + [_INT] * 5 + [_VP] * 4,
+    "poa_linear_launch": [_VP] * 3 + [_INT] * 9 + [_VP] * 4,
+    "poa_linear_wide_launch": [_VP] * 3 + [_INT] * 5 + [_VP] * 4,
+    "poa_wide_launch": [_VP] * 7 + [_INT] * 8 + [_VP] * 6,
 }
 
 
@@ -83,18 +94,31 @@ def _lib() -> ctypes.CDLL:
     return cuda_build.bind("poa", _SIGNATURES)
 
 
-def poa_linear(bases, preds, q, gap: int, match: int, mismatch: int):
+def poa_linear(bases, preds, q, gap: int, match: int, mismatch: int,
+               n_nodes: int | None = None, l_len: int | None = None):
     """Linear-gap POA of one query against one graph: (H (N, L+1) int32,
     dirs (N, L+1) uint8, ends (N,) int32).
 
     bases (N,) uint8, preds (N, MAX_PREDS) int32 (-1 pad), q (L,) uint8,
-    all on one device."""
+    all on one device.  On the card only the live cells are specified
+    (`linear_live_mask`): the real nodes v < n_nodes (default N; the
+    caller owns that no real node has a predecessor at or past it) and
+    the columns j <= l_len (default L: the query codes past l_len are
+    pad); ends (column L) on the real nodes when l_len is L.  The team is
+    sized by the live row l_len + 1 (`team_shape`); rows wider than
+    POA_MAX_COVER take the wide kernel (`poa_route`)."""
     if bases.device.type == "cpu":
         return poa_align_scan(bases, preds, q, gap=gap, match=match,
                               mismatch=mismatch)
     dev = bases.device
     N = bases.shape[0]
     L = q.shape[0]
+    n = N if n_nodes is None else int(n_nodes)
+    ll = L if l_len is None else int(l_len)
+    if not 0 <= n <= N:
+        raise ValueError(f"n_nodes {n} outside 0..{N}")
+    if not 0 <= ll <= L:
+        raise ValueError(f"l_len {ll} outside 0..{L}")
     check = cuda_build.check_tensor
     check(bases, "bases", torch.uint8, (N,), dev)
     check(preds, "preds", torch.int32, (N, MAX_PREDS), dev)
@@ -103,13 +127,32 @@ def poa_linear(bases, preds, q, gap: int, match: int, mismatch: int):
     dirs = torch.empty((N, L + 1), dtype=torch.uint8, device=dev)
     ends = torch.empty((N,), dtype=torch.int32, device=dev)
     lib = _lib()
-    code = lib.poa_linear_launch(
-        bases.data_ptr(), preds.data_ptr(), q.data_ptr(), N, L, int(gap),
-        int(match), int(mismatch), H.data_ptr(), dirs.data_ptr(),
-        ends.data_ptr(), cuda_build.stream(dev))
-    cuda_build.check(lib, code, "poa_linear")
-    cuda_build.count_launch("poa_linear")
+    ptrs = (bases.data_ptr(), preds.data_ptr(), q.data_ptr())
+    outs = (H.data_ptr(), dirs.data_ptr(), ends.data_ptr(),
+            cuda_build.stream(dev))
+    if poa_route(ll + 1) == "team":
+        name = "poa_linear"
+        code = lib.poa_linear_launch(
+            *ptrs, n, L, ll, *team_shape(ll + 1, name, 1), int(gap),
+            int(match), int(mismatch), *outs)
+    else:
+        # every column of the real nodes
+        name = "poa_linear_wide"
+        code = lib.poa_linear_wide_launch(*ptrs, n, L, int(gap), int(match),
+                                          int(mismatch), *outs)
+    cuda_build.check(lib, code, name)
+    cuda_build.count_launch(name)
     return H, dirs, ends
+
+
+def linear_live_mask(N: int, L: int, n_nodes: int, l_len: int, device=None):
+    """(N, L+1) bool: poa_linear's live cells, the real nodes v < n_nodes
+    and the columns j <= l_len.  The kernel computes only these; H and
+    dirs are bit-equal to the plain version there and unspecified
+    elsewhere."""
+    v = torch.arange(N, device=device)[:, None]
+    j = torch.arange(L + 1, device=device)[None, :]
+    return (v < n_nodes) & (j <= l_len)
 
 
 # The team shape (C, TL, NW) of each kernel (csrc/poa.cu Team<C, TL, NW>:
@@ -132,27 +175,40 @@ TEAM_SHAPES = {
     "poa_affine": {32: (2, 16, 1), 64: (2, 32, 1), 128: (2, 32, 2),
                    256: (2, 32, 4), 512: (2, 32, 8), 1024: (2, 32, 16),
                    2048: (4, 32, 16), 4096: (8, 32, 16), 8192: (16, 32, 16),
+                   16384: (32, 32, 16)},
+    # one problem, one team a launch; poa_chain's measured shapes from
+    # cover 64 on
+    "poa_linear": {32: (1, 32, 1), 64: (2, 32, 1), 128: (2, 32, 2),
+                   256: (2, 32, 4), 512: (4, 32, 4), 1024: (4, 32, 8),
+                   2048: (4, 32, 16), 4096: (8, 32, 16), 8192: (16, 32, 16),
                    16384: (32, 32, 16)}}
 POA_CHAIN_PACKED = (4, 16, 1)
 POA_CHAIN_PACKED_PROBLEMS = 4096
-# the widest cover: rows of the poa engine are at most its window (10,000
-# bases) + 1 cells wide
+# the widest team cover; wider rows take the wide kernels (`poa_route`).
+# The poa engine's rows are at most its window + 1 cells wide: 10,001 at
+# the default window of 10,000 bases, past this cover from a window of
+# about 20,000 (the XML knob partialOrderAlignmentWindow)
 POA_MAX_COVER = 16384
 
 
 def team_cover(max_live: int) -> int:
-    """The team's cover for a launch's widest live row; raises ValueError
-    past POA_MAX_COVER."""
-    cover = max(32, 1 << (max(1, max_live) - 1).bit_length())
-    if cover > POA_MAX_COVER:
-        raise ValueError(f"max_live {max_live} is wider than the widest team "
-                         f"cover {POA_MAX_COVER}")
-    return cover
+    """The team's cover for a launch's widest live row: the first power of
+    two at or above it, at least 32."""
+    return max(32, 1 << (max(1, max_live) - 1).bit_length())
+
+
+def poa_route(max_live: int) -> str:
+    """Which kernel a launch whose widest live row is max_live runs:
+    "team" (the team kernels, covers up to POA_MAX_COVER) or "wide" (a
+    block's threads loop over the whole row: poa_wide for poa_affine and
+    poa_chain, poa_linear_wide for poa_linear)."""
+    return "team" if max_live <= POA_MAX_COVER else "wide"
 
 
 def team_shape(max_live: int, kernel: str, problems: int):
     """(C, TL, NW) of a launch of `problems` problems of `kernel`
-    ("poa_chain" or "poa_affine") whose widest live row is max_live."""
+    ("poa_chain", "poa_affine" or "poa_linear") whose widest live row is
+    max_live, on the team route (`poa_route`)."""
     cover = team_cover(max_live)
     if (kernel == "poa_chain" and cover == 64
             and problems >= POA_CHAIN_PACKED_PROBLEMS):
@@ -241,7 +297,7 @@ def _live_args(preds, off, l_len, n_nodes, band: int, max_live):
     max_live is the caller's, as chain_certified's certificate is: it
     must cover every live row (align_bin passes check_live's), or the
     cells past the team's cover are not computed.  Raises ValueError
-    unless 1 <= max_live <= band and a team cover holds it."""
+    unless 1 <= max_live <= band."""
     if n_nodes is None:
         P, N = off.shape
         n_nodes = torch.full((P,), N, dtype=torch.int32, device=off.device)
@@ -250,7 +306,6 @@ def _live_args(preds, off, l_len, n_nodes, band: int, max_live):
                                 for t in (preds, off, l_len, n_nodes)), band)
     if not 1 <= max_live <= band:
         raise ValueError(f"max_live {max_live} is outside 1..{band}")
-    team_cover(max_live)
     return n_nodes, int(max_live)
 
 
@@ -281,7 +336,8 @@ def poa_affine(bases, preds, off, q_ext, l_len, submat, band: int,
     must hold at least l_len + 1 codes a row.  On the card only the live
     cells are specified (`live_mask`); n_nodes and max_live as for
     poa_chain.  The teams' history rows go to shared memory where
-    `affine_rows_in_smem` says so, else to global scratch."""
+    `affine_rows_in_smem` says so, else to global scratch; rows wider
+    than POA_MAX_COVER take the wide kernel (`poa_route`)."""
     if bases.device.type == "cpu":
         return poa_align_scan_affine(bases, preds, off, q_ext, l_len,
                                      submat, band=band, o1=o1, e1=e1,
@@ -291,6 +347,9 @@ def poa_affine(bases, preds, off, q_ext, l_len, submat, band: int,
     dev, P, N, H, dirs, ends = _check_affine(bases, preds, off, q_ext,
                                              l_len, submat, band)
     cuda_build.check_tensor(n_nodes, "n_nodes", torch.int32, (P,), dev)
+    if poa_route(max_live) == "wide":
+        return _poa_wide(bases, preds, off, q_ext, l_len, n_nodes, submat,
+                         band, (o1, e1, o2, e2), H, dirs, ends)
     shape = team_shape(max_live, "poa_affine", P)
     stride = history_stride(max_live)
     smem = affine_rows_in_smem(P, N, max_live, shape, dev)
@@ -319,7 +378,8 @@ def poa_chain(bases, preds, off, q_ext, l_len, submat, band: int,
     (`live_mask`).  n_nodes (P,) int32: each problem's real nodes
     (default: all N); max_live: the launch's widest live row, which sizes
     its teams (default: `check_live` on host copies of the inputs, a
-    device sync; align_bin passes it from its host arrays)."""
+    device sync; align_bin passes it from its host arrays).  Rows wider
+    than POA_MAX_COVER take the wide kernel (`poa_route`)."""
     if bases.device.type == "cpu":
         return poa_align_scan_affine(bases, preds, off, q_ext, l_len,
                                      submat, band=band, o1=o1, e1=e1,
@@ -329,6 +389,9 @@ def poa_chain(bases, preds, off, q_ext, l_len, submat, band: int,
     dev, P, N, H, dirs, ends = _check_affine(bases, preds, off, q_ext,
                                              l_len, submat, band)
     cuda_build.check_tensor(n_nodes, "n_nodes", torch.int32, (P,), dev)
+    if poa_route(max_live) == "wide":
+        return _poa_wide(bases, preds, off, q_ext, l_len, n_nodes, submat,
+                         band, (o1, e1, o2, e2), H, dirs, ends)
     C, TL, NW = team_shape(max_live, "poa_chain", P)
     lib = _lib()
     code = lib.poa_chain_launch(
@@ -339,6 +402,27 @@ def poa_chain(bases, preds, off, q_ext, l_len, submat, band: int,
         cuda_build.stream(dev))
     cuda_build.check(lib, code, "poa_chain")
     cuda_build.count_launch("poa_chain")
+    return H, dirs, ends
+
+
+def _poa_wide(bases, preds, off, q_ext, l_len, n_nodes, submat, band: int,
+              gaps, H, dirs, ends):
+    """The wide route of poa_affine and poa_chain: one block a problem
+    over every band cell of its real nodes, with (P, N, B) F1/F2 history
+    planes (POA_WIDE_SCRATCH_BYTES_PER_CELL)."""
+    dev = bases.device
+    P, N = bases.shape
+    F1 = torch.empty((P, N, band), dtype=torch.int32, device=dev)
+    F2 = torch.empty((P, N, band), dtype=torch.int32, device=dev)
+    lib = _lib()
+    code = lib.poa_wide_launch(
+        bases.data_ptr(), preds.data_ptr(), off.data_ptr(), q_ext.data_ptr(),
+        l_len.data_ptr(), n_nodes.data_ptr(), submat.data_ptr(), P, N,
+        int(q_ext.shape[1]), band, *(int(x) for x in gaps), H.data_ptr(),
+        dirs.data_ptr(), ends.data_ptr(), F1.data_ptr(), F2.data_ptr(),
+        cuda_build.stream(dev))
+    cuda_build.check(lib, code, "poa_wide")
+    cuda_build.count_launch("poa_wide")
     return H, dirs, ends
 
 
@@ -380,17 +464,24 @@ def align_bin(stack: dict, l_len: np.ndarray, submat: np.ndarray,
     stack holds the stacked numpy inputs (bases, preds, off, q_ext) and
     n_nodes each problem's real nodes (default: all N).  On a CUDA device
     the bin runs poa_chain when chain_certified holds on the host stacks
-    and poa_affine otherwise, with max_live from `check_live` on the host
-    arrays (which also checks n_nodes); on the CPU the plain version.  A
-    bin whose
-    outputs and scratch pass max_launch_bytes runs in chunks of problems:
-    each problem's rows depend on its own inputs only, so a chunked bin
-    equals one launch."""
+    and poa_affine otherwise, with max_live from `check_live` on the
+    whole bin's host arrays (which also checks n_nodes; a bin whose widest
+    live row passes POA_MAX_COVER takes the wide kernel, `poa_route`); on
+    the CPU the plain version.  A bin whose outputs and scratch pass
+    max_launch_bytes runs in chunks of problems, each with the bin's
+    max_live: each problem's rows depend on its own inputs only, so a
+    chunked bin equals one launch."""
     P, N = stack["bases"].shape
     if n_nodes is None:
         n_nodes = np.full(P, N, np.int32)
     chain = chain_certified(stack["preds"], stack["off"])
-    per_cell = POA_AFFINE_OUT_BYTES_PER_CELL + (0 if chain else 12)
+    # the whole bin's widest live row bounds every chunk's
+    max_live = check_live(stack["preds"], stack["off"], l_len, n_nodes,
+                          band)
+    wide = poa_route(max_live) == "wide"
+    per_cell = POA_AFFINE_OUT_BYTES_PER_CELL + (
+        POA_WIDE_SCRATCH_BYTES_PER_CELL if wide
+        else 0 if chain else POA_AFFINE_SCRATCH_BYTES_PER_CELL)
     step = max(1, int(max_launch_bytes // (N * band * per_cell)))
     run = poa_chain if chain else poa_affine
     sub = torch.from_numpy(np.ascontiguousarray(submat, np.int32)).to(device)
@@ -404,8 +495,6 @@ def align_bin(stack: dict, l_len: np.ndarray, submat: np.ndarray,
             .to(device)
         nn = torch.from_numpy(np.ascontiguousarray(n_nodes[s:e], np.int32)) \
             .to(device)
-        max_live = check_live(stack["preds"][s:e], stack["off"][s:e],
-                              l_len[s:e], n_nodes[s:e], band)
         _H, d, en = run(t["bases"], t["preds"], t["off"], t["q_ext"], ll,
                         sub, band=band, o1=o1, e1=e1, o2=o2, e2=e2,
                         n_nodes=nn, max_live=max_live)

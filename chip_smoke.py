@@ -77,7 +77,8 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    their live cells (real nodes v < n, columns off[v] + b <= L:
    `poa_live_equal`, ops/poa_cuda.py::live_mask), with n_nodes and
    max_live as align_bin passes them; and poa_linear up to L 2048 on
-   every cell.
+   every cell, and on the live cells of the extents poa_align passes
+   (n_nodes, l_len; `poa_linear_live_equal`).
 7. Runs the poa path (BAR msa_engine="poa") on the evolverMammals tree at
    600 kb, seed 41, tree_workers=2, and on a 4-leaf star tree at 200 kb,
    seed 41, each held to the gate's bar and within POA_TOL of the JAX
@@ -90,13 +91,27 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    without params (the linear-gap DP) on seeded groups must launch
    poa_linear and build the graphs the CPU run builds.  Then it times the
    three POA kernels (through their wrappers, with the path's n_nodes and
-   max_live) and their plain versions on the largest inputs their paths gave them,
-   with a latency line for poa_chain and poa_affine (the longest
+   max_live, or n_nodes and l_len) and their plain versions on the
+   largest inputs their paths gave them, with a latency line (the longest
    problem's real nodes x a node's dependent steps, `poa_node_steps`),
    and replays each path's calls (kept as host copies) by bin, each
-   poa_chain / poa_affine call held to the plain version on its live
-   cells.  With --dump-poa it saves those calls' inputs (poa_chain from
-   the evolverMammals path, poa_affine from the star).
+   call held to the plain version on its live cells.  With --dump-poa it
+   saves those calls' inputs (poa_chain from the evolverMammals path,
+   poa_affine from the star, poa_linear from poa_msa's groups).
+
+8. Runs the wide routes (rows past each kernel's widest narrow launch:
+   POA rows over 16,384 live cells, 3-state bands over 16,384, 5-state
+   windows over 65,536 cells) through the entry points a user calls,
+   poa_align_affine and poa_align of a 20,000-base query,
+   posterior_pairs_banded at band 32768 and posterior_pairs_banded5 at
+   max_live 70,001, with the launch counts set to 0 just before and read
+   just after; each must launch its wide kernels (poa_wide,
+   poa_linear_wide, pairhmm_fwd_wide / pairhmm_bwd_wide,
+   pairhmm5_fwd_wide / pairhmm5_bwd_wide), the POA alignments must equal
+   the CPU run's and the hits the plain posterior's.  Then it holds each
+   wide kernel against its plain version at those shapes (POA bit-equal
+   on the live cells, pair-HMMs by step 2's tolerances) and times it
+   beside the bound for the same work.
 
 Prints one `{"kernels": [...]}` JSON line (each entry also carries the
 shape it was timed at and `replayed_ms`, the path's calls of the kernel
@@ -772,7 +787,8 @@ def kernel_row(name, source, replaces, launches, errs, ms, plain_ms, bytes_,
     """One entry of the kernels line; the bound is the larger of the bytes
     over the memory rate and the operations over their peak rate.
     replayed_ms is the path's calls of the kernel replayed one at a time
-    (`replay_calls`)."""
+    (`replay_calls`; None for the wide routes, whose path is phase 8's
+    few calls at the timed shapes)."""
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_rate * 1e3
     out = dict(
@@ -782,8 +798,9 @@ def kernel_row(name, source, replaces, launches, errs, ms, plain_ms, bytes_,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, shape=shape, replayed_ms=replayed_ms)
     log(f"{name} at {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}); the "
-        f"path's calls replayed {replayed_ms:.3f} ms")
+        f"ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})"
+        + (f"; the path's calls replayed {replayed_ms:.3f} ms"
+           if replayed_ms is not None else ""))
     return out
 
 
@@ -1343,17 +1360,34 @@ def poa_live_equal(got, ref, off, l_len, n_nodes, band) -> bool:
             and torch.equal(got[2][real], ref[2][real]))
 
 
+def poa_linear_live_equal(got, ref, n_nodes, l_len) -> bool:
+    """poa_linear's outputs (H, dirs, ends) against the plain version's:
+    H and dirs on the live cells (ops/poa_cuda.py::linear_live_mask),
+    ends on the real nodes when l_len is the whole query, bit-equal."""
+    import torch
+    from cactus_tpu_torch.ops import poa_cuda
+    N, W = ref[0].shape
+    live = poa_cuda.linear_live_mask(N, W - 1, n_nodes, l_len,
+                                     ref[0].device)
+    return (torch.equal(got[0][live], ref[0][live])
+            and torch.equal(got[1][live], ref[1][live])
+            and (l_len != W - 1
+                 or torch.equal(got[2][:n_nodes], ref[2][:n_nodes])))
+
+
 def poa_node_steps(name, shape) -> int:
-    """The dependent steps a node of poa_chain / poa_affine cannot avoid,
-    one warp-shuffle latency each: the neighbour cells of the previous row
-    (1), the team's max-scan (log2 of its lanes a warp) and its exclusive
-    shift (1), the E of the cell left of each lane (1); with several warps
-    a problem the barrier (1), or two for poa_affine, whose next node
-    reads the rows the other warps wrote.  shape: the team shape
+    """The dependent steps a node of poa_chain / poa_affine / poa_linear
+    cannot avoid, one warp-shuffle latency each: the neighbour cells of
+    the previous row (1), the team's max-scan (log2 of its lanes a warp)
+    and its exclusive shift (1), the E of the cell left of each lane (1;
+    not for poa_linear, whose linear gaps have no E state); with several
+    warps a problem the barrier (1), or two for poa_affine, whose next
+    node reads the rows the other warps wrote.  shape: the team shape
     (ops/poa_cuda.py::team_shape)."""
     import math
     _C, TL, NW = shape
-    steps = 3 + int(math.log2(TL if NW == 1 else 32))
+    steps = (2 if name == "poa_linear" else 3) + int(math.log2(
+        TL if NW == 1 else 32))
     if NW > 1:
         steps += 2 if name == "poa_affine" else 1
     return steps
@@ -1404,8 +1438,26 @@ def phase_poa_kernels_vs_plain(dev, errs):
             if not torch.equal(g, r):
                 raise AssertionError(f"poa_linear N {n} L {l}: {what} "
                                      "differs from the plain version")
+        # the live extents poa_align passes: the graph's nodes and the
+        # query's columns inside a padded grid
+        n_live, l_live = n - 7, l - 29
+        qp = args[2].clone()
+        qp[l_live:] = 5
+        pr = args[1].clone()
+        pr[n_live:] = -1
+        pr[pr >= n_live] = -1
+        got = poa_cuda.poa_linear(args[0], pr, qp, **kw, n_nodes=n_live,
+                                  l_len=l_live)
+        ref = tpoa.poa_align_scan(args[0], pr, qp, **kw)
+        if not poa_linear_live_equal(got, ref, n_live, l_live):
+            raise AssertionError(f"poa_linear N {n} L {l} (n {n_live}, "
+                                 f"l_len {l_live}): H or dirs differ from "
+                                 "the plain version on the live cells")
         errs["poa_linear"] = 0.0
-        log(f"poa_linear ({n} nodes, L {l}): H, dirs and ends bit-equal")
+        log(f"poa_linear ({n} nodes, L {l}): H, dirs and ends bit-equal; "
+            f"with n_nodes {n_live} and l_len {l_live} (team "
+            f"{poa_team(poa_cuda.team_shape(l_live + 1, 'poa_linear', 1))}) "
+            "H and dirs bit-equal on the live cells")
 
 
 def _score_all_pairs(sim, result, leaves, what):
@@ -1565,7 +1617,7 @@ def phase_poa_linear(dev):
         groups.append([mutate(rng, root, sub=0.05, indel=0.03)
                        for _m in range(int(rng.integers(3, 7)))])
     rec = Recorder(poa_cuda, "poa_linear",
-                   lambda a, kw: a[0].shape[0] * (a[2].shape[0] + 1),
+                   lambda a, kw: kw["n_nodes"] * (kw["l_len"] + 1),
                    keep_calls="host")
     rec.install()
     torch.cuda.synchronize()
@@ -1666,6 +1718,22 @@ def poa_work(args, kw):
     return cells, bytes_, ops
 
 
+def poa_linear_work(preds, n_nodes: int, l_len: int):
+    """(live cells, bytes, int32 operations) of a poa_linear call on its
+    live cells: each real node's base and predecessor slots and the query
+    codes in; H, dirs of the live cells and ends out;
+    POA_LINEAR_OPS_PER_CELL a live cell plus POA_LINEAR_OPS_PER_PRED a
+    used predecessor slot and live column."""
+    from cactus_tpu_torch.ops import poa_cuda
+    cells = n_nodes * (l_len + 1)
+    slots = int((preds[:n_nodes] >= 0).sum(dim=1).clamp(min=1).sum())
+    bytes_ = (n_nodes * (1 + 16) + l_len
+              + cells * poa_cuda.POA_LINEAR_OUT_BYTES_PER_CELL + 4 * n_nodes)
+    ops = (poa_cuda.POA_LINEAR_OPS_PER_CELL * cells
+           + poa_cuda.POA_LINEAR_OPS_PER_PRED * slots * (l_len + 1))
+    return cells, bytes_, ops
+
+
 def poa_team(shape) -> str:
     """A team shape (ops/poa_cuda.py::team_shape), for logs."""
     C, TL, NW = shape
@@ -1751,35 +1819,385 @@ def measure_poa(recorders, launches, errs, dev):
     (bases, preds, q), kw = recorders["poa_linear"].best
     bases, preds, q = on_device((bases, preds, q), dev)
     fn = recorders["poa_linear"].fn
+    # the plain version takes no live extents
+    pkw = {x: v for x, v in kw.items() if x not in ("n_nodes", "l_len")}
     got = fn(bases, preds, q, **kw)
     plain = {}
     plain_ms = time_ms(lambda: plain.update(
-        r=tpoa.poa_align_scan(bases, preds, q, **kw)), 1, warmup=False)
-    for g, r in zip(got, plain["r"]):
-        if not torch.equal(g, r):
-            raise AssertionError("poa_linear differs from its plain version "
-                                 "on its path's largest input")
+        r=tpoa.poa_align_scan(bases, preds, q, **pkw)), 1, warmup=False)
+    if not poa_linear_live_equal(got, plain["r"], kw["n_nodes"],
+                                 kw["l_len"]):
+        raise AssertionError("poa_linear differs from its plain version "
+                             "on its path's largest input (live cells)")
     errs["poa_linear"] = 0.0
     ms = time_ms(lambda: fn(bases, preds, q, **kw), 20)
-    N = int(((preds >= 0).any(dim=1).nonzero().max()) + 1)
-    L = int((q != 5).nonzero().max()) + 1
-    slots = int((preds[:N] >= 0).sum(dim=1).clamp(min=1).sum())
-    cells = N * (L + 1)
+    N, L = kw["n_nodes"], kw["l_len"]
+    cells, bytes_, ops = poa_linear_work(preds, N, L)
+
+    def lin_timed(a, k):
+        # each replayed call is held to the plain version first
+        a = on_device(a, dev)
+        pk = {x: v for x, v in k.items() if x not in ("n_nodes", "l_len")}
+        if not poa_linear_live_equal(fn(*a, **k),
+                                     tpoa.poa_align_scan(*a, **pk),
+                                     k["n_nodes"], k["l_len"]):
+            raise AssertionError("poa_linear differs from its plain version "
+                                 "on a replayed call's live cells")
+        return lambda: fn(*a, **k)
+
     row = kernel_row(
         "poa_linear", "cactus_tpu_torch/csrc/poa.cu",
         "cactus_tpu/ops/poa_pallas.py:42", launches, errs, ms, plain_ms,
-        N * (1 + 16) + L + cells * poa_cuda.POA_LINEAR_OUT_BYTES_PER_CELL
-        + 4 * N,
-        poa_cuda.POA_LINEAR_OPS_PER_CELL * cells
-        + poa_cuda.POA_LINEAR_OPS_PER_PRED * slots * (L + 1),
-        INT32_OPS_PER_S, [int(bases.shape[0]), int(q.shape[0]) + 1],
+        bytes_, ops, INT32_OPS_PER_S,
+        [int(bases.shape[0]), int(q.shape[0]) + 1],
         replayed("poa_linear", lambda a, k: [a[0].shape[0],
-                                             a[2].shape[0] + 1],
-                 lambda a, k: (lambda a=on_device(a, dev): fn(*a, **k))))
+                                             a[2].shape[0] + 1], lin_timed))
     rows.append(row)
-    log(f"poa_linear: {cells} cells used of "
-        f"{bases.shape[0] * (q.shape[0] + 1)} computed")
+    shape = poa_cuda.team_shape(L + 1, "poa_linear", 1)
+    steps = poa_node_steps("poa_linear", shape)
+    latency_ms = N * steps * step_ns / 1e6
+    log(f"poa_linear: every replayed call bit-equal to the plain version on "
+        f"its live cells; at [{bases.shape[0]}, {q.shape[0] + 1}] n_nodes "
+        f"{N}, l_len {L}, team {poa_team(shape)}: {cells} live cells of "
+        f"{bases.shape[0] * (q.shape[0] + 1)} in the grid; "
+        f"{ms * 1e3 / N:.4f} us a node; latency line {N} nodes x {steps} "
+        f"steps x {step_ns:.2f} ns = {latency_ms:.4f} ms ({step_what}), "
+        f"{ms / latency_ms:.2f}x")
     log("no single PyTorch call computes a POA DP: library_ms is null")
+    return rows
+
+
+# ---------------------------------------------------------------- wide rows
+
+# phase 8's widths, past each kernel's widest narrow launch: a POA query of
+# 20,000 bases against graphs of about 60 nodes (rows of 20,001 live cells,
+# band 32768), a 3-state band of 32768 and a 5-state window of 70,001
+# cells (band 131072), each with a 300-base query inside the long target
+WIDE_POA_L = 20000
+WIDE_POA_BAND = 32768
+WIDE_HMM_QUERY = 300
+WIDE_HMM_BAND = 32768
+WIDE_HMM_TARGET = 20000
+WIDE_HMM5_BAND = 131072
+WIDE_HMM5_TARGET = 70000
+WIDE_KERNELS = ("poa_wide", "poa_linear_wide", "pairhmm_fwd_wide",
+                "pairhmm_bwd_wide", "pairhmm5_fwd_wide", "pairhmm5_bwd_wide")
+
+
+def embedded_pair(rng, m, n, at):
+    """A query of m bases and a target of n bases holding a mutated copy of
+    it from position `at`."""
+    import numpy as np
+    q = rng.integers(0, 4, m).astype(np.uint8)
+    t = np.concatenate([rng.integers(0, 4, at).astype(np.uint8),
+                        mutate(rng, q), rng.integers(0, 4, n)
+                        .astype(np.uint8)])[:n]
+    return q, t
+
+
+def hits_agree(got, ref, what):
+    """Hit lists of a pair-HMM path (kernel) against the plain
+    posterior's: the same (query, target) pairs on at least 99% of the
+    plain version's hits (a hit whose posterior lies within the kernels'
+    tolerance of gamma may fall either side).  Logs and returns the
+    agreeing share."""
+    same = total = 0
+    for g, r in zip(got, ref):
+        gs = {(i, j) for i, j, _p in g}
+        rs = {(i, j) for i, j, _p in r}
+        same += len(gs & rs)
+        total += max(len(gs), len(rs))
+    share = same / max(1, total)
+    log(f"{what}: {same} of {total} hits equal to the plain posterior's")
+    if share < 0.99 or total == 0:
+        raise AssertionError(f"{what}: hits agree on {share:.4f} < 0.99 of "
+                             f"{total}")
+    return share
+
+
+def phase_wide(dev, errs):
+    """Phase 8, the wide routes (widths past each kernel's widest narrow
+    launch).  The path: the entry points a user calls, at those widths,
+    with the launch counts set to 0 just before and read just after:
+    poa_align_affine of a 20,000-base query against a chain graph and a
+    bubbled graph (poa_chain's and poa_affine's wide route, poa_wide),
+    poa_align (poa_linear_wide), posterior_pairs_banded at band 32768 and
+    posterior_pairs_banded5 at band 131072 (max_live 70,001); each must
+    launch its wide kernels, the POA traceback ops must equal the CPU
+    run's, and the hits the plain posterior's (`hits_agree`).  Recorders
+    keep every call the path makes of the kernels' wrappers; each
+    recorded call, on either route, is then held to its plain version on
+    the same inputs (POA bit-equal on the live cells, pair-HMMs by
+    check_hmm), and the largest wide call of each kernel is timed with
+    CUDA events beside the bound for the same work.  Returns the
+    kernels-line rows."""
+    import numpy as np
+    import torch
+    from cactus_tpu_torch.config import PoaParams
+    from cactus_tpu_torch.ops import banded_cuda, cuda_build, pairhmm5_cuda
+    from cactus_tpu_torch.ops import pairhmm_cuda, poa_cuda
+    from cactus_tpu_torch.ops import pairhmm as tp
+    from cactus_tpu_torch.ops import pairhmm5 as tp5
+    from cactus_tpu_torch.ops import poa as tpoa
+
+    rng = np.random.default_rng(88)
+    seed60 = rng.integers(0, 4, 60).astype(np.uint8)
+    chain_g = tpoa.PoaGraph.from_sequence(seed60)
+    bub_g = tpoa.poa_msa([seed60, mutate(rng, seed60, sub=0.15, indel=0.1)],
+                         params=PoaParams(), device="cpu")
+    if max(len(ps) for ps in bub_g.preds) < 2:
+        raise AssertionError("phase 8: the bubbled graph has no bubble")
+    query = np.concatenate([rng.integers(0, 4, 9000).astype(np.uint8),
+                            mutate(rng, seed60),
+                            rng.integers(0, 4, WIDE_POA_L).astype(np.uint8)]
+                           )[:WIDE_POA_L]
+    pairs3 = [embedded_pair(rng, WIDE_HMM_QUERY, WIDE_HMM_TARGET,
+                            WIDE_HMM_TARGET // 2)]
+    pairs3 += ragged_pairs(3, 1, 200, 260, WIDE_HMM_BAND)
+    pairs5 = [embedded_pair(rng, WIDE_HMM_QUERY, WIDE_HMM5_TARGET,
+                            WIDE_HMM5_TARGET // 2)]
+    pairs5 += ragged_pairs(5, 1, 100, 140, WIDE_HMM5_BAND)
+    hp, hp5 = tp.HmmParams(), tp5.Hmm5Params(p_match=0.8)
+
+    def grid_cells(a, k):
+        return a[0].shape[0] * a[0].shape[1] * k["band"]
+
+    recs = {
+        "pairhmm": Recorder(pairhmm_cuda, "pairhmm_fwd", grid_cells,
+                            keep_calls=True),
+        "pairhmm5": Recorder(pairhmm5_cuda, "pairhmm5_fwd", grid_cells,
+                             keep_calls=True),
+        **{k: Recorder(poa_cuda, k, grid_cells, keep_calls="host")
+           for k in ("poa_chain", "poa_affine")},
+        "poa_linear": Recorder(poa_cuda, "poa_linear",
+                               lambda a, k: k["n_nodes"] * (k["l_len"] + 1),
+                               keep_calls="host")}
+    for rec in recs.values():
+        rec.install()
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.time()
+    try:
+        ops = [tpoa.poa_align_affine(g, query, device=dev)
+               for g in (chain_g, bub_g)]
+        ops.append(tpoa.poa_align(chain_g, query, device=dev))
+        hits3 = tp.posterior_pairs_banded(pairs3, hp, band=WIDE_HMM_BAND,
+                                          device=dev)
+        hits5 = tp5.posterior_pairs_banded5(pairs5, hp5,
+                                            band=WIDE_HMM5_BAND, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        launches = cuda_build.launches()
+        for rec in recs.values():
+            rec.remove()
+    wall = time.time() - t0
+    log(f"phase 8 path (the wide routes through their entry points): "
+        f"{wall:.1f} s, launches " + ", ".join(
+            f"{k} {launches[k]}" for k in WIDE_KERNELS))
+    for name in WIDE_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"phase 8 never launched {name}")
+    ref_ops = [tpoa.poa_align_affine(g, query, device="cpu")
+               for g in (chain_g, bub_g)]
+    ref_ops.append(tpoa.poa_align(chain_g, query, device="cpu"))
+    if ops != ref_ops:
+        raise AssertionError("phase 8: a wide POA alignment differs from "
+                             "the CPU run's")
+    log("phase 8: poa_align_affine (chain and bubbled graph) and poa_align "
+        f"of a {WIDE_POA_L}-base query: traceback ops equal to the CPU run's")
+
+    def plain_hits(pairs, band, plain, pack_kw):
+        packed, t = tp.pack_to_device(pairs, band, dev, **pack_kw)
+        return tp.banded_hits(plain(t), pairs, packed["lo"], 0.5)
+
+    def plain3(t):
+        kw = dict(band=WIDE_HMM_BAND, delta=hp.delta, epsilon=hp.epsilon)
+        em = torch.from_numpy(hp.emissions()).to(dev)
+        return tp.backward_posterior(*tp.forward_banded(*t, em, **kw), *t,
+                                     em, **kw)
+
+    def plain5(t):
+        kw = dict(band=WIDE_HMM5_BAND, params=hp5)
+        em = torch.from_numpy(hp5.emissions()).to(dev)
+        return tp5.backward_posterior5(*tp5.forward_banded5(*t, em, **kw),
+                                       *t, em, **kw)
+
+    hits_agree(hits3, plain_hits(pairs3, WIDE_HMM_BAND, plain3,
+                                 dict(min_batch=8, min_rows=256)),
+               f"posterior_pairs_banded at band {WIDE_HMM_BAND}")
+    hits_agree(hits5, plain_hits(pairs5, WIDE_HMM5_BAND, plain5, {}),
+               f"posterior_pairs_banded5 at band {WIDE_HMM5_BAND}")
+
+    rows = []
+    # poa_wide: the path's poa_chain and poa_affine calls (one problem of
+    # about 60 nodes and a 20,000-base query each, band 32768)
+    best = None
+    for name in ("poa_chain", "poa_affine"):
+        launch = recs[name].fn
+        for a, k in recs[name].calls:
+            a = on_device(a, dev)
+            k = poa_launch_kw(k, dev)
+            pk = {x: v for x, v in k.items()
+                  if x not in ("n_nodes", "max_live")}
+            route = poa_cuda.poa_route(k["max_live"])
+            got = launch(*a, **k)
+            plain = {}
+            plain_ms = time_ms(lambda: plain.update(
+                r=tpoa.poa_align_scan_affine(*a, **pk)), 1, warmup=False)
+            if not poa_live_equal(got, plain["r"], a[2], a[4], k["n_nodes"],
+                                  k["band"]):
+                raise AssertionError(f"phase 8: {name} ({route} route) "
+                                     "differs from the plain version on a "
+                                     "path call's live cells")
+            del got, plain
+            cells = poa_work(a, k)[0]
+            log(f"phase 8: {name} path call at {[*a[0].shape, k['band']]}, "
+                f"max_live {k['max_live']} ({route} route): bit-equal to the "
+                f"plain version on its {cells} live cells")
+            if route == "wide" and (best is None or cells > best[0]):
+                best = (cells, name, a, k, plain_ms)
+    if best is None:
+        raise AssertionError("phase 8: no POA affine call on the wide route")
+    errs["poa_wide"] = 0.0
+    _cells, name, args, kw, plain_ms = best
+    launch = getattr(poa_cuda, name)
+    ms = time_ms(lambda: launch(*args, **kw), 3)
+    cells, bytes_, ops_ = poa_work(args, kw)
+    P, N = args[0].shape
+    longest = int(kw["n_nodes"].max())
+    log(f"poa_wide as {name} at {[P, N, kw['band']]}, max_live "
+        f"{kw['max_live']}: {ms * 1e3 / longest:.2f} us a node of the "
+        f"longest problem ({longest} nodes)")
+    rows.append(kernel_row(
+        "poa_wide", "cactus_tpu_torch/csrc/poa.cu",
+        {"poa_affine": "cactus_tpu/ops/poa_pallas.py:397",
+         "poa_chain": "cactus_tpu/ops/poa_pallas.py:915"}[name], launches,
+        errs, ms, plain_ms, bytes_, ops_, INT32_OPS_PER_S,
+        [P, N, kw["band"]], None))
+
+    # poa_linear_wide: poa_align's call (the query padded to a power of
+    # two, the live extents n_nodes and l_len)
+    best = None
+    launch = recs["poa_linear"].fn
+    for a, k in recs["poa_linear"].calls:
+        a = on_device(a, dev)
+        pk = {x: v for x, v in k.items() if x not in ("n_nodes", "l_len")}
+        route = poa_cuda.poa_route(k["l_len"] + 1)
+        got = launch(*a, **k)
+        plain = {}
+        plain_ms = time_ms(lambda: plain.update(
+            r=tpoa.poa_align_scan(*a, **pk)), 1, warmup=False)
+        if not poa_linear_live_equal(got, plain["r"], k["n_nodes"],
+                                     k["l_len"]):
+            raise AssertionError(f"phase 8: poa_linear ({route} route) "
+                                 "differs from the plain version on a path "
+                                 "call's live cells")
+        del got, plain
+        log(f"phase 8: poa_linear path call at [{a[0].shape[0]}, "
+            f"{a[2].shape[0] + 1}], n_nodes {k['n_nodes']}, l_len "
+            f"{k['l_len']} ({route} route): bit-equal to the plain version "
+            "on the live cells")
+        cells = k["n_nodes"] * (k["l_len"] + 1)
+        if route == "wide" and (best is None or cells > best[0]):
+            best = (cells, a, k, plain_ms)
+    if best is None:
+        raise AssertionError("phase 8: no poa_linear call on the wide route")
+    errs["poa_linear_wide"] = 0.0
+    _cells, args, kw, plain_ms = best
+    ms = time_ms(lambda: launch(*args, **kw), 3)
+    n, L = kw["n_nodes"], kw["l_len"]
+    cells, bytes_, ops_ = poa_linear_work(args[1], n, L)
+    shape = [int(args[0].shape[0]), int(args[2].shape[0]) + 1]
+    log(f"poa_linear_wide at {shape}, n_nodes {n}, l_len {L}: {cells} live "
+        f"cells; {ms * 1e3 / n:.2f} us a node")
+    rows.append(kernel_row(
+        "poa_linear_wide", "cactus_tpu_torch/csrc/poa.cu",
+        "cactus_tpu/ops/poa_pallas.py:42", launches, errs, ms, plain_ms,
+        bytes_, ops_, INT32_OPS_PER_S, shape, None))
+
+    # the pair-HMMs: every forward call of the path, its backward pass on
+    # the kernel's own forward outputs, against the plain versions; the
+    # 5-state kernels are timed through their launch functions, which
+    # take the path's max_live without checking it again (a device sync)
+    for model, route_of, bwd, timed, pf, pb, flops, lines in (
+            ("pairhmm", lambda k: pairhmm_cuda.pairhmm_route(k["band"]),
+             pairhmm_cuda.pairhmm_bwd,
+             (pairhmm_cuda.pairhmm_fwd, pairhmm_cuda.pairhmm_bwd),
+             tp.forward_banded,
+             tp.backward_posterior,
+             (pairhmm_cuda.PAIRHMM_FWD_FLOPS_PER_CELL,
+              pairhmm_cuda.PAIRHMM_BWD_FLOPS_PER_CELL),
+             ("cactus_tpu/ops/pairhmm_pallas.py:108",
+              "cactus_tpu/ops/pairhmm_pallas.py:183")),
+            ("pairhmm5", lambda k: pairhmm5_cuda.pairhmm5_route(
+                k["max_live"]),
+             pairhmm5_cuda.pairhmm5_bwd,
+             (pairhmm5_cuda.launch_pairhmm5_fwd,
+              pairhmm5_cuda.launch_pairhmm5_bwd),
+             tp5.forward_banded5,
+             tp5.backward_posterior5,
+             (pairhmm5_cuda.PAIRHMM5_FWD_FLOPS_PER_CELL,
+              pairhmm5_cuda.PAIRHMM5_BWD_FLOPS_PER_CELL),
+             ("cactus_tpu/ops/pairhmm5_pallas.py:56",
+              "cactus_tpu/ops/pairhmm5_pallas.py:143"))):
+        fwd = recs[model].fn
+        best, gaps = None, [0.0, 0.0]
+        for args, kw in recs[model].calls:
+            pkw = {x: v for x, v in kw.items() if x != "max_live"}
+            P, M = args[0].shape
+            route = route_of(kw)
+            fM, lsF, logZ = fwd(*args, **kw)
+            post = bwd(fM, lsF, logZ, *args, **kw)
+            plain = {}
+            plain_f = time_ms(lambda: plain.update(f=pf(*args, **pkw)), 1,
+                              warmup=False)
+            plain_b = time_ms(lambda: plain.update(
+                b=pb(*plain["f"], *args, **pkw)), 1, warmup=False)
+            what = f"band {kw['band']}" + (
+                f", max_live {kw['max_live']}" if "max_live" in kw else "")
+            d_post, d_fwd = check_hmm(
+                fM, lsF, logZ, post, *plain["f"], plain["b"],
+                f"phase 8: {model} path call at {[P, M, kw['band']]} "
+                f"({what}, {route} route, {int((args[2] > 0).sum())} "
+                "pairs)")
+            del fM, lsF, logZ, post, plain
+            if route == "wide":
+                gaps = [max(gaps[0], d_fwd), max(gaps[1], d_post)]
+                cells = P * M * kw["band"]
+                if best is None or cells > best[0]:
+                    best = (cells, args, kw, plain_f, plain_b)
+        if best is None:
+            raise AssertionError(f"phase 8: no {model} call on the wide "
+                                 "route")
+        errs[f"{model}_fwd_wide"], errs[f"{model}_bwd_wide"] = gaps
+        _cells, args, kw, plain_f, plain_b = best
+        P, M = args[0].shape
+        band = kw["band"]
+        m = args[2]
+        rows_, used = int(m.sum()), int((m > 0).sum())
+        live = banded_cuda.live_cells(m, args[3], args[4], M, band)
+        # the rows the pairs use: q, the t_shift window of each row, the
+        # scalars and the emissions in; fM (and post) out, lsF and logZ
+        in_bytes = rows_ + rows_ + used * band + 12 * P + 144
+        out_bytes = 4 * rows_ * band + 4 * rows_ + 4 * P
+        longest = int(m.max())
+        fM, lsF, logZ = fwd(*args, **kw)
+        for k, (name, fn, plain_ms, bytes_) in enumerate((
+                (f"{model}_fwd_wide", lambda: timed[0](*args, **kw),
+                 plain_f, in_bytes + out_bytes),
+                (f"{model}_bwd_wide",
+                 lambda: timed[1](fM, lsF, logZ, *args, **kw), plain_b,
+                 in_bytes + out_bytes + 4 * rows_ * band))):
+            ms = time_ms(fn, 3)
+            source = f"cactus_tpu_torch/csrc/{model}.cu"
+            rows.append(kernel_row(name, source, lines[k], launches, errs,
+                                   ms, plain_ms, bytes_, flops[k] * live,
+                                   FP32_OPS_PER_S, [P, M, band], None))
+            log(f"{name} at {[P, M, band]}: {ms * 1e3 / longest:.2f} us a "
+                f"row of the longest pair ({longest} rows); {live} live "
+                f"cells of {rows_ * band} band cells in rows 1..m")
+        del fM, lsF, logZ
+    log("no single PyTorch call computes these DPs: library_ms is null")
     return rows
 
 
@@ -1819,12 +2237,13 @@ def dump_pairhmm5(recorder, path):
 
 def dump_poa(recorders, path):
     """Save the inputs of every poa_chain and poa_affine call the poa paths
-    made (host copies; n_nodes too) with torch.save, for
-    tests/poa_sweep_report.py --replay."""
+    made, and of every poa_linear call of poa_msa without params (host
+    copies; n_nodes too) with torch.save, for tests/poa_sweep_report.py
+    --replay."""
     import torch
     out = {}
     for name, rec in recorders.items():
-        if name in ("poa_chain", "poa_affine"):
+        if name in ("poa_chain", "poa_affine", "poa_linear"):
             out[name] = [([x.cpu() for x in a],
                           {k: (v.cpu() if torch.is_tensor(v) else v)
                            for k, v in kw.items()}) for a, kw in rec.calls]
@@ -1909,7 +2328,8 @@ def main() -> int:
                     "--replay)")
     ap.add_argument("--dump-poa", metavar="PATH",
                     help="also save both poa paths' poa_chain and poa_affine "
-                    "inputs there (tests/poa_sweep_report.py --replay)")
+                    "inputs and poa_msa's poa_linear inputs there "
+                    "(tests/poa_sweep_report.py --replay)")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "cactus_tpu_torch")):
         return fail("run from a checkout: cactus_tpu_torch/ is missing")
@@ -1959,14 +2379,17 @@ def main() -> int:
     log(f"phase 6 (POA kernels vs plain versions) {time.time() - t0:.1f} s")
     t0 = time.time()
     poa_launches, poa_recorders = phase_poa(dev)
-    if opts.dump_poa:
-        dump_poa(poa_recorders, opts.dump_poa)
     lin_launches, lin_recorders = phase_poa_linear(dev)
+    if opts.dump_poa:
+        dump_poa({**poa_recorders, **lin_recorders}, opts.dump_poa)
     log(f"phase 7 (poa path) {time.time() - t0:.1f} s")
     t0 = time.time()
     rows += measure_poa({**poa_recorders, **lin_recorders},
                         {**poa_launches, **lin_launches}, errs, dev)
-    log(f"POA kernel timing {time.time() - t0:.1f} s; total "
+    log(f"POA kernel timing {time.time() - t0:.1f} s")
+    t0 = time.time()
+    rows += phase_wide(dev, errs)
+    log(f"phase 8 (the wide routes) {time.time() - t0:.1f} s; total "
         f"{time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

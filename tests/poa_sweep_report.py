@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time poa_chain and poa_affine on the card at fixed-seed shapes.
+"""Time poa_chain, poa_affine and poa_linear on the card at fixed-seed
+shapes.
 
     python tests/poa_sweep_report.py [--root DIR] [--reps N] [--only S]
                                      [--replay FILE] [--paths]
@@ -13,22 +14,27 @@ change, parent in one command.
 
 Shapes: chip_smoke.py's POA checks (phase_poa_kernels_vs_plain: chains
 with source pad nodes and bubbled DAGs, ragged queries, bands 64 to
-16384, the dominant bin P 16,000 x N 64 x B 64).  For each it prints one
+16384, the dominant bin P 16,000 x N 64 x B 64) and poa_linear on bubbled
+DAGs padded as poa_align pads them (POA_LINEAR_CASES).  For each it prints one
 JSON line with the launch's time by CUDA events (mean of --reps launches
 after a warm-up), the kernel's device time from torch.profiler
 (`device_ms`, None where the profiler records no such kernel), and the
 live cells (`live_cells`, ops/poa_cuda.py::live_mask) beside the band
 cells.  Every tree is timed through its public wrappers: where they take
 n_nodes and max_live (the live contract), they get them as align_bin
-passes them (max_live from check_live on the host arrays); an older
-tree's wrappers compute every node and column.
+passes them (max_live from check_live on the host arrays; poa_linear's
+n_nodes and l_len as poa_align passes them); an older tree's wrappers
+compute every node and column.
 
 With --replay, also every poa_chain and poa_affine call of the poa paths
-that `python3 chip_smoke.py --dump-poa FILE` (or --dump here) saved, one
-at a time, summed by bin (N, B).  With --paths it first runs both poa
-paths (chip_smoke.phase_poa: the evolverMammals tree at 600 kb and the
-4-leaf star at 200 kb) on the tree and prints their accuracies and
-leaf-pair digests; --dump FILE then saves their calls.  Prints the card's
+and every poa_linear call of poa_msa without params that `python3
+chip_smoke.py --dump-poa FILE` (or --dump here) saved, one at a time,
+summed by bin (N, B; poa_linear: N, L + 1), with the longest call.  With
+--paths it first runs both poa paths (chip_smoke.phase_poa: the
+evolverMammals tree at 600 kb and the 4-leaf star at 200 kb) and
+poa_msa without params (chip_smoke.phase_poa_linear) on the tree and
+prints their accuracies and leaf-pair digests; --dump FILE then saves
+their calls.  Prints the card's
 name and power limit first.  Needs a CUDA device.
 """
 
@@ -89,8 +95,9 @@ def main() -> int:
     rel = os.path.relpath(root, HERE)
     if args.paths:
         _launches, recorders = smoke.phase_poa(dev)
+        _launches, lin_recorders = smoke.phase_poa_linear(dev)
         if args.dump:
-            smoke.dump_poa(recorders, args.dump)
+            smoke.dump_poa({**recorders, **lin_recorders}, args.dump)
     run = Runner(poa_cuda, smoke, banded_sweep, dev, rel, args.reps)
     sweep(run, smoke, dev, args.only)
     if args.replay:
@@ -108,6 +115,8 @@ class Runner:
         self.dev, self.root, self.reps = dev, root, reps
         self.live = "n_nodes" in inspect.signature(
             poa_cuda.poa_chain).parameters
+        self.linear_live = "l_len" in inspect.signature(
+            poa_cuda.poa_linear).parameters
 
     def fn(self, kernel, args, kw, n_nodes, max_live):
         wrapper = getattr(self.poa_cuda, kernel)
@@ -127,6 +136,29 @@ class Runner:
                     device_ms=dev_ms,
                     live_cells=live_cells(args[2], args[4], n_nodes, B),
                     band_cells=P * N * B)
+
+
+    def time_linear(self, case, args, kw):
+        """One poa_linear call, with its live extents (n_nodes, l_len in
+        kw) where the tree takes them."""
+        if not self.linear_live:
+            kw = {k: v for k, v in kw.items() if k not in ("n_nodes",
+                                                           "l_len")}
+        wrapper = self.poa_cuda.poa_linear
+        fn = lambda: wrapper(*args, **kw)   # noqa: E731
+        ms = self.smoke.time_ms(fn, self.reps)
+        dev_ms = self.sweep.kernel_device_ms(fn, self.reps, "poa_linear")
+        return dict(root=self.root, case=case, kernel="poa_linear",
+                    shape=[int(args[0].shape[0]), int(args[2].shape[0]) + 1],
+                    ms=ms, device_ms=dev_ms)
+
+
+# poa_linear's sweep: (real nodes, bin, query length, its bin), bubbled
+# DAGs with forward predecessors, padded as poa_align pads them; the
+# middle one is the shape of the largest call of chip_smoke's poa_msa
+# groups
+POA_LINEAR_CASES = ((60, 64, 100, 128), (427, 512, 381, 512),
+                    (1000, 1024, 2000, 2048))
 
 
 def live_cells(off, l_len, n_nodes, band) -> int:
@@ -161,6 +193,20 @@ def sweep(run, smoke, dev, only):
               flush=True)
         del args
         torch.cuda.empty_cache()
+    import numpy as np
+    for k, (n, nb, l, lb) in enumerate(POA_LINEAR_CASES):
+        case = f"poa_linear N {n} of {nb}, L {l} of {lb}"
+        if only not in case:
+            continue
+        rng = np.random.default_rng(100 + k)
+        bases = np.zeros(nb, np.uint8)
+        preds = np.full((nb, 4), -1, np.int32)
+        bases[:n], preds[:n] = smoke.poa_dag(rng, n, forward=4)
+        q = np.full(lb, 5, np.uint8)
+        q[:l] = rng.integers(0, 4, l)
+        args = [torch.from_numpy(x).to(dev) for x in (bases, preds, q)]
+        kw = dict(gap=30, match=10, mismatch=-15, n_nodes=n, l_len=l)
+        print(json.dumps(run.time_linear(case, args, kw)), flush=True)
 
 
 def replay(run, path, dev):
@@ -169,13 +215,20 @@ def replay(run, path, dev):
     saved = torch.load(path)
     for kernel, calls in saved.items():
         by_bin, total, dev_total = {}, 0.0, 0.0
+        longest = (-1.0, None)
         for a, kw in calls:
             a = [x.to(dev) for x in a]
-            k = {x: v for x, v in kw.items() if x not in ("n_nodes",
-                                                          "max_live")}
-            line = run.time("poa path replay", kernel, a, k,
-                            kw["n_nodes"].to(dev), kw["max_live"])
-            key = f"{line['shape'][1]},{line['shape'][2]}"
+            if kernel == "poa_linear":
+                line = run.time_linear("poa_msa replay", a, kw)
+                key = f"{line['shape'][0]},{line['shape'][1]}"
+            else:
+                k = {x: v for x, v in kw.items() if x not in ("n_nodes",
+                                                              "max_live")}
+                line = run.time("poa path replay", kernel, a, k,
+                                kw["n_nodes"].to(dev), kw["max_live"])
+                key = f"{line['shape'][1]},{line['shape'][2]}"
+            if line["ms"] > longest[0]:
+                longest = (line["ms"], line["shape"])
             ms_b, n_b = by_bin.get(key, (0.0, 0))
             by_bin[key] = (ms_b + line["ms"], n_b + 1)
             total += line["ms"]
@@ -183,8 +236,9 @@ def replay(run, path, dev):
                          else dev_total + line["device_ms"])
         print(json.dumps(dict(root=run.root, case="poa path replay",
                               kernel=kernel, calls=len(calls), ms=total,
-                              device_ms=dev_total, by_bin=by_bin)),
-              flush=True)
+                              device_ms=dev_total, by_bin=by_bin,
+                              longest_ms=longest[0],
+                              longest_shape=longest[1])), flush=True)
 
 
 if __name__ == "__main__":

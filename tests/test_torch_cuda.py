@@ -9,7 +9,9 @@ one.  This file imports no jax, so it also runs where jax is absent:
 Banded DP outputs are bit-identical to the plain version on the live
 cells (the kernel computes only those, see ops/banded_cuda.py), and so
 are poa_chain's and poa_affine's (ops/poa_cuda.py::live_mask; ends on
-each problem's real nodes); poa_linear's on every cell.  Pair-HMM
+each problem's real nodes) and poa_linear's (linear_live_mask: every cell
+without n_nodes and l_len).  Widths past each kernel's widest narrow
+launch run its wide kernel (`-k wide`).  Pair-HMM
 posteriors (3-state and 5-state) agree to HMM_ATOL: the kernels sum the
 in-row chains in another order than the plain version's Kogge-Stone scan,
 and the posterior is exp of a difference of float32 log-scale sums that
@@ -282,13 +284,15 @@ def _check_pairhmm_vs_plain(pairs, band, dev, min_rows=32, base5=False):
         em_np[5] = ROW5_EM
     em = torch.from_numpy(em_np).to(dev)
     kw = dict(band=band, delta=p.delta, epsilon=p.epsilon)
+    # the route's kernels (past band 16384 the wide ones)
+    sfx = "_wide" if pairhmm_cuda.pairhmm_route(band) == "wide" else ""
     n0 = cuda_build.launches()
     fM, lsF, logZ = pairhmm_cuda.pairhmm_fwd(*args, em, **kw)
     post = pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ, *args, em, **kw)
     torch.cuda.synchronize()
     n1 = cuda_build.launches()
-    assert n1["pairhmm_fwd"] == n0["pairhmm_fwd"] + 1
-    assert n1["pairhmm_bwd"] == n0["pairhmm_bwd"] + 1
+    assert n1["pairhmm_fwd" + sfx] == n0["pairhmm_fwd" + sfx] + 1
+    assert n1["pairhmm_bwd" + sfx] == n0["pairhmm_bwd" + sfx] + 1
     cpu = [a.cpu() for a in args]
     fM_r, lsF_r, logZ_r = tp.forward_banded(*cpu, em.cpu(), **kw)
     ref = tp.backward_posterior(fM_r, lsF_r, logZ_r, *cpu, em.cpu(), **kw)
@@ -372,12 +376,13 @@ def test_pairhmm_kernels_long_unrelated_pieces_vs_float64(cuda, m, n, band):
 
 
 @pytest.mark.parametrize("band", [128, 512, 1000, 1024, 2048, 4096, 8192,
-                                  16384])
+                                  16384, 16400, 32768])
 def test_pairhmm_kernels_step_edges(cuda, band):
     """m_len around the rescale step (8 rows up to band 2048; 4, 2 and 1
     at bands 4096, 8192 and 16384, where a step's rows fill the shared
-    ring) and m_len = M, at every launch shape (1 to 16 warps, 4 to 32
-    cells a lane), with code-5 query rows."""
+    ring; 8 on the wide route past 16384) and m_len = M, at every launch
+    shape (1 to 16 warps, 4 to 32 cells a lane, and the wide kernels'
+    tiles: one partly filled, and eight), with code-5 query rows."""
     lens = [1, 2, 3, 4, 5, 7, 8, 9, 64]
     _check_pairhmm_vs_plain(_homologous(band + 3, lens, band), band, cuda,
                             min_rows=64, base5=True)
@@ -592,8 +597,9 @@ def test_poa_every_team_shape(cuda, kernel, shape, band, problems, smem):
 
 def test_poa_wrappers_check_the_live_contract(cuda):
     """Without max_live the wrappers check n_nodes and size the teams by
-    check_live on host copies; a max_live outside 1..B, or wider than the
-    widest team cover, raises before any launch."""
+    check_live on host copies; a max_live outside 1..B raises before any
+    launch, and one wider than the widest team cover runs the wide
+    kernel."""
     from test_torch_poa_live import ragged_batch
     inputs = ragged_batch(3, 4, 32, 60, 64, True)
     args = [torch.from_numpy(x).to(cuda) for x in inputs]
@@ -611,9 +617,18 @@ def test_poa_wrappers_check_the_live_contract(cuda):
             with pytest.raises(ValueError, match="max_live"):
                 getattr(poa_cuda, kernel)(*args[:5], sub, **kw,
                                           n_nodes=args[5], max_live=wrong)
-    with pytest.raises(ValueError, match="widest team cover"):
-        poa_cuda.poa_affine(*args[:5], sub, **dict(kw, band=32768),
-                            n_nodes=args[5], max_live=16385)
+    # past the widest team cover the wrappers take the wide kernel
+    wide = dict(kw, band=32768)
+    for kernel in ("poa_chain", "poa_affine"):
+        n0 = cuda_build.launches()
+        got = getattr(poa_cuda, kernel)(*args[:5], sub, **wide,
+                                        n_nodes=args[5], max_live=16385)
+        torch.cuda.synchronize()
+        n1 = cuda_build.launches()
+        assert n1["poa_wide"] == n0["poa_wide"] + 1
+        assert n1[kernel] == n0[kernel]
+        ref = tpoa.poa_align_scan_affine(*args[:5], sub, **wide)
+        _assert_poa_live(got, ref, args[2], args[4], args[5], 32768)
 
 
 # The kernels below run 32-thread blocks at these widths (pair-HMMs at
@@ -813,3 +828,163 @@ def test_poa_base5_nodes_in_32_thread_blocks(cuda, kernel, P, n, l, band):
     torch.cuda.synchronize()
     ref = poa_cuda.poa_affine(*[a.cpu() for a in args], **kw)
     _assert_poa_live(got, ref, args[2], args[4], n_nodes, band)
+
+
+# ---------------------------------------------------------------- wide routes
+# Rows past each kernel's widest narrow launch (POA rows over 16,384 live
+# cells, 5-state windows over 65,536, 3-state bands over 16,384) run the
+# wide kernels; `-k wide` selects these tests.
+
+def _embedded_pair(rng, m, n, at):
+    """A query of m bases and a target of n bases holding a mutated copy
+    of it from position `at`."""
+    q = _codes(rng, m)
+    t = np.concatenate([_codes(rng, at), _mutate(rng, q),
+                        _codes(rng, n)])[:n]
+    return q, t
+
+
+@pytest.mark.parametrize("kernel,P", [("poa_chain", 1), ("poa_chain", 2),
+                                      ("poa_affine", 1), ("poa_affine", 2)])
+def test_poa_wide_rows_match_plain(cuda, kernel, P):
+    """A bin whose live row passes 16,384 cells (about 50 nodes, a query
+    of 20,000 bases, band 32768) runs the wide kernel through the
+    wrapper, bit-equal to the plain version on the live cells."""
+    from test_torch_poa_live import ragged_batch
+    chain = kernel == "poa_chain"
+    inputs = ragged_batch(P + 77, P, 50, 20000, 32768, chain, n_lo=20)
+    inputs[4][-1] = 20000
+    max_live = poa_cuda.check_live(inputs[1], inputs[2], inputs[4],
+                                   inputs[5], 32768)
+    assert max_live == 20001 and poa_cuda.poa_route(max_live) == "wide"
+    assert poa_cuda.chain_certified(inputs[1], inputs[2]) == chain
+    args = [torch.from_numpy(x).to(cuda) for x in inputs]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    kw = dict(band=32768, o1=400, e1=30, o2=1200, e2=1)
+    n0 = cuda_build.launches()
+    got = getattr(poa_cuda, kernel)(*args[:5], sub, **kw, n_nodes=args[5],
+                                    max_live=max_live)
+    torch.cuda.synchronize()
+    n1 = cuda_build.launches()
+    assert n1["poa_wide"] == n0["poa_wide"] + 1 and n1[kernel] == n0[kernel]
+    ref = tpoa.poa_align_scan_affine(*args[:5], sub, **kw)
+    _assert_poa_live(got, ref, args[2], args[4], args[5], 32768)
+
+
+def test_poa_align_bin_wide(cuda):
+    """align_bin, the poa engine's card route, on a bin whose live row
+    passes the widest team cover: the wide kernel, dirs and ends equal to
+    the CPU run's on the live cells."""
+    rng = np.random.default_rng(5)
+    graph = tpoa.PoaGraph.from_sequence(_codes(rng, 60))
+    prep = tpoa._affine_prepare(graph, _codes(rng, 20000), 1000, 0.1)
+    assert prep["B"] == 32768
+    stack = {k: prep[k][None] for k in ("bases", "preds", "off", "q_ext")}
+    args = (stack, np.asarray([prep["L"]], np.int32), SUBMAT, prep["B"],
+            400, 30, 1200, 1)
+    nn = np.asarray([prep["N"]], np.int32)
+    n0 = cuda_build.launches()
+    d, e = poa_cuda.align_bin(*args, cuda, n_nodes=nn)
+    assert cuda_build.launches()["poa_wide"] == n0["poa_wide"] + 1
+    d_r, e_r = poa_cuda.align_bin(*args, "cpu", n_nodes=nn)
+    live = poa_cuda.live_mask(torch.from_numpy(stack["off"]),
+                              torch.tensor([prep["L"]]), torch.from_numpy(nn),
+                              prep["B"]).numpy()
+    assert np.array_equal(d[live], d_r[live])
+    assert np.array_equal(e[0, :prep["N"]], e_r[0, :prep["N"]])
+
+
+@pytest.mark.parametrize("N,L,n,l_len", [
+    (64, 128, 60, 100),       # live rows and columns inside the padding
+    (64, 2048, 64, 2048),     # the whole grid, 16 warps
+    (64, 32768, 64, 20000),   # past the widest cover: the wide kernel
+    (40, 20000, 33, 20000)])
+def test_poa_linear_wide_and_live_rows(cuda, N, L, n, l_len):
+    """poa_linear with n_nodes and l_len (poa_align's live extents):
+    bit-equal to the plain version on the live cells, ends on the real
+    nodes where l_len is L; rows past 16,384 live cells run the wide
+    kernel."""
+    rng = np.random.default_rng(N + L + n)
+    bases, preds = _poa_dag(rng, N)
+    preds[n:] = -1
+    preds[:n][preds[:n] >= n] = -1
+    q = np.full(L, 5, np.uint8)
+    q[:l_len] = _codes(rng, l_len)
+    args = [torch.from_numpy(x).to(cuda) for x in (bases, preds, q)]
+    kw = dict(gap=30, match=10, mismatch=-15)
+    name = ("poa_linear" if poa_cuda.poa_route(l_len + 1) == "team"
+            else "poa_linear_wide")
+    assert (name == "poa_linear_wide") == (l_len >= 16384)
+    n0 = cuda_build.launches()[name]
+    got = poa_cuda.poa_linear(*args, **kw, n_nodes=n, l_len=l_len)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()[name] == n0 + 1
+    ref = tpoa.poa_align_scan(*args, **kw)
+    live = poa_cuda.linear_live_mask(N, L, n, l_len, cuda)
+    assert torch.equal(got[0][live], ref[0][live])
+    assert torch.equal(got[1][live], ref[1][live])
+    if l_len == L:
+        assert torch.equal(got[2][:n], ref[2][:n])
+
+
+@pytest.mark.parametrize("cover", sorted(poa_cuda.TEAM_SHAPES["poa_linear"]))
+def test_poa_linear_every_team_shape(cuda, cover):
+    """Each poa_linear team shape on a query that fills its cover (L + 1
+    = cover), every cell bit-equal to the plain version."""
+    rng = np.random.default_rng(cover)
+    bases, preds = _poa_dag(rng, 40, forward=3)
+    q = _codes(rng, cover - 1)
+    args = [torch.from_numpy(x).to(cuda) for x in (bases, preds, q)]
+    kw = dict(gap=30, match=10, mismatch=-15)
+    got = poa_cuda.poa_linear(*args, **kw)
+    torch.cuda.synchronize()
+    ref = tpoa.poa_align_scan(*args, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_pairhmm_wide_band_matches_plain(cuda):
+    """A 3-state pair at band 32768 (a 300-base query inside a 20,000-base
+    target) and two shorter pairs, a few hundred rows: the wide kernels,
+    within chip_smoke's three tolerances of the plain versions."""
+    rng = np.random.default_rng(32768)
+    pairs = [_embedded_pair(rng, 300, 20000, 9000)]
+    pairs += _homologous(32769, [250, 40], 32768)
+    assert pairhmm_cuda.pairhmm_route(32768) == "wide"
+    _check_pairhmm_vs_plain(pairs, 32768, cuda)
+
+
+def test_pairhmm5_wide_route_matches_plain(cuda):
+    """A 5-state pair at max_live 70,001 (a 300-base query inside a
+    70,000-base target, band 131072) beside a short pair: the wide
+    kernels, within chip_smoke's three tolerances of the plain versions,
+    zero outside the live windows."""
+    rng = np.random.default_rng(70001)
+    pairs = [_embedded_pair(rng, 300, 70000, 30000),
+             _homologous(70002, [120], 131072)[0]]
+    band = 131072
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    max_live = banded_cuda.live_width(args[3], band)
+    assert max_live == 70001
+    assert pairhmm5_cuda.pairhmm5_route(max_live) == "wide"
+    p = tp5.Hmm5Params(p_match=0.8)
+    em = torch.from_numpy(p.emissions()).to(cuda)
+    kw = dict(band=band, params=p)
+    n0 = cuda_build.launches()
+    fM, lsF, logZ = pairhmm5_cuda.pairhmm5_fwd(*args, em, **kw,
+                                               max_live=max_live)
+    post = pairhmm5_cuda.pairhmm5_bwd(fM, lsF, logZ, *args, em, **kw,
+                                      max_live=max_live)
+    torch.cuda.synchronize()
+    n1 = cuda_build.launches()
+    for name in ("pairhmm5_fwd_wide", "pairhmm5_bwd_wide"):
+        assert n1[name] == n0[name] + 1
+    assert n1["pairhmm5_fwd"] == n0["pairhmm5_fwd"]
+    fM_r, lsF_r, logZ_r = tp5.forward_banded5(*args, em, **kw)
+    ref = tp5.backward_posterior5(fM_r, lsF_r, logZ_r, *args, em, **kw)
+    chip_smoke.check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, ref,
+                         "pairhmm5 max_live 70001", quiet=True)
+    live = banded_cuda.live_mask(args[2], args[3], args[4], fM.shape[1],
+                                 band)
+    assert not bool(fM[~live].any()) and not bool(post[~live].any())

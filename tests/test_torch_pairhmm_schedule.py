@@ -53,7 +53,12 @@ def _f(x):
 
 
 def lane_cells(band: int) -> int:
-    """Cells a lane owns on the card (csrc/pairhmm.cu launch_shape)."""
+    """Cells a lane owns on the card (csrc/pairhmm.cu launch_shape; past
+    band 16384 the wide kernels' kWideC = 8, whose tiles of 16 warps pass
+    the chain's value on from tile to tile, so their warps' carries are
+    the one sequence chain_carry forms over all warps)."""
+    if band > 16384:
+        return 8
     c = 4
     while c < 16 and 256 * c < band:
         c *= 2
@@ -339,6 +344,30 @@ def test_schedule_model_keeps_the_plain_clip_on_diffuse_posteriors():
     ref = tp.backward_posterior(*tp.forward_banded(*args, em, **kw), *args,
                                 em, **kw)
     assert torch.isfinite(post).all()
+    assert float((post - ref).abs().max()) <= POST_ATOL
+
+
+def test_schedule_model_wide_route_matches_plain():
+    """The wide kernels' schedule (band 16448, past the narrow kernels'
+    16384: five tiles of 4096 cells, the last partly filled, 8 cells a
+    lane, the same 8-row rescale) against the plain version on the
+    rescale step's edges.  On one torch thread: its many small ops on
+    wide rows only contend for the cores beside the other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        packed, args, em, kw, (fM, lsF, logZ), peak, post, ref_fwd, ref = \
+            _run(16448)
+    finally:
+        torch.set_num_threads(threads)
+    for x in (fM, lsF, logZ, post):
+        assert torch.isfinite(x).all()
+    live = ref_fwd[0] > 1e-30
+    gap = ((torch.log(fM) + lsF[..., None])
+           - (torch.log(ref_fwd[0]) + ref_fwd[1][..., None]))[live]
+    assert float(gap.abs().max()) < 1e-3
+    assert bool(((logZ - ref_fwd[2]).abs()
+                 <= LOGZ_RTOL * ref_fwd[2].abs().clamp_min(1.0)).all())
     assert float((post - ref).abs().max()) <= POST_ATOL
 
 

@@ -246,7 +246,7 @@ def test_consumers_read_only_live_cells(monkeypatch):
 @pytest.mark.parametrize("chain", [True, False])
 def test_align_bin_checks_the_live_contract(monkeypatch, chain):
     """align_bin checks n_nodes on its host arrays before any run, and
-    passes each chunk's check_live width as max_live."""
+    passes the bin's check_live width as every chunk's max_live."""
     inputs = ragged_batch(11, 7, 40, 150, 64, chain)
     bases, preds, off, q_ext, l_len, n_nodes = inputs
     stack = dict(bases=bases, preds=preds, off=off, q_ext=q_ext)
@@ -268,9 +268,8 @@ def test_align_bin_checks_the_live_contract(monkeypatch, chain):
                              + (0 if chain else 12))
     dirs, ends = poa_cuda.align_bin(stack, l_len, SUB, n_nodes=n_nodes,
                                     max_launch_bytes=4 * per_problem, **kw)
-    assert widths == [poa_cuda.check_live(preds[s:s + 4], off[s:s + 4],
-                                          l_len[s:s + 4], n_nodes[s:s + 4],
-                                          64) for s in (0, 4)]
+    assert widths == [poa_cuda.check_live(preds, off, l_len, n_nodes,
+                                          64)] * 2
     _H, dp, ep = _plain(inputs, 64)
     live = _mask(inputs, 64)
     np.testing.assert_array_equal(dirs[live], dp[live])
@@ -604,8 +603,10 @@ def _macro_shapes(name):
 def test_team_shapes():
     """Every cover's shape covers it, csrc/poa.cu compiles exactly the
     table's shapes, and team_shape picks each: the fewest cells a lane,
-    but poa_chain 4 from cover 512 on and on large cover-64 launches."""
-    for kernel in ("poa_chain", "poa_affine"):
+    but poa_chain (and poa_linear, one problem a launch) 4 from cover 512
+    on and poa_chain on large cover-64 launches.  Rows past the widest
+    cover take the wide route."""
+    for kernel in ("poa_chain", "poa_affine", "poa_linear"):
         table = poa_cuda.TEAM_SHAPES[kernel]
         assert list(table) == [32 << k for k in range(10)]
         for cover, (C, TL, NW) in table.items():
@@ -619,6 +620,8 @@ def test_team_shapes():
         s for s, _c, _p in _shipped("poa_chain"))
     assert sorted(_macro_shapes("POA_AFFINE_SHAPES")) == sorted(
         s for s, _c, _p in _shipped("poa_affine"))
+    assert sorted(_macro_shapes("POA_LINEAR_SHAPES")) == sorted(
+        s for s, _c, _p in _shipped("poa_linear"))
     assert poa_cuda.team_cover(1) == 32
     shape = poa_cuda.team_shape
     assert shape(11, "poa_affine", 2) == (2, 16, 1)
@@ -629,8 +632,12 @@ def test_team_shapes():
     assert shape(411, "poa_affine", 1) == (2, 32, 8)
     assert shape(3001, "poa_chain", 1) == (8, 32, 16)
     assert shape(10001, "poa_affine", 1) == (32, 32, 16)
-    with pytest.raises(ValueError, match="widest team cover"):
-        poa_cuda.team_cover(poa_cuda.POA_MAX_COVER + 1)
+    assert shape(513, "poa_linear", 1) == (4, 32, 8)
+    assert shape(382, "poa_linear", 1) == (4, 32, 4)
+    assert poa_cuda.poa_route(poa_cuda.POA_MAX_COVER) == "team"
+    assert poa_cuda.poa_route(poa_cuda.POA_MAX_COVER + 1) == "wide"
+    assert poa_cuda.team_cover(poa_cuda.POA_MAX_COVER + 1) == \
+        2 * poa_cuda.POA_MAX_COVER
     assert [poa_cuda.history_stride(w) for w in (1, 11, 12, 62)] == [
         4, 12, 12, 64]
 
@@ -764,3 +771,142 @@ def test_affine_model_team_shapes(shape, band, problems):
     """Each team shape poa_affine ships, on a batch that fills its cover."""
     inputs, max_live = _filling_batch(band + 2, shape, band, False)
     _check_model(affine_model(inputs, band, shape, max_live), inputs, band)
+
+
+# ---------------------------------------------------------------- poa_linear
+
+def linear_model(bases, preds, q, n, L, shape, gap=30, match=10,
+                 mismatch=-15):
+    """poa_linear_kernel<C, NW>'s schedule: one team of NW warps, C cells
+    a lane (lane t owns columns t C .. t C + C - 1 of the cover), only the
+    real nodes v < n and the columns j <= L.  Per node: packed first-maximum
+    candidates over the four slots (the lowest slot that reads NEG rows
+    standing for all of them; the previous node's row from the lanes'
+    registers, its cell left of each lane from the lane before or, at a
+    warp's edge, rebuilt from the warp carries; other rows from the rows
+    written so far), the warp's inclusive max-scan of h0 + gap j and its
+    exclusive shift, the warps' carries from their aggregates, pass 2, and
+    stores on the live cells only.  Unwritten cells hold POISON."""
+    C, _TL, NW = shape
+    lanes = 32 * NW
+    N, Lq = len(bases), len(q)
+    H = np.full((N, Lq + 1), POISON, np.int64)
+    dirs = np.full((N, Lq + 1), POISON & 0xFF, np.int64)
+    ends = np.full(N, POISON, np.int64)
+    j = np.arange(lanes * C).reshape(lanes, C)
+    qc = np.where((j >= 1) & (j <= L), q[np.clip(j - 1, 0, Lq - 1)], 5)
+    warp = np.arange(lanes) // 32
+    bw = np.arange(NW) * 32 * C
+    pH = np.full((lanes, C), NEG, np.int64)
+    xl = np.full(NW, NEG, np.int64)
+
+    def pack(val, k):
+        out = val * 4 + 3 - k
+        assert (np.abs(out) < 1 << 31).all()
+        return out
+
+    for v in range(n):
+        has = (preds[v] >= 0).any()
+        src = not has
+        prk = [int(p) if 0 <= p < v else -1 for p in preds[v]]
+        empty = [k for k in range(MP) if prk[k] < 0 and not (src and k == 0)]
+        s = np.where(qc == bases[v], match, mismatch)
+        cd = np.full((lanes, C), INT_MIN, np.int64)
+        cl = np.full((lanes, C), INT_MIN, np.int64)
+        if empty:
+            k = min(empty)
+            cd = pack(np.where(j > 0, NEG + s, NEG), k)
+            cl = pack(np.full_like(j, NEG - gap), k)
+        if src:
+            cd = np.maximum(cd, pack(np.where(j > 0, -gap * (j - 1) + s,
+                                              NEG), 0))
+            cl = np.maximum(cl, pack(-gap * j - gap, 0))
+        # the previous row's cell left of each lane's first cell
+        hl = np.concatenate([[NEG], pH[:-1, C - 1]])
+        hl[::32] = xl
+        for k, p in enumerate(prk):
+            if p < 0:
+                continue
+            if p == v - 1:
+                hw = np.concatenate([hl[:, None], pH], axis=1)
+            else:
+                cols = np.arange(-1, lanes * C).reshape(1, -1)
+                ok = (cols >= 0) & (cols <= L)
+                row = np.where(ok, H[p, np.clip(cols, 0, Lq)], NEG)[0]
+                assert (row != POISON).all()    # only written cells
+                hw = np.stack([row[t * C:t * C + C + 1]
+                               for t in range(lanes)])
+            cd = np.maximum(cd, pack(np.where(j > 0, hw[:, :C] + s, NEG), k))
+            cl = np.maximum(cl, pack(hw[:, 1:] - gap, k))
+        bd, bl = cd >> 2, cl >> 2
+        h0 = np.maximum(bd, bl)
+        code = np.where(bd >= bl, (3 - (cd & 3)) << 2,
+                        1 | ((3 - (cl & 3)) << 2))
+        agg = (h0 + gap * j).max(axis=1)
+        incl = np.concatenate([np.maximum.accumulate(agg[w * 32:w * 32 + 32])
+                               for w in range(NW)])
+        x = np.concatenate([[INT_MIN], incl[:-1]])
+        x[::32] = INT_MIN
+        tot = incl[31::32]
+        carry = np.array([tot[:w].max(initial=INT_MIN) for w in range(NW)])
+        xl = np.where(np.arange(NW) > 0, carry - gap * (bw - 1), NEG)
+        r = np.maximum(carry[warp], x)
+        for c in range(C):
+            r = np.maximum(r, h0[:, c] + gap * j[:, c])
+            y = r - gap * j[:, c]
+            code[:, c] = np.where(y != h0[:, c], (code[:, c] & ~3) | 2,
+                                  code[:, c])
+            pH[:, c] = y
+        live = j.ravel() <= L
+        H[v, j.ravel()[live]] = pH.ravel()[live]
+        dirs[v, j.ravel()[live]] = code.ravel()[live]
+        if L == Lq:
+            ends[v] = H[v, Lq]
+    return H, dirs, ends
+
+
+def _linear_case(seed, N, n, Lq, L):
+    """A bubbled DAG with forward predecessors in a bin of N nodes (the
+    pad nodes after its n real nodes are sources) and a query of L codes
+    padded to Lq, as poa_align pads them."""
+    rng = np.random.default_rng(seed)
+    bases = np.zeros(N, np.uint8)
+    preds = np.full((N, MP), -1, np.int32)
+    bases[:n], preds[:n] = _dag(rng, n)
+    preds[:n][preds[:n] >= n] = -1
+    q = np.full(Lq, 5, np.uint8)
+    q[:L] = rng.integers(0, 4, L)
+    return bases, preds, q
+
+
+def _check_linear_model(bases, preds, q, n, L, shape):
+    H, dirs, ends = linear_model(bases, preds, q, n, L, shape)
+    Hp, dp, ep = (x.numpy() for x in tpoa.poa_align_scan(
+        *(torch.from_numpy(a) for a in (bases, preds, q)), gap=30,
+        match=10, mismatch=-15))
+    live = poa_cuda.linear_live_mask(len(bases), len(q), n, L).numpy()
+    np.testing.assert_array_equal(H[live], Hp[live])
+    np.testing.assert_array_equal(dirs[live], dp[live])
+    assert (H[~live] == POISON).all()
+    if L == len(q):
+        np.testing.assert_array_equal(ends[:n], ep[:n])
+
+
+@pytest.mark.parametrize("shape,cover,_p", _shipped("poa_linear")[:8])
+def test_linear_model_every_team_shape(shape, cover, _p):
+    """Each poa_linear team shape up to cover 4096 on a query that fills
+    its cover, with pad nodes and pad columns outside the live cells."""
+    bases, preds, q = _linear_case(cover, 40, 33, cover, cover - 1)
+    assert poa_cuda.team_shape(cover - 1 + 1, "poa_linear", 1) == shape
+    _check_linear_model(bases, preds, q, 33, cover - 1, shape)
+
+
+@pytest.mark.parametrize("N,n,Lq,L", [(64, 64, 40, 40), (128, 90, 128, 100),
+                                      (16, 1, 64, 0), (32, 20, 256, 200)])
+def test_linear_model_live_extents(N, n, Lq, L):
+    """poa_align's extents: a full grid (ends on the real nodes), a padded
+    one, a single node with an empty query, rows narrower than the cover
+    the warps' lanes span."""
+    bases, preds, q = _linear_case(N + L, N, n, Lq, L)
+    shape = poa_cuda.team_shape(L + 1, "poa_linear", 1)
+    _check_linear_model(bases, preds, q, n, L, shape)
