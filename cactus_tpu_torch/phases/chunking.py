@@ -181,10 +181,12 @@ def align_genomes_chunked(q_genome: dict[str, Sequence],
                           t_genome: dict[str, Sequence],
                           cfg, preset: str = "default",
                           chunk_size: int | None = None,
-                          overlap: int | None = None) -> list[PafRecord]:
+                          overlap: int | None = None,
+                          device=None) -> list[PafRecord]:
     """Chunked all-pairs anchoring between two genomes → rebased PAF.
 
-    Sequence names must already carry their event prefixes.
+    Sequence names must already carry their event prefixes.  The gap
+    fill runs on `device` (None = the current CUDA device).
     """
     from . import blast
     chunk_size = chunk_size or cfg.chunk_size
@@ -200,7 +202,8 @@ def align_genomes_chunked(q_genome: dict[str, Sequence],
             if len(tc.seq) < cfg.minimum_sequence_length:
                 continue
             records.extend(blast.align_contig_pair(
-                qc.seq, tc.seq, qc.name, tc.name, cfg, preset))
+                qc.seq, tc.seq, qc.name, tc.name, cfg, preset,
+                device=device))
     records = dechunk_records(records, by_name)
     lengths = {n: len(s) for n, s in list(q_genome.items())
                + list(t_genome.items())}

@@ -112,6 +112,28 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    wide kernel against its plain version at those shapes (POA bit-equal
    on the live cells, pair-HMMs by step 2's tolerances) and times it
    beside the bound for the same work.
+9. Runs the pangenome builder (cactus_tpu_torch.pangenome) on 4
+   haplotypes of PAN_NEWICK, seed 23, in process, each run with the
+   launch counts set to 0 just before it and read just after:
+   `cli.main(["pangenome", ...])` in star mode at 200 kb and in sv and
+   refmap modes at 20 kb, and `run_pangenome_split` on the two-chromosome
+   input.  The star run must launch banded_dp and banded_traceback; each
+   run logs whether pairhmm_fwd / pairhmm_bwd ran, its wall split into the
+   alignment phases (AncestorStep.timings), the mapping stages and the
+   graph emission's spans (normalize, VCF tiers, indexes, viz, layout;
+   `Spans`), its device peak, and banded_dp's launches, live cells and
+   widest band, with the vcfwave batch's band.  Recorders keep every
+   banded_dp and banded_traceback call of each run, and each call is
+   launched again on its inputs and held to its plain version
+   (`pan_check_banded`: live cells, end scores and states, moves and
+   counts equal).  Then the gfa index|vcf|viz and patch verbs on the star
+   GFA, and the sv run one --stage a process, run side by side as
+   `python -m cactus_tpu_torch` subprocesses.  Every file of every run
+   must equal the JAX package's CPU output, pinned as sha256 digests in
+   PAN_DIGESTS (`python tests/pangenome_digest_report.py` makes them);
+   each 2D layout (.lay.tsv) is held instead by its layout_stress, within
+   PAN_LAYOUT_RTOL of the JAX package's layout on the same draws, with
+   every coordinate finite.
 
 Prints one `{"kernels": [...]}` JSON line (each entry also carries the
 shape it was timed at and `replayed_ms`, the path's calls of the kernel
@@ -2201,6 +2223,534 @@ def phase_wide(dev, errs):
     return rows
 
 
+# ---------------------------------------------------------------- pangenome
+
+# phase 9's inputs: the pangenome builder on the 4 haplotypes of a star
+# tree, seed 23: star mode at 200 kb (the largest input whose host graph
+# emission fits the phase: its cost grows faster than the bases), sv and
+# refmap modes at 20 kb, and the two-chromosome split of
+# tests/test_pangenome.py
+PAN_NEWICK = "(a:0.02,b:0.02,c:0.02,d:0.02)root;"
+PAN_SEED = 23
+PAN_STAR_LEN = 200_000
+PAN_SMALL_LEN = 20_000
+PAN_REF = "a"
+# the 2D layout's files hold random draws (the JAX package's threefry
+# bits, here a host torch generator's), so each .lay.tsv is held by its
+# layout_stress instead of a digest: every coordinate finite, and the
+# stress within PAN_LAYOUT_RTOL of the JAX package's layout_2d run on the
+# port's draws for the same graph and seed (the JAX package's CPU reading
+# on the same pairs; tests/layout_control_report.py shows that the
+# port's CPU layout meets it and that the initial layout and a
+# scatter-sum step fail it)
+PAN_LAYOUT_SUFFIXES = (".lay.tsv", ".draw.png")
+PAN_LAYOUT_RTOL = 0.01
+# the JAX package's CPU output of each phase 9 run (sha256 of each file,
+# the layout_stress of each layout on the port's draws):
+# `JAX_PLATFORMS=cpu python tests/pangenome_digest_report.py`
+PAN_DIGESTS = {'gfa_index': {'graph.dist': '7f3186ffbb2dc642aeff658a36e5431b4e33f7b5acb895346298610e074cc727',
+               'graph.gbz': '25df54f23c786ef7c49f51cad0b4850ce8dd858b54f78e85ece37f127acec944',
+               'graph.min': 'cf0cbb7c1eb64ea0c01695117e38e7d73526318eedefb04724bfd6996d328b79',
+               'snarls.json': 'e2f73c7a64fd35ec763d50ab9ea18321ff75a1e9a6ce9f6bc7276e8f2ca8a8c7',
+               'stats.json': '974198c7fd222d27e4255fc3a6711ecb91032fb1c6ac457d2021fa0a1dd659d3'},
+ 'gfa_vcf': {'graph.vcf': '978c1d4e2fb3e651ea0ab213db74faf212c5dc0069c36d13fc089eab0c5da710'},
+ 'gfa_viz': {'graph.lay.tsv': {'stress': 459.015717},
+             'graph.png': 'e14af0c7da6f5d5e4163a56693633dc85397ce6d5bca796dce4acb83261df1a8'},
+ 'patch': {'b.patched.fa': '3fe6368466588817a72e9fa493e26473206901cc1403f7dde9a23b241e1c289d',
+           'patch_report.json': '1d9e9a771d0d2dc64cfa9b669c924f0e4b936643502739ee7efbd4853f00e472'},
+ 'refmap': {'clipped.bed': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+            'exclusions.tsv': '52696fc52082f3d462f06c5e21817a628a10f4abb55d5e0179c22b30da61ae05',
+            'exclusions.tsv.json': 'b696eafad8828e50f6ba3377784f711a14b691ee856c166ab0bad86a8c4acb62',
+            'filtered.bed': '756a6995286a0aa5d1bed70b6bd5479e1c74c3e5bf575287121d495f1bc51c28',
+            'graph_stats.json': '4aabdebff29ed787c0c25aa1a99f46d11afcac37565d66efaecc68ab604eda66',
+            'pangenome.bub.vcf': '46a17a832cb7388ec145c715084c47b4ed0c00113428f097db49b0ec345fc08f',
+            'pangenome.clip.gfa': 'ca0a909c89b27c5ef7c542ec04094ece2a94b987c30cb018f52e6d62638fd22f',
+            'pangenome.clip.viz.png': 'd4d5fa7c9a443ee331a35b321dad5ef54ae480f0196ae9aa66a3651a1ee62f39',
+            'pangenome.dist': '9a48ee5f48ef59bc3b00afa8f2ee786b8d37c823c0aecbfb69b5160be64b4a0b',
+            'pangenome.filter.gfa': '3e991577c98dd9fcf0eb7d7676201b101391b2e958116d702f1a50bcf472223d',
+            'pangenome.gbz': 'fcfffbebe3138646750c236613899aebdde756308e83ce66611ea3abb5571684',
+            'pangenome.gfa': 'ca0a909c89b27c5ef7c542ec04094ece2a94b987c30cb018f52e6d62638fd22f',
+            'pangenome.lay.tsv': {'stress': 37.403427},
+            'pangenome.min': '2c3185f04dca60dc7f45ad0fed4699fe15375026e21c658c0d67720f997c738e',
+            'pangenome.vcf': 'a96719820aa084dd3d4de00ef5a2d6d5e0c6962c24115e1de8c48aa65652efa5',
+            'pangenome.viz.png': 'd4d5fa7c9a443ee331a35b321dad5ef54ae480f0196ae9aa66a3651a1ee62f39',
+            'pangenome.wave.vcf': '943a33f63f77e0183d4fa6dee0b922090bba335924b5911e05e69ddfd7043736',
+            'snarls.json': 'e20066133961fbd12611c42b00129218f953ea2bfe29c7dced94e2fbe5ff9735'},
+ 'split': {'contig_assignment.tsv': '41f8dc575355e0eb201e5c223c013a2d4decd8959fe06c92e153c4a954a60692',
+           'pangenome_stats.json': '697e8c0e80715f212444d31d2361f2937456008bcc7078d56899e368a10f0c97',
+           'ref.chr1/clipped.bed': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+           'ref.chr1/exclusions.tsv': '38463440dc54363a49b399996ee2cd2fab44ad3bc6f45f698136b124ca2f3d44',
+           'ref.chr1/exclusions.tsv.json': '4435c8b5d957b91f399fa8eea9e7620fc093d19b3a548f5003a0070f454ef339',
+           'ref.chr1/filtered.bed': '86ec3f81de3ec7dd757aeb63533b0a9298825596d6cebcb6d1a9f80c21ce01c7',
+           'ref.chr1/graph_stats.json': 'a0bc9c51bc3243b1770ba105f90d246aa3837c30a1ee1af85c64ecab7868e971',
+           'ref.chr1/pangenome.bub.vcf': 'bb5c02030a75222db0d5e5d6df366607ca449248271fcc9043b6ac7038993695',
+           'ref.chr1/pangenome.clip.gfa': '920c726c57d8d9f732c8c6905df67980b6333892ff64cf93801adb48f1dc6bed',
+           'ref.chr1/pangenome.clip.viz.png': '501a0dab701f0e337a9732c21baecb0c7f75406181bc5383aa61b606f5f2823b',
+           'ref.chr1/pangenome.dist': '0fc68573d45d7f33c72f2bc8527cb7072451826d9cce68c41a0b7922de776877',
+           'ref.chr1/pangenome.filter.gfa': 'b783e298254dc0e278e1fa54cd6536bf2e8f41b74a4cab523d68f7110ae28486',
+           'ref.chr1/pangenome.gbz': '7b80c1dd83eb221bc33f84d0217679bbf9e09c3298ad42685b9def0af61a02fd',
+           'ref.chr1/pangenome.gfa': '920c726c57d8d9f732c8c6905df67980b6333892ff64cf93801adb48f1dc6bed',
+           'ref.chr1/pangenome.lay.tsv': {'stress': 0.007279},
+           'ref.chr1/pangenome.min': 'b589f28adab435ac5290be3561100dddfdc2dc8594093624fc015a8489ed0813',
+           'ref.chr1/pangenome.vcf': 'bb5c02030a75222db0d5e5d6df366607ca449248271fcc9043b6ac7038993695',
+           'ref.chr1/pangenome.viz.png': '501a0dab701f0e337a9732c21baecb0c7f75406181bc5383aa61b606f5f2823b',
+           'ref.chr1/pangenome.wave.vcf': '052b7aba98caf6e0dc8bee82a726f532f5f10108dcf58b84632ea9c129663828',
+           'ref.chr1/snarls.json': 'd4b7ffd3192992d23109effade5be08f240eb1a60b48672030c7a25a9ef688bf',
+           'ref.chr2/clipped.bed': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+           'ref.chr2/exclusions.tsv': '5b0b9f77a111e054d23edc78badb45b1d0f19461ebb8a01accddbb86efd9c4dc',
+           'ref.chr2/exclusions.tsv.json': '4482b3c601938a28e472ee8070ae7550bcf2ea1c16c99c635066252222455883',
+           'ref.chr2/filtered.bed': '17e06bab2e287f3c6d85af2ced48f3eb7ccb58ea28de15bce5601b4ca6dec304',
+           'ref.chr2/graph_stats.json': '7f5f29948bebf20aec50c280d07efc12318fa8eca2663cb30a610c71e9c6f0f6',
+           'ref.chr2/pangenome.bub.vcf': '0b1a578c9326f32cdc5e552b6b903c39bc0856a3bd002c8383eadf8c73b651ce',
+           'ref.chr2/pangenome.clip.gfa': 'db2af6edf64284f6500d2b9f61cfcbd0594b7f64a2e265b8367bbc057cb68a39',
+           'ref.chr2/pangenome.clip.viz.png': '691db47f6d67b362d75447b8e487ccc4c6f6b419888c4d737c7eab91877623df',
+           'ref.chr2/pangenome.dist': 'c73031529a81f6e7971dbca76ccfc250231ad397bbb57091bc3652ef29ec6a53',
+           'ref.chr2/pangenome.filter.gfa': '884962bbab0169c398b7926337f977b8271d3d54e64e8ed63b704fefecf2ae7c',
+           'ref.chr2/pangenome.gbz': 'b3db680f05fbfe2fa6dc13589e29ab2e25be40114ee33b6b7d4760af79c55a96',
+           'ref.chr2/pangenome.gfa': 'db2af6edf64284f6500d2b9f61cfcbd0594b7f64a2e265b8367bbc057cb68a39',
+           'ref.chr2/pangenome.lay.tsv': {'stress': 0.001325},
+           'ref.chr2/pangenome.min': '0e388d10d6e3d4088b17459d3f57c8de80385bda4e421987e66dd5804f67ce11',
+           'ref.chr2/pangenome.vcf': '0b1a578c9326f32cdc5e552b6b903c39bc0856a3bd002c8383eadf8c73b651ce',
+           'ref.chr2/pangenome.viz.png': '691db47f6d67b362d75447b8e487ccc4c6f6b419888c4d737c7eab91877623df',
+           'ref.chr2/pangenome.wave.vcf': 'f5ecb98c76363bfd3136362174c4338d6c0e7aa3b9f7ea1ada9c6f22ab65974a',
+           'ref.chr2/snarls.json': '7aa3f2905f92657cfb8068de0c842af6f48be002b9d840e21041fdf38ddfc6bf'},
+ 'star': {'clipped.bed': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+          'exclusions.tsv': '9d9cab5ca24f7ff30bd742c907d444ac006b07859bca25aa52c1d53225a5e70d',
+          'exclusions.tsv.json': 'dbe68d671a49b3c3873e3e6688b0c3c64fb4f76424cf7239ad56ec5f8cf2e04e',
+          'filtered.bed': '5e6d29571acdf3b3c6c478358696c6ee8adce8e8b569faad5895f8b71f5769d2',
+          'graph_stats.json': 'b6c9a2e5a68606818493a60fc672b66128781cf2e0347516ef531a6bca424e1f',
+          'pangenome.bub.vcf': '4793c3f3e37cedb80b0d8a4fb7502aa1727f191326117a8e8339dd25c7524ee5',
+          'pangenome.clip.gfa': '531809262fd9b2b68166b82cde8b02a119d47927ca2beb7f9a6222f612585b9c',
+          'pangenome.clip.viz.png': 'e14af0c7da6f5d5e4163a56693633dc85397ce6d5bca796dce4acb83261df1a8',
+          'pangenome.dist': '7f3186ffbb2dc642aeff658a36e5431b4e33f7b5acb895346298610e074cc727',
+          'pangenome.filter.gfa': 'd248d8b6024ff93292e1e198dbd2eb7b761dbf40f69acccb66339c71eb0ccede',
+          'pangenome.gbz': '418ade4f16f78ab48c8398cc59b6da0639cf284c334f1d380f4b999522c0a06a',
+          'pangenome.gfa': '531809262fd9b2b68166b82cde8b02a119d47927ca2beb7f9a6222f612585b9c',
+          'pangenome.lay.tsv': {'stress': 459.015717},
+          'pangenome.min': 'cf0cbb7c1eb64ea0c01695117e38e7d73526318eedefb04724bfd6996d328b79',
+          'pangenome.vcf': '978c1d4e2fb3e651ea0ab213db74faf212c5dc0069c36d13fc089eab0c5da710',
+          'pangenome.viz.png': 'e14af0c7da6f5d5e4163a56693633dc85397ce6d5bca796dce4acb83261df1a8',
+          'pangenome.wave.vcf': 'ab11024073b406b3630267f00d5cb7799b644b63e50e06f4a682cf6812d1ec1e',
+          'snarls.json': 'e2f73c7a64fd35ec763d50ab9ea18321ff75a1e9a6ce9f6bc7276e8f2ca8a8c7'},
+ 'sv': {'clipped.bed': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
+        'exclusions.tsv': '52696fc52082f3d462f06c5e21817a628a10f4abb55d5e0179c22b30da61ae05',
+        'exclusions.tsv.json': 'b696eafad8828e50f6ba3377784f711a14b691ee856c166ab0bad86a8c4acb62',
+        'filtered.bed': '756a6995286a0aa5d1bed70b6bd5479e1c74c3e5bf575287121d495f1bc51c28',
+        'graph_stats.json': '001ebd4d5f6861efa387eec1f01495730285c2e46e28e55576e3bc2293424f8f',
+        'graphmap.paf': 'd948d9703505bbef8c5c9833d854dae44c3f1e99cfff9bedf3de59192856fb11',
+        'minigraph_order.json': '6e790eb078990a3c99fb01b0dcd85963c945ea6cd047cc543fd61d60e54b2c7e',
+        'pangenome.bub.vcf': '46a17a832cb7388ec145c715084c47b4ed0c00113428f097db49b0ec345fc08f',
+        'pangenome.clip.gfa': '21eb78619ca217a8130bc90932a30869376233e7fc82136c29093dc51bc6d54e',
+        'pangenome.clip.viz.png': 'd4d5fa7c9a443ee331a35b321dad5ef54ae480f0196ae9aa66a3651a1ee62f39',
+        'pangenome.dist': '5f02ee73136be8488beaf7bf62820bf878d8f18118e8fcf7e72493a2ba5e8c82',
+        'pangenome.filter.gfa': '5a72de9b98ac5ba7184ba56a471b4f6c7a365eb91333565cf1207a4a9174e9a8',
+        'pangenome.gbz': 'c48146109510570bc2f3fadb0164d802ad439702d811c6cbe0395f0a4eba316f',
+        'pangenome.gfa': '21eb78619ca217a8130bc90932a30869376233e7fc82136c29093dc51bc6d54e',
+        'pangenome.lay.tsv': {'stress': 37.192348},
+        'pangenome.min': 'ae1e0092bc66fae6833a82fcc4dd3ed8adbc6ae0892f048e0b1416cdd343f92d',
+        'pangenome.raw.gfa': 'da4266415dff1d9bb3bcf5ce4b11b207cca741a776e942d46145f220d8085188',
+        'pangenome.vcf': 'a96719820aa084dd3d4de00ef5a2d6d5e0c6962c24115e1de8c48aa65652efa5',
+        'pangenome.viz.png': 'd4d5fa7c9a443ee331a35b321dad5ef54ae480f0196ae9aa66a3651a1ee62f39',
+        'pangenome.wave.vcf': '943a33f63f77e0183d4fa6dee0b922090bba335924b5911e05e69ddfd7043736',
+        'snarls.json': '2fc1e13ce4d9cc62e2ce938bdae0d2a82fba5673b857ba56d637554216cd30f3',
+        'sv_graph.rgfa': '9dd23c5846f94f9102d10192b0aa2b0a0fc50fcf31e6579c31030858210e5df0'}}
+
+
+def pan_inputs(work, evolver, parse_newick, Sequence):
+    """Phase 9's inputs under `work`, made with the given package's
+    evolver and Sequence: {"star": seqfile, "small": seqfile} and the
+    genomes of the two-chromosome split."""
+    import numpy as np
+    seqfiles = {}
+    for name, root_len in (("star", PAN_STAR_LEN), ("small", PAN_SMALL_LEN)):
+        sim = evolver.simulate(parse_newick(PAN_NEWICK), root_len=root_len,
+                               seed=PAN_SEED)
+        seqfiles[name] = evolver.write_seqfile(
+            sim, os.path.join(work, f"in_{name}"))
+    rng = np.random.default_rng(9)
+    chr1 = rng.integers(0, 4, 8000).astype(np.uint8)
+    chr2 = rng.integers(0, 4, 8000).astype(np.uint8)
+
+    def mutate(x, seed):
+        r = np.random.default_rng(seed)
+        m = r.random(len(x)) < 0.02
+        return np.where(m, (x + 1) % 4, x).astype(np.uint8)
+
+    split = {
+        "ref": {"ref.chr1": Sequence("ref.chr1", chr1),
+                "ref.chr2": Sequence("ref.chr2", chr2)},
+        "s1": {"s1.tig1": Sequence("s1.tig1", mutate(chr1, 1)),
+               "s1.tig2": Sequence("s1.tig2", mutate(chr2, 2))},
+        "s2": {"s2.tig1": Sequence("s2.tig1", mutate(chr1, 3)),
+               "s2.junk": Sequence("s2.junk",
+                                   rng.integers(0, 4, 3000).astype(np.uint8))},
+    }
+    return seqfiles, split
+
+
+def pan_cli_runs(seqfiles, work):
+    """[(run, argv of the pangenome verb)]: star mode on the 200 kb input,
+    sv and refmap modes on the 20 kb one."""
+    def argv(run, sf, *mode):
+        return ["pangenome", seqfiles[sf], os.path.join(work, run),
+                "--reference", PAN_REF, *mode]
+    return [("star", argv("star", "star")),
+            ("sv", argv("sv", "small", "--mode", "sv")),
+            ("refmap", argv("refmap", "small", "--mode", "refmap"))]
+
+
+def pan_staged_argvs(seqfiles, work):
+    """The sv run again, one `--stage` a process (its files must equal
+    the monolithic run's)."""
+    return [["pangenome", seqfiles["small"], os.path.join(work, "sv_staged"),
+             "--reference", PAN_REF, "--mode", "sv", "--stage", stage]
+            for stage in ("minigraph", "graphmap", "align", "join")]
+
+
+def pan_verb_runs(work):
+    """[(run, argv)] of the gfa and patch verbs on the star run's GFA; makes
+    the directories the verbs write files into."""
+    gfa = os.path.join(work, "star", "pangenome.gfa")
+    for d in ("gfa_vcf", "gfa_viz"):
+        os.makedirs(os.path.join(work, d), exist_ok=True)
+    return [("gfa_index", ["gfa", "index", gfa,
+                           os.path.join(work, "gfa_index")]),
+            ("gfa_vcf", ["gfa", "vcf", gfa,
+                         os.path.join(work, "gfa_vcf", "graph.vcf")]),
+            ("gfa_viz", ["gfa", "viz", gfa,
+                         os.path.join(work, "gfa_viz", "graph.png")]),
+            ("patch", ["patch", gfa, "b", os.path.join(work, "patch"),
+                       "--donors", "a,c"])]
+
+
+def pan_layout_graph(lay, read_gfa, gfa=None):
+    """(graph, reference walk) a .lay.tsv was laid out on: the
+    pangenome.gfa beside it and its graph_stats.json's reference, or `gfa`
+    and its first walk (the gfa viz verb's default)."""
+    root = os.path.dirname(lay)
+    if gfa is not None:
+        g = read_gfa(gfa)
+        return g, sorted(g.walks)[0]
+    with open(os.path.join(root, "graph_stats.json")) as fh:
+        ref = json.load(fh)["reference"]
+    return read_gfa(os.path.join(root, "pangenome.gfa")), ref
+
+
+def pan_digests(outdir, layout2d, read_gfa, gfa=None) -> dict:
+    """{path under outdir: sha256} of every file a run wrote but its
+    layout files, and {path of each .lay.tsv: {"stress", "finite"}}: its
+    layout_stress and whether every coordinate is finite
+    (`pan_layout_graph` names the graph each is read against)."""
+    import numpy as np
+    out = {}
+    for root, _dirs, files in sorted(os.walk(outdir)):
+        for f in sorted(files):
+            path = os.path.join(root, f)
+            rel = os.path.relpath(path, outdir)
+            if f.endswith(PAN_LAYOUT_SUFFIXES[1]):
+                continue
+            if f.endswith(PAN_LAYOUT_SUFFIXES[0]):
+                g, ref = pan_layout_graph(path, read_gfa, gfa)
+                X = layout2d.read_lay(path)
+                out[rel] = {
+                    "stress": round(layout2d.layout_stress(g, X, ref_name=ref),
+                                    6),
+                    "finite": bool(np.isfinite(X).all())}
+                continue
+            with open(path, "rb") as fh:
+                out[rel] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def pan_mismatches(got: dict, pinned: dict) -> list[str]:
+    """What of a run's files differs from its pinned readings."""
+    bad = [f"{k}: missing" for k in sorted(set(pinned) - set(got))]
+    bad += [f"{k}: not pinned" for k in sorted(set(got) - set(pinned))]
+    for k in sorted(set(got) & set(pinned)):
+        g, p = got[k], pinned[k]
+        if isinstance(p, str):
+            if g != p:
+                bad.append(f"{k}: sha256 {g[:16]}... != pinned {p[:16]}...")
+        elif not g["finite"]:
+            bad.append(f"{k}: a coordinate is not finite")
+        elif not abs(g["stress"] / p["stress"] - 1) <= PAN_LAYOUT_RTOL:
+            bad.append(f"{k}: layout_stress {g['stress']} is not within "
+                       f"{PAN_LAYOUT_RTOL} of the JAX package's "
+                       f"{p['stress']} on the same draws")
+    return bad
+
+
+class Spans:
+    """Wall seconds by span of one run: wraps functions (module attributes,
+    methods, classmethods) with timers; a call inside another timed call
+    counts only in the outer span.  `results` keeps each span's return
+    values."""
+
+    def __init__(self):
+        self.secs: dict[str, float] = {}
+        self.results: dict[str, list] = {}
+        self.open: list[str] = []
+        self.undo = []
+
+    def wrap(self, owner, attr, span):
+        raw = (owner.__dict__[attr] if isinstance(owner, type)
+               else getattr(owner, attr))
+        fn = getattr(owner, attr) if isinstance(raw, classmethod) else raw
+
+        def timed(*args, **kw):
+            if self.open:
+                self.open.append(span)
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.open.pop()
+            self.open.append(span)
+            t0 = time.time()
+            try:
+                out = fn(*args, **kw)
+                self.results.setdefault(span, []).append(out)
+                return out
+            finally:
+                self.open.pop()
+                self.secs[span] = self.secs.get(span, 0.0) + time.time() - t0
+
+        setattr(owner, attr,
+                staticmethod(timed) if isinstance(raw, classmethod) else timed)
+        self.undo.append((owner, attr, raw))
+
+    def remove(self):
+        for owner, attr, raw in reversed(self.undo):
+            setattr(owner, attr, raw)
+        self.undo = []
+
+
+def pan_check_banded(run, dp, trace, dev) -> list[str]:
+    """Every banded_dp and banded_traceback call one phase 9 run made,
+    launched again on its recorded inputs and held to its plain version
+    on the same inputs: banded_dp's live cells, end scores and states,
+    and the traceback's moves and counts, equal.  Returns the calls that
+    differ."""
+    import torch
+    from cactus_tpu_torch.ops import banded as tb
+    from cactus_tpu_torch.ops import banded_cuda
+    bad = []
+    for i, (a, k) in enumerate(dp.calls):
+        a = on_device(a, dev)
+        plain_kw = {x: v for x, v in k.items() if x != "max_live"}
+        if not banded_live_equal(dp.fn(*a, **k),
+                                 tb.banded_align_batch(*a, **plain_kw),
+                                 *a[2:5]):
+            bad.append(f"{run}: banded_dp call {i} at "
+                       f"{[*a[0].shape, k['band']]} differs from the plain "
+                       "version on the live cells")
+    for i, (a, k) in enumerate(trace.calls):
+        a = on_device(a, dev)
+        got = trace.fn(*a, **k)
+        ref = banded_cuda.banded_traceback_plain(*a, **k)
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            bad.append(f"{run}: banded_traceback call {i} at "
+                       f"{list(a[0].shape)} differs from the host traceback")
+    log(f"  {run}: {len(dp.calls)} banded_dp and {len(trace.calls)} "
+        f"banded_traceback calls, each launched again on its recorded "
+        f"inputs: {'every one equal to' if not bad else 'NOT all equal to'} "
+        f"its plain version")
+    return bad
+
+
+def pan_run(dev, run, fn, outdir, pinned, spans_of):
+    """One in-process run of phase 9 with the launch counts set to 0 just
+    before it and read just after; Recorders keep every banded_dp and
+    banded_traceback call (host copies), each held to its plain version
+    after the run (`pan_check_banded`).  Logs the run's wall split, device
+    peak and banded_dp calls (band, live cells, whether inside vcfwave),
+    and returns its launches and the mismatches of its calls and files
+    against their plain versions and pinned readings."""
+    import torch
+    from cactus_tpu_torch.ops import banded_cuda, cuda_build
+    from cactus_tpu_torch.pangenome import layout2d
+    from cactus_tpu_torch.pangenome.graph import read_gfa
+    spans = spans_of()
+    dp_calls = []          # (band, live cells, inside vcfwave) a call
+
+    def dp_cells(args, kw):
+        P, M = args[0].shape
+        dp_calls.append((kw["band"], banded_cuda.live_cells(
+            *args[2:5], M, kw["band"]), "vcfwave" in spans.open))
+        return P * M * kw["band"]
+
+    dp = Recorder(banded_cuda, "banded_dp", dp_cells,
+                  attr="launch_banded_dp", keep_calls="host")
+    trace = Recorder(banded_cuda, "banded_traceback", None,
+                     keep_calls="host")
+    for rec in (dp, trace):
+        rec.install()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_build.reset_launches()
+    t0 = time.time()
+    try:
+        fn()
+        torch.cuda.synchronize(dev)
+    finally:
+        launches = cuda_build.launches()
+        for rec in (dp, trace):
+            rec.remove()
+        spans.remove()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    ran = {k: v for k, v in launches.items() if v}
+    log(f"phase 9 {run}: {wall:.1f} s wall, device peak {peak / 1e6:.0f} MB "
+        f"allocated, kernel launches {ran}")
+    for result in spans.results.get("align", []):
+        tm = result.steps["_pan_root_"].timings
+        log(f"  {run} alignment phases (AncestorStep.timings): " + " ".join(
+            f"{k}={tm[k]:.1f}s" for k in ("blast", "caf", "bar",
+                                          "reference")))
+    log(f"  {run} wall split: " + " ".join(
+        f"{k}={v:.1f}s" for k, v in spans.secs.items())
+        + f" other={wall - sum(spans.secs.values()):.1f}s")
+    for name in ("pairhmm_fwd", "pairhmm_bwd"):
+        log(f"  {run}: {name} {'ran' if launches[name] else 'did not run'} "
+            f"({launches[name]} launches)")
+    if dp_calls:
+        wave = [c for c in dp_calls if c[2]]
+        log(f"  {run} banded_dp: {len(dp_calls)} launches, "
+            f"{sum(c[1] for c in dp_calls)} live cells, widest band "
+            f"{max(c[0] for c in dp_calls)}; the vcfwave batch: "
+            + (f"{len(wave)} launches at band {sorted({c[0] for c in wave})}, "
+               f"{sum(c[1] for c in wave)} live cells" if wave else "none"))
+    bad = pan_check_banded(run, dp, trace, dev)
+    got = pan_digests(outdir, layout2d, read_gfa)
+    for rel, val in sorted(got.items()):
+        if isinstance(val, dict):
+            p = pinned.get(rel, {})
+            log(f"  {run} {rel}: layout_stress {val['stress']} (the JAX "
+                f"package's on the same draws {p.get('stress')}), "
+                f"{'every' if val['finite'] else 'NOT every'} coordinate "
+                "finite")
+    return launches, bad + [f"{run}/{m}" for m in pan_mismatches(got,
+                                                                pinned)]
+
+
+def phase_pangenome(dev):
+    """The pangenome builder through the port on the card (the module
+    docstring's phase 9)."""
+    from cactus_tpu_torch import cli, progressive
+    from cactus_tpu_torch.io.fasta import Sequence
+    from cactus_tpu_torch.pangenome import (driver, giraffe, indexes,
+                                            layout2d, minigraph, vcf, viz)
+    from cactus_tpu_torch.pangenome.graph import read_gfa
+    from cactus_tpu_torch.phases import blast, caf
+    from cactus_tpu_torch.testutil import evolver
+    from cactus_tpu_torch.utils.trees import parse_newick
+
+    work = tempfile.mkdtemp(prefix="smoke_pan_",
+                            dir=os.path.join(HERE, "cactus_tpu_torch",
+                                             "_build"))
+
+    def spans_of():
+        sp = Spans()
+        for owner, attr, span in (
+                (progressive.ProgressiveAligner, "run", "align"),
+                (minigraph, "build_sv_graph", "minigraph"),
+                (minigraph, "graphmap", "graphmap"),
+                (blast, "align_genomes", "refmap"),
+                (caf, "run_caf", "caf"),
+                (driver, "split_by_chromosome", "split"),
+                (driver, "collapse_shared_affixes", "normalize"),
+                (vcf, "write_vcf", "vcf"), (vcf, "vcfwave", "vcfwave"),
+                (indexes, "save_gbz", "indexes"),
+                (indexes, "snarls", "indexes"),
+                (giraffe.MinimizerIndex, "build", "indexes"),
+                (giraffe.DistanceIndex, "build", "indexes"),
+                (viz, "viz", "viz"), (layout2d, "layout_2d", "layout"),
+                (layout2d, "write_lay", "layout"),
+                (layout2d, "draw", "layout")):
+            sp.wrap(owner, attr, span)
+        return sp
+
+    failures, star_launches = [], None
+    try:
+        t0 = time.time()
+        seqfiles, split = pan_inputs(work, evolver, parse_newick, Sequence)
+        log(f"phase 9 inputs: {PAN_NEWICK} at {PAN_STAR_LEN} and "
+            f"{PAN_SMALL_LEN} bp, seed {PAN_SEED}, and the two-chromosome "
+            f"split, in {time.time() - t0:.1f} s")
+        runs = [(run, (lambda argv=argv: cli.main(argv)), argv[2])
+                for run, argv in pan_cli_runs(seqfiles, work)]
+        out = os.path.join(work, "split")
+        runs.append(("split", lambda: driver.run_pangenome_split(
+            split, "ref", out, log=lambda m: print(
+                f"  [split] {m}", file=sys.stderr, flush=True)), out))
+        for run, fn, outdir in runs:
+            launches, bad = pan_run(dev, run, fn, outdir, PAN_DIGESTS[run],
+                                    spans_of)
+            failures += bad
+            if run == "star":
+                star_launches = launches
+        for name in ("banded_dp", "banded_traceback"):
+            if not star_launches or star_launches[name] <= 0:
+                failures.append(f"star: {name} was never launched")
+        # the gfa and patch verbs on the star run's GFA, and the sv run
+        # one --stage a process, in subprocesses side by side
+        t0 = time.time()
+        gfa = os.path.join(work, "star", "pangenome.gfa")
+        staged_err: list = []
+
+        def staged():
+            try:
+                for argv in pan_staged_argvs(seqfiles, work):
+                    run_cli(argv, " ".join(argv[:1] + argv[3:]))
+            except (AssertionError, subprocess.TimeoutExpired) as e:
+                staged_err.append(e)
+
+        thread = threading.Thread(target=staged)
+        thread.start()
+        procs = {run: subprocess.Popen(
+            [sys.executable, "-m", "cactus_tpu_torch", *argv], cwd=HERE,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            for run, argv in pan_verb_runs(work)}
+        try:
+            for run, proc in procs.items():
+                _out, err = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    failures.append(f"{run} exited {proc.returncode}: "
+                                    f"{err[-2000:]}")
+                    continue
+                got = pan_digests(os.path.join(work, run), layout2d,
+                                  read_gfa, gfa=gfa)
+                failures += [f"{run}/{m}"
+                             for m in pan_mismatches(got, PAN_DIGESTS[run])]
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            thread.join()
+        if staged_err:
+            failures.append(f"sv --stage: {staged_err[0]}")
+        else:
+            got = pan_digests(os.path.join(work, "sv_staged"), layout2d,
+                              read_gfa)
+            failures += [f"sv_staged/{m}"
+                         for m in pan_mismatches(got, PAN_DIGESTS["sv"])]
+        log(f"phase 9: gfa index|vcf|viz and patch on the star GFA, and sv "
+            f"one --stage a process, in subprocesses: "
+            f"{time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if failures:
+        raise AssertionError("phase 9: kernel calls or outputs differ from "
+                             "their plain versions or the JAX package's "
+                             "pinned CPU readings:\n  "
+                             + "\n  ".join(failures))
+    log("phase 9: every banded_dp and banded_traceback call of the runs "
+        "equals its plain version, every file of the star, sv (monolithic "
+        "and staged), refmap and split runs and of the gfa and patch verbs "
+        "equals the JAX package's CPU output (sha256), and every layout "
+        "holds its readings")
+
+
 def dump_banded(recorder, path):
     """Save the inputs of every banded_dp call a path made (host copies)
     with torch.save, for tests/banded_sweep_report.py --replay."""
@@ -2389,7 +2939,10 @@ def main() -> int:
     log(f"POA kernel timing {time.time() - t0:.1f} s")
     t0 = time.time()
     rows += phase_wide(dev, errs)
-    log(f"phase 8 (the wide routes) {time.time() - t0:.1f} s; total "
+    log(f"phase 8 (the wide routes) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_pangenome(dev)
+    log(f"phase 9 (the pangenome builder) {time.time() - t0:.1f} s; total "
         f"{time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -988,3 +988,33 @@ def test_pairhmm5_wide_route_matches_plain(cuda):
     live = banded_cuda.live_mask(args[2], args[3], args[4], fM.shape[1],
                                  band)
     assert not bool(fM[~live].any()) and not bool(post[~live].any())
+
+
+def test_pangenome_star_run_on_the_card_equals_the_cpu_run(cuda, tmp_path):
+    """run_pangenome on tests/test_pangenome.py's small_graph input
+    (3 haplotypes, root_len 6000, seed 17): every artifact but the layout
+    files byte-identical to the port's CPU run, through banded_dp."""
+    import os
+    from cactus_tpu_torch.io.fasta import Sequence
+    from cactus_tpu_torch.pangenome import driver
+    from cactus_tpu_torch.testutil import evolver
+    from cactus_tpu_torch.utils.trees import parse_newick
+    sim = evolver.simulate(parse_newick("(a:0.02,b:0.02,c:0.02)root;"),
+                           root_len=6000, seed=17)
+    genomes = {ev: {f"{ev}.c": Sequence(f"{ev}.c", sim.genomes[ev].codes)}
+               for ev in "abc"}
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("cuda", cuda)):
+        out[name] = str(tmp_path / name)
+        cuda_build.reset_launches()
+        driver.run_pangenome(genomes, "a", out[name], device=dev)
+        launches = cuda_build.launches()
+    assert launches["banded_dp"] > 0 and launches["banded_traceback"] > 0
+    files = sorted(os.listdir(out["cpu"]))
+    assert files == sorted(os.listdir(out["cuda"]))
+    for f in files:
+        if f.endswith((".lay.tsv", ".draw.png")):
+            continue
+        with open(os.path.join(out["cpu"], f), "rb") as a, \
+                open(os.path.join(out["cuda"], f), "rb") as b:
+            assert a.read() == b.read(), f

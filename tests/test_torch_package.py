@@ -21,7 +21,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "cactus_tpu_torch")
 
 # modules carried byte for byte from cactus_tpu (relative imports resolve
-# inside the port); config.py and native/build.py became twins
+# inside the port); config.py, native/build.py and phases/chunking.py
+# became twins
 VERBATIM = [
     "config_xml.py", "io/fasta.py", "io/paf.py", "io/maf.py",
     "io/seqfile.py", "io/taf.py", "utils/trees.py", "utils/intervals.py",
@@ -29,10 +30,13 @@ VERBATIM = [
     "graph/columns.py", "graph/cactus.py", "graph/chains.py",
     "graph/pinch.py", "native/dp.cpp", "native/graphops.cpp",
     "native/pinchgraph.cpp", "ops/anchors.py", "ops/seeds_host.py",
-    "ops/paf_tools.py", "phases/caf.py", "phases/chunking.py",
+    "ops/paf_tools.py", "phases/caf.py",
     "phases/hal.py", "phases/maf_export.py", "store.py", "maf_tools.py",
     "preprocessor/headers.py", "testutil/evolver.py",
     "testutil/comparator.py", "hal_archive.py",
+    "pangenome/__init__.py", "pangenome/graph.py", "pangenome/normalize.py",
+    "pangenome/exclusions.py", "pangenome/viz.py", "pangenome/indexes.py",
+    "pangenome/giraffe.py", "pangenome/patch.py",
 ]
 
 
@@ -45,6 +49,14 @@ def test_import_leaves_jax_and_cactus_tpu_out():
             "cactus_tpu_torch.ops.pairhmm5_cuda, "
             "cactus_tpu_torch.ops.poa, cactus_tpu_torch.ops.poa_cuda, "
             "cactus_tpu_torch.hal_archive, cactus_tpu_torch.phases.bar\n"
+            "import cactus_tpu_torch.pangenome.driver, "
+            "cactus_tpu_torch.pangenome.layout2d, "
+            "cactus_tpu_torch.pangenome.minigraph, "
+            "cactus_tpu_torch.pangenome.split, "
+            "cactus_tpu_torch.pangenome.vcf, "
+            "cactus_tpu_torch.pangenome.patch, "
+            "cactus_tpu_torch.pangenome.giraffe, "
+            "cactus_tpu_torch.pangenome.indexes\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cactus_tpu' or "
             "m.startswith('cactus_tpu.')]\n"

@@ -128,7 +128,7 @@ def test_cli_align_identical_across_packages(seqfile, tmp_path):
 
 
 def test_cli_unported_verbs_and_options_exit_clearly(seqfile, tmp_path):
-    for argv in (["pangenome", seqfile, str(tmp_path / "p")],
+    for argv in (["blast", seqfile, str(tmp_path / "p")],
                  ["align", seqfile, str(tmp_path / "m"), "--mask",
                   "--device", "cpu"]):
         with pytest.raises(SystemExit) as exc:
