@@ -1,19 +1,28 @@
 """Command-line entry points (python -m cactus_tpu_torch <command>).
 
-The PyTorch/CUDA port carries `align` (progressive alignment of a
-seqfile into an alignment store, with optional HAL archive and MAF
-export), `hal2maf` (MAF export from a store), `pangenome` (the star, SV-
-graph and refmap pangenome builders, with --stage), `gfa` (indexes, VCF
-and viz of an external GFA) and `patch` (scaffold an assembly along a
-graph's donor walks).  The other verbs of the JAX package's CLI
-(cactus_tpu/cli.py) and the `--mask` option of `align` exit with a "not
-ported yet" message; they are queued in ROADMAP.md.
+The PyTorch/CUDA port carries these verbs of the JAX package's CLI
+(cactus_tpu/cli.py):
+- `align`: progressive alignment of a seqfile into an alignment store,
+  with --mask (k-mer repeat masking), --hal, --maf, --root and --target;
+- `preprocess`: sanitize and repeat-mask genomes into FASTAs, with
+  --tandem-mask, --lastz-mask and --satellite;
+- `blast`: the standalone pairwise anchoring stage into a PAF, with
+  --fastga and --minimap2;
+- `prepare`: the step-by-step plan (preprocess, one `align --target` a
+  ancestor, the export), printed or as --script / --wdl, whose commands
+  run this package;
+- `hal2maf`, `stats`, `hal2seqfile`, `chains`, `maf2bigmaf` and `hal`
+  (every tool) on a store, MAF or HAL archive;
+- `pangenome` (star, sv and refmap builders, with --stage), `gfa`
+  (indexes, VCF and viz of an external GFA) and `patch`.
+`update` and `conservation` exit with a "not ported yet" message; they
+are queued in ROADMAP.md.
 
-Every verb that takes `--device` (`align`, `pangenome`, and `gfa` for
-its viz tool's layout) runs its device work on the current CUDA device
-unless `--device cpu` is given (the plain PyTorch versions and the
-native C++ kernels); without a GPU the default raises.  `patch` and the
-index and vcf tools of `gfa` do host work only.
+Every verb that takes `--device` (`align`, `preprocess`, `blast`,
+`pangenome`, and `gfa` for its viz tool's layout) runs its device work
+on the current CUDA device unless `--device cpu` is given (the plain
+PyTorch versions and the native C++ kernels); without a GPU the default
+raises.  The other verbs do host work only.
 """
 
 from __future__ import annotations
@@ -29,9 +38,7 @@ from .progressive import ProgressiveAligner
 from .store import AlignmentStore
 
 # verbs of cactus_tpu's CLI that this package does not carry yet
-NOT_PORTED_VERBS = ("preprocess", "blast", "prepare", "update", "chains",
-                    "conservation", "hal", "stats", "maf2bigmaf",
-                    "hal2seqfile")
+NOT_PORTED_VERBS = ("update", "conservation")
 
 
 def _log(msg: str) -> None:
@@ -43,12 +50,21 @@ def _not_ported(what: str) -> SystemExit:
                       "(see ROADMAP.md); use python -m cactus_tpu for it")
 
 
-def load_genomes_from_seqfile(sf: SeqFile, only: set[str] | None = None,
-                              pp=None) -> dict[str, dict[str, Sequence]]:
-    """Load + sanitize every genome (cutHeaders → checkUniqueHeaders →
-    event prefixing; config XML <preprocessor> entries :20-43).  `only`
-    restricts loading to the named events (--root subtrees)."""
+def load_genomes_from_seqfile(sf: SeqFile,
+                              do_mask: bool = False,
+                              only: set[str] | None = None,
+                              pp=None, device=None
+                              ) -> dict[str, dict[str, Sequence]]:
+    """Load + sanitize (+ optionally repeat-mask) every genome.
+
+    Mirrors the reference preprocessing chain: cutHeaders →
+    checkUniqueHeaders → event prefixing → repeat masking
+    (cactus_preprocessor.py; config XML <preprocessor> entries :20-43).
+    `only` restricts loading to the named events (--root subtrees).  The
+    masking's k-mer count runs on `device`.
+    """
     from .preprocessor.headers import sanitize_genome
+    from .preprocessor.masking import mask_genome
     if pp is None:
         pp = Config.default().preprocessor
     genomes = {}
@@ -56,13 +72,58 @@ def load_genomes_from_seqfile(sf: SeqFile, only: set[str] | None = None,
         if only is not None and event not in only:
             continue
         seqs = read_fasta(path)
-        genomes[event] = sanitize_genome(event, seqs, cut=pp.cut_headers)
+        genome = sanitize_genome(event, seqs, cut=pp.cut_headers)
+        if do_mask and pp.repeat_mask:
+            genome = mask_genome(genome, k=pp.mask_kmer,
+                                 min_length=pp.mask_min_contig,
+                                 gc_skew_limit=pp.mask_gc_skew_limit,
+                                 device=device)
+        genomes[event] = genome
     return genomes
 
 
+def cmd_preprocess(args) -> int:
+    """Repeat-mask + sanitize genomes, write masked FASTAs
+    (cactus-preprocess equivalent)."""
+    import os
+    from .io.fasta import write_fasta
+    from .ops import resolve_device
+    from .preprocessor.stats import assembly_stats
+    device = resolve_device(args.device)
+    sf = SeqFile.parse(args.seqfile)
+    genomes = load_genomes_from_seqfile(sf, do_mask=not args.no_mask,
+                                        device=device)
+    os.makedirs(args.outdir, exist_ok=True)
+    if args.tandem_mask:
+        from .preprocessor.variants import tandem_mask_genome
+        genomes = {ev: tandem_mask_genome(g) for ev, g in genomes.items()}
+    if args.lastz_mask:
+        from .preprocessor.variants import lastz_repeat_mask
+        cfg = Config.default()
+        genomes = {ev: lastz_repeat_mask(
+                       g, cfg.blast, period=cfg.preprocessor.min_period,
+                       log=_log, device=device)
+                   for ev, g in genomes.items()}
+    if args.satellite:
+        from .preprocessor.variants import apply_bed, satellite_bed
+        for ev in list(genomes):
+            bed = satellite_bed(genomes[ev])
+            if bed:
+                with open(os.path.join(args.outdir,
+                                       f"{ev}.satellites.bed"), "w") as fh:
+                    for row in bed:
+                        fh.write("\t".join(str(x) for x in row) + "\n")
+                genomes[ev] = apply_bed(genomes[ev], bed, args.satellite)
+    for event, genome in genomes.items():
+        p = os.path.join(args.outdir, f"{event}.fa")
+        write_fasta(p, genome)
+        st = assembly_stats(genome)
+        _log(f"{event}: {st['n_sequences']} seqs, {st['total_length']} bp, "
+             f"N50 {st['n50']}, masked {st['masked_fraction']:.1%} → {p}")
+    return 0
+
+
 def cmd_align(args) -> int:
-    if args.mask:
-        raise _not_ported("align --mask (repeat masking)")
     sf = SeqFile.parse(args.seqfile)
     tree = sf.tree if sf.tree is not None else sf.star_tree()
     if args.root:
@@ -82,7 +143,8 @@ def cmd_align(args) -> int:
         config = load_config_xml(args.config, base=config)
         _log(f"loaded config overrides from {args.config}")
     genomes = load_genomes_from_seqfile(
-        sf, only=set(tree.leaf_names()), pp=config.preprocessor)
+        sf, do_mask=args.mask, only=set(tree.leaf_names()),
+        pp=config.preprocessor, device=args.device)
     store = AlignmentStore(args.outdir)
     aligner = ProgressiveAligner(
         tree, genomes, config=config,
@@ -113,6 +175,36 @@ def cmd_align(args) -> int:
     return 0
 
 
+def cmd_blast(args) -> int:
+    """Standalone pairwise anchoring → PAF (cactus-blast equivalent)."""
+    import dataclasses
+    from .io.paf import write_paf
+    from .ops import resolve_device
+    from .phases import blast as blast_phase
+    device = resolve_device(args.device)
+    sf = SeqFile.parse(args.seqfile)
+    genomes = load_genomes_from_seqfile(sf)
+    events = args.events.split(",") if args.events else list(genomes)
+    cfg = Config.default().blast
+    if args.fastga:
+        cfg = dataclasses.replace(cfg, aligner="fastga")
+    if args.minimap2:
+        cfg = dataclasses.replace(cfg, aligner="minimap2")
+    records = []
+    for i, a in enumerate(events):
+        for b in events[i + 1:]:
+            for qn, qs in genomes[a].items():
+                for tn, ts in genomes[b].items():
+                    records.extend(blast_phase.align_contig_pair(
+                        qs, ts, qn, tn, cfg, preset=args.preset,
+                        device=device))
+    records = blast_phase.finalize(records, cfg)
+    with open(args.out, "w") as fh:
+        write_paf(fh, records)
+    _log(f"wrote {len(records)} PAF records to {args.out}")
+    return 0
+
+
 def cmd_hal2maf(args) -> int:
     from .io.maf import write_maf
     from .phases import hal as hal_phase
@@ -137,6 +229,195 @@ def cmd_hal2maf(args) -> int:
         return 0
     write_maf(args.out, blocks)
     _log(f"wrote {args.out} ({len(blocks)} blocks)")
+    return 0
+
+
+def cmd_prepare(args) -> int:
+    """Step-decomposed command plan (cactus-prepare analog: every stage
+    independently runnable/restartable); optional shell script / WDL
+    workflow output.  Its commands run this package."""
+    import os
+    from .prepare import make_plan, write_script, write_wdl
+    sf = SeqFile.parse(args.seqfile)
+    tree = sf.tree if sf.tree is not None else sf.star_tree()
+    # size each stage with the reference's consolidated memory model
+    # (cactus_workflow.py:34-97) from the on-disk FASTA sizes
+    event_bytes = {}
+    for ev, path in sf.paths.items():
+        try:
+            event_bytes[ev] = os.path.getsize(path)
+        except OSError:
+            pass
+    stages = make_plan(tree, args.seqfile, args.outdir,
+                       prog="python -m cactus_tpu_torch",
+                       event_bytes=event_bytes)
+    if args.wdl:
+        with open(args.wdl, "w") as fh:
+            write_wdl(stages, fh)
+        _log(f"wrote WDL workflow {args.wdl}")
+    if args.script:
+        with open(args.script, "w") as fh:
+            write_script(stages, fh)
+        _log(f"wrote script {args.script}")
+    if not args.wdl and not args.script:
+        print(f"## cactus-tpu-torch plan for {args.seqfile} -> "
+              f"{args.outdir}")
+        write_script(stages, sys.stdout)
+    return 0
+
+
+def cmd_maf2bigmaf(args) -> int:
+    """MAF → bigMaf bed + autoSql (cactus-maf2bigmaf analog; the exact
+    inputs bedToBigBed consumes)."""
+    from .io.maf import read_maf
+    from .maf_tools import write_bigmaf
+    blocks = list(read_maf(args.maf))
+    n = write_bigmaf(args.out, blocks, args.ref_genome)
+    _log(f"wrote {n} bigMaf rows to {args.out} (+{args.out}.as schema)")
+    return 0
+
+
+def cmd_hal2seqfile(args) -> int:
+    """Write a seqfile + per-genome FASTAs from an alignment store
+    (cactus-hal2seqfile analog: the input plan for update workflows)."""
+    import os
+    from .io.fasta import write_fasta
+    store = AlignmentStore(args.store)
+    result = store.load_result()
+    os.makedirs(args.outdir, exist_ok=True)
+    lines = [result.tree.to_newick()]
+    events = ([e.strip() for e in args.events.split(",")] if args.events
+              else [n for n in result.genomes
+                    if not args.leaves_only
+                    or not result.tree.find(n).children])
+    for ev in events:
+        fa = os.path.join(args.outdir, f"{ev}.fa")
+        write_fasta(fa, result.genomes[ev])
+        lines.append(f"{ev} {fa}")
+    out = args.out or os.path.join(args.outdir, "seqfile.txt")
+    with open(out, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    _log(f"wrote {out} ({len(events)} genomes)")
+    return 0
+
+
+def cmd_chains(args) -> int:
+    """UCSC liftover chains between two genomes (hal2chains analog)."""
+    from .chains_export import write_chains
+    store = AlignmentStore(args.store)
+    result = store.load_result()
+    n = write_chains(args.out, result, args.ref, args.query)
+    _log(f"wrote {n} chains to {args.out}")
+    return 0
+
+
+def cmd_stats(args) -> int:
+    from .phases import hal as hal_phase
+    store = AlignmentStore(args.store)
+    result = store.load_result()
+    for row in hal_phase.hal_stats(result):
+        print("{genome}\t{n_sequences}\t{length}\t{n_top_segments}\t"
+              "{n_bottom_segments}".format(**row))
+    return 0
+
+
+def cmd_hal(args) -> int:
+    """HAL-archive tools: stats / fasta / maf / validate / removeDupes /
+    metadata / append / liftover / mutations / snps / export-hdf5 /
+    import-hdf5 (the halStats / hal2fasta / hal2maf / halValidate /
+    halRemoveDupes CLI surface of the reference hal submodule)."""
+    from .hal_archive import HalArchive
+    if args.tool == "import-hdf5":
+        # `archive` is the DESTINATION .hal (created, not opened);
+        # --hdf5 names the source container
+        from .io.hal_hdf5 import import_hdf5
+        if not args.hdf5:
+            raise SystemExit("hal import-hdf5 needs --hdf5 <source.h5>")
+        import_hdf5(args.hdf5, args.archive)
+        _log(f"imported {args.hdf5} -> {args.archive}")
+        return 0
+    arc = HalArchive.open(args.archive)
+    if args.tool == "stats":
+        for row in arc.stats():
+            print("{genome}\t{n_sequences}\t{length}\t{n_top_segments}\t"
+                  "{n_bottom_segments}".format(**row))
+    elif args.tool == "fasta":
+        from .io.fasta import write_fasta
+        write_fasta(args.out or sys.stdout, arc.dna(args.genome))
+    elif args.tool == "maf":
+        from .io.maf import write_maf
+        blocks = arc.hal2maf(ref_genome=args.genome, ref_seq=args.ref_seq,
+                             ref_start=args.start, ref_end=args.end)
+        write_maf(args.out, blocks)
+        _log(f"wrote {args.out} ({len(blocks)} blocks)")
+    elif args.tool == "validate":
+        errs = arc.validate()
+        for e in errs:
+            print(e)
+        return 1 if errs else 0
+    elif args.tool == "removeDupes":
+        n = arc.remove_dupes(args.genome)
+        _log(f"demoted {n} duplicate top segments in {args.genome}")
+    elif args.tool == "export-hdf5":
+        # the reference's storage model is HDF5 (hal submodule); write
+        # a HAL-structured HDF5 container (see io/hal_hdf5.py caveat)
+        from .io.hal_hdf5 import export_hdf5
+        export_hdf5(arc, args.out or args.archive + ".h5")
+        _log(f"wrote {args.out or args.archive + '.h5'}")
+    elif args.tool == "metadata":
+        if args.set:
+            k, _, v = args.set.partition("=")
+            arc.set_metadata(k, v)
+            _log(f"set {k}")
+        else:
+            print(json.dumps(arc.get_metadata(), indent=1))
+    elif args.tool == "append":
+        # halAppendCactusSubtree / cactus-halAppendSubtrees analog:
+        # import one computed ancestor step from a store into the
+        # growing archive (export_hal BFS order is the caller's job)
+        store = AlignmentStore(args.store)
+        result = store.load_result()
+        node = result.tree.find(args.genome)
+        if node is None or args.genome not in result.steps:
+            raise SystemExit(f"no computed step for {args.genome!r}")
+        children = {c.name: result.genomes[c.name] for c in node.children
+                    if c.name in result.genomes}
+        arc.append_subtree(result.steps[args.genome],
+                           result.genomes[args.genome], children)
+        _log(f"appended subtree {args.genome} "
+             f"({len(children)} children) to {args.archive}")
+    elif args.tool == "liftover":
+        # halLiftover: --genome src, --target dst, --bed in, --out bed
+        ivals = []
+        with open(args.bed) as fh:
+            for line in fh:
+                if line.strip() and not line.startswith(("#", "track")):
+                    f = line.split()
+                    ivals.append((f[0], int(f[1]), int(f[2])))
+        runs = arc.liftover(args.genome, ivals, args.target)
+        out = open(args.out, "w") if args.out else sys.stdout
+        for sname, s0, dname, d0, L, strand in runs:
+            out.write(f"{dname}\t{d0}\t{d0 + L}\t{sname}:{s0}-{s0 + L}\t0\t"
+                      f"{'+' if strand == 1 else '-'}\n")
+        if args.out:
+            out.close()
+            _log(f"wrote {args.out} ({len(runs)} runs)")
+    elif args.tool == "mutations":
+        print("#genome\tparent\talignedBp\tsubs\tinsEvents\tinsBp\t"
+              "delBp\tdupParentBp")
+        for row in arc.summarize_mutations():
+            print("{genome}\t{parent}\t{aligned_bp}\t{subs}\t"
+                  "{ins_events}\t{ins_bp}\t{del_bp}\t"
+                  "{dup_parent_bp}".format(**row))
+    elif args.tool == "snps":
+        snp = arc.snps(args.genome, args.target)
+        out = open(args.out, "w") if args.out else sys.stdout
+        out.write("#srcSeq\tsrcPos\tsrcBase\tdstSeq\tdstPos\tdstBase\n")
+        for row in snp:
+            out.write("\t".join(str(x) for x in row) + "\n")
+        if args.out:
+            out.close()
+            _log(f"wrote {args.out} ({len(snp)} SNPs)")
     return 0
 
 
@@ -261,7 +542,7 @@ def main(argv=None) -> int:
     pa.add_argument("--min-chain", type=int, default=None,
                     help="override the melting minimum chain length")
     pa.add_argument("--mask", action="store_true",
-                    help="(not ported yet) repeat-mask inputs")
+                    help="repeat-mask inputs before aligning")
     pa.add_argument("--config", default=None,
                     help="cactus-format config XML with parameter overrides")
     pa.add_argument("--tree-workers", type=int, default=1,
@@ -271,6 +552,37 @@ def main(argv=None) -> int:
                          "(comma-separated; deps resume from the store)")
     _add_device(pa)
     pa.set_defaults(fn=cmd_align)
+
+    pp = sub.add_parser("preprocess",
+                        help="sanitize + repeat-mask genomes → FASTAs")
+    pp.add_argument("seqfile")
+    pp.add_argument("outdir")
+    pp.add_argument("--no-mask", action="store_true")
+    pp.add_argument("--tandem-mask", action="store_true",
+                    help="FasTAN-style tandem-repeat masking")
+    pp.add_argument("--lastz-mask", action="store_true",
+                    help="sampled self-alignment repeat masking")
+    pp.add_argument("--satellite", choices=["softmask", "hardmask",
+                                            "clip"],
+                    help="annotate satellite arrays (dna-brnn analog) "
+                         "and apply the given action; writes "
+                         "<event>.satellites.bed")
+    _add_device(pp, "the k-mer count and the self-alignments")
+    pp.set_defaults(fn=cmd_preprocess)
+
+    pb = sub.add_parser("blast", help="pairwise anchoring stage → PAF")
+    pb.add_argument("seqfile")
+    pb.add_argument("out")
+    pb.add_argument("--events", default=None,
+                    help="comma-separated genome names (default: all pairs)")
+    pb.add_argument("--preset", default="default")
+    pb.add_argument("--fastga", action="store_true",
+                    help="adaptamer-style unique-seed aligner mode")
+    pb.add_argument("--minimap2", action="store_true",
+                    help="minimizer-sampled seed aligner mode "
+                         "(reference: minimap2 -c -x asm20)")
+    _add_device(pb, "the seed join and the gap fill")
+    pb.set_defaults(fn=cmd_blast)
 
     pm = sub.add_parser("hal2maf", help="export MAF from an alignment store")
     pm.add_argument("store")
@@ -285,6 +597,72 @@ def main(argv=None) -> int:
     pm.add_argument("--taf", action="store_true",
                     help="write TAF (+.tai index) instead of MAF")
     pm.set_defaults(fn=cmd_hal2maf)
+
+    pr = sub.add_parser("prepare",
+                        help="print the step-decomposed command plan")
+    pr.add_argument("seqfile")
+    pr.add_argument("outdir")
+    pr.add_argument("--wdl", default=None,
+                    help="write a WDL 1.0 workflow (Cromwell/Terra)")
+    pr.add_argument("--script", default=None,
+                    help="write an ordered shell script")
+    pr.set_defaults(fn=cmd_prepare)
+
+    pc = sub.add_parser("chains",
+                        help="UCSC chains between two genomes")
+    pc.add_argument("store")
+    pc.add_argument("ref")
+    pc.add_argument("query")
+    pc.add_argument("out")
+    pc.set_defaults(fn=cmd_chains)
+
+    ph = sub.add_parser("hal", help="HAL archive tools (halStats/"
+                        "hal2fasta/hal2maf/halValidate/halRemoveDupes)")
+    ph.add_argument("tool", choices=["stats", "fasta", "maf", "validate",
+                                     "removeDupes", "metadata", "liftover",
+                                     "snps", "mutations", "append",
+                                     "export-hdf5", "import-hdf5"])
+    ph.add_argument("--set", default=None,
+                    help="metadata key=value to store (halSetMetadata)")
+    ph.add_argument("archive")
+    ph.add_argument("--store", default=None,
+                    help="alignment store to append a subtree from "
+                         "(hal append)")
+    ph.add_argument("--genome", default=None)
+    ph.add_argument("--target", default=None,
+                    help="destination genome for liftover/snps")
+    ph.add_argument("--bed", default=None,
+                    help="input BED of source intervals (liftover)")
+    ph.add_argument("--out", default=None)
+    ph.add_argument("--ref-seq", default=None)
+    ph.add_argument("--hdf5", default=None,
+                    help="source HDF5 container (hal import-hdf5)")
+    ph.add_argument("--start", type=int, default=0)
+    ph.add_argument("--end", type=int, default=None)
+    ph.set_defaults(fn=cmd_hal)
+
+    ps = sub.add_parser("stats", help="halStats-style genome table")
+    ps.add_argument("store")
+    ps.set_defaults(fn=cmd_stats)
+
+    pbm = sub.add_parser("maf2bigmaf",
+                         help="MAF → bigMaf bed + autoSql "
+                              "(cactus-maf2bigmaf)")
+    pbm.add_argument("maf")
+    pbm.add_argument("out")
+    pbm.add_argument("--ref-genome", required=True)
+    pbm.set_defaults(fn=cmd_maf2bigmaf)
+
+    psf = sub.add_parser("hal2seqfile",
+                         help="store → seqfile + per-genome FASTAs "
+                              "(cactus-hal2seqfile)")
+    psf.add_argument("store")
+    psf.add_argument("outdir")
+    psf.add_argument("--out", default=None, help="seqfile path")
+    psf.add_argument("--events", default=None,
+                     help="comma-separated genome subset")
+    psf.add_argument("--leaves-only", action="store_true")
+    psf.set_defaults(fn=cmd_hal2seqfile)
 
     pf = sub.add_parser("gfa", help="consume an external GFA: "
                         "index/vcf/viz (vg/odgi-style tools)")

@@ -63,13 +63,14 @@ class HmmParams:
 
 
 def _chain_fwd(s, e: float):
-    """Solve y[b] = s[b] + e*y[b-1] along the band (Kogge-Stone)."""
+    """Solve y[b] = s[b] + e*y[b-1] along the band (Kogge-Stone), in
+    s's dtype."""
     P, B = s.shape
     y = s
-    f = torch.full((P, B), e, dtype=torch.float32, device=s.device)
+    f = torch.full((P, B), e, dtype=s.dtype, device=s.device)
     off = 1
     while off < B:
-        z = torch.zeros((P, off), dtype=torch.float32, device=s.device)
+        z = torch.zeros((P, off), dtype=s.dtype, device=s.device)
         y = y + f * torch.cat([z, y[:, :-off]], dim=1)
         f = f * torch.cat([z, f[:, :-off]], dim=1)
         off *= 2
@@ -90,21 +91,23 @@ def _chain_bwd(s, e: float):
     return y
 
 
-def _epow(e: float, k, dev):
-    """e ** k in float32 for an int tensor k (the contract's e ** j)."""
-    return torch.pow(torch.tensor(e, dtype=torch.float32, device=dev),
-                     k.to(torch.float32))
+def _epow(e: float, k, dev, dtype=torch.float32):
+    """e ** k in float32 (or dtype) for an int tensor k (the contract's
+    e ** j)."""
+    return torch.pow(torch.tensor(e, dtype=dtype, device=dev), k.to(dtype))
 
 
 def forward_banded(q, t_shift, m_len, n_len, lo, em, band: int,
-                   delta: float, epsilon: float):
+                   delta: float, epsilon: float, dtype=torch.float32):
     """Forward pass: (fM (P, M, B) f32 match band of every row after its
     rescale, lsF (P, M) f32 running log-scale after each row, logZ (P,)
-    f32).  Plain PyTorch, mirroring cactus_tpu/ops/pairhmm.py:160-200."""
+    f32).  Plain PyTorch, mirroring cactus_tpu/ops/pairhmm.py:160-200.
+    dtype=torch.float64 runs the same steps in double precision, a
+    reference for the float32 values (tests/pairhmm_float64_report.py)."""
     P, Mmax = q.shape
     B = band
     dev = q.device
-    f32 = torch.float32
+    f32 = dtype
     d, e = delta, epsilon
     tMM = 1.0 - 2.0 * d
     em = em.to(f32)
@@ -123,7 +126,7 @@ def forward_banded(q, t_shift, m_len, n_len, lo, em, band: int,
     j0 = lo_c + b_idx
     fM = torch.where(j0 == 0, 1.0, 0.0).to(f32)
     fY = torch.where((j0 >= 1) & (j0 <= n_c),
-                     d * _epow(e, torch.clamp_min(j0 - 1, 0), dev),
+                     d * _epow(e, torch.clamp_min(j0 - 1, 0), dev, f32),
                      0.0).to(f32)
     fX = torch.zeros((P, B), dtype=f32, device=dev)
     ls = torch.zeros(P, dtype=f32, device=dev)

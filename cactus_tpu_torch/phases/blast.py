@@ -4,7 +4,9 @@ Pipeline per (query contig, target contig), both strands (reference flow:
 src/cactus/paf/local_alignment.py:370-408 make_chunked_alignments and
 :660-727 chain/tile/filter):
 
-  1. k-mer seed join on the host (ops/seeds_host.py)
+  1. k-mer seed join on the host (ops/seeds_host.py), or batched on the
+     card for chunk pairs past SeedParams.device_join_threshold
+     (ops/seeds.py)
   2. merge seed hits into diagonal runs (host)
   3. collinear chaining with affine gap costs (ops/chain.py, native C++)
   4. gap-fill between chained runs with the banded DP kernel
@@ -12,10 +14,9 @@ src/cactus/paf/local_alignment.py:370-408 make_chunked_alignments and
   5. emit PafRecords; primary/secondary selection by query coverage
      (tp:A:P / tp:A:S as in paffy; local_alignment.py:133-143 consumes them)
 
-Functions that fill gaps take `device` (None = the current CUDA device,
-see ops.resolve_device).  The batched device seed join for chunk pairs
-past SeedParams.device_join_threshold and the multi-device mesh path are
-not ported yet (ROADMAP.md, "device seed join" and "parallel").
+Functions that join seeds or fill gaps take `device` (None = the current
+CUDA device, see ops.resolve_device).  The multi-device mesh path is not
+ported yet (ROADMAP.md, "parallel").
 """
 
 from __future__ import annotations
@@ -393,22 +394,86 @@ def _warn_anchor_overflow(task: StrandTask, n: int, cap: int, log) -> None:
             log(msg)
 
 
+# Device-memory budget of one seed_join_batch launch set (a sub-batch of a
+# shape bin).  The torch join's temporaries per task, in bytes, at their
+# peak (ops/seeds.py::seed_join_batch):
+#   inputs: codes + valid of both sides, 2 (lq + lt);
+#   hashes: int32 hash and bool ok a side, plus one int32 base column
+#     and its bool valid column while hashing, 10 (lq + lt);
+#   target sort: sorted int32 hashes, int64 argsort indices, the sort's
+#     own key + index workspace (as large again) and the gathered int32
+#     positions, 4 + 8 + 12 + 4 = 28 lt;
+#   query tables: int32 left, right, cnt and ends, 16 lq;
+#   expand by rank over the capacity `cap`: int32 slots, src, the start
+#     index and one gathered operand, the bool mask, and the two int32
+#     output tables, 4 * 4 + 1 + 8 = 25 cap (40 with the gathers' own
+#     int32 results in flight).
+# So per_task = 40 (lq + lt) + 40 cap bounds it (40 lt >= 2 + 10 + 28,
+# 40 lq >= 2 + 10 + 16).  The budget is a fixed 16 GiB, a fifth of the
+# H100's 80 GB, so that the other ancestor threads' kernels (a few GB at
+# most on the paths chip_smoke.py runs) always fit beside it; it is not
+# read from the free memory at run time, so that the batching, and the
+# order of work, stays the same from run to run.  The JAX package caps a
+# batch at 0.75 GB of a TPU's HBM with 18 (lq + lt) + 8 cap a task
+# (cactus_tpu/phases/blast.py:452-459).
+JOIN_BUDGET_BYTES = 16 << 30
+
+
+def join_bytes_per_task(lq: int, lt: int, cap: int) -> int:
+    """Device bytes one task of a seed_join_batch call takes at its peak
+    (the derivation above JOIN_BUDGET_BYTES)."""
+    return 40 * (lq + lt) + 40 * cap
+
+
 def _device_join_batch(tasks, idxs, out, cfg: BlastParams, max_occ: int,
-                       eff_cap, log) -> None:
-    """Batched device seed joins for big chunk pairs: not ported yet."""
-    raise NotImplementedError(
-        "the batched device seed join (cactus_tpu/phases/blast.py:430) is "
-        "not ported to cactus_tpu_torch yet: see ROADMAP.md, 'device seed "
-        "join'")
+                       eff_cap, log, device, budget: int = JOIN_BUDGET_BYTES
+                       ) -> None:
+    """Batched device seed joins for big chunk pairs on one card.
+
+    Tasks bin by (padded shapes, seed scheme); each bin is one
+    seed_join_batch call per sub-batch of at most `budget` bytes
+    (`join_bytes_per_task`).  Counts come to the host first (one sync),
+    then each task copies back only its true count of anchors, never the
+    full fixed-capacity table."""
+    import torch
+
+    sp = cfg.seed
+    prepped = {i: _task_inputs(tasks[i]) for i in idxs}
+    bins: dict[tuple, list[int]] = {}
+    for i in idxs:
+        t = tasks[i]
+        qp, qv, tp, tv = prepped[i]
+        ml = min(len(t.q), len(t.t))
+        key = (len(qp), len(tp), sp.k_for(t.preset, ml),
+               sp.step_for(t.preset), sp.pattern_for(t.preset, ml))
+        bins.setdefault(key, []).append(i)
+    for (lq, lt, k, step, pattern), grp in bins.items():
+        cap = eff_cap(lq)
+        b_max = max(1, budget // join_bytes_per_task(lq, lt, cap))
+        for g0 in range(0, len(grp), b_max):
+            sub = grp[g0:g0 + b_max]
+            qc, qv, tc, tv = (
+                torch.from_numpy(np.stack([prepped[i][f] for i in sub]))
+                .to(device) for f in range(4))
+            qpos, tpos, counts = seed_ops.seed_join_batch(
+                qc, qv, tc, tv, k=k, step=step, max_occ=max_occ,
+                max_anchors=cap, pattern=pattern, device=device)
+            counts = counts.cpu().numpy()
+            for row, i in enumerate(sub):
+                n = int(counts[row])
+                _warn_anchor_overflow(tasks[i], n, cap, log)
+                out[i] = (qpos[row, :n].cpu().numpy(),
+                          tpos[row, :n].cpu().numpy())
 
 
 def anchors_for_tasks(tasks: list[StrandTask], cfg: BlastParams,
-                      mesh=None, log=None) -> list:
-    """Seed-join anchors per task (host numpy join).
+                      mesh=None, log=None, device=None) -> list:
+    """Seed-join anchors per task.
 
-    Tasks at or past SeedParams.device_join_threshold (never, by
-    default) and a multi-device `mesh` need the device seed join, which
-    is not ported yet and raises.
+    On a CUDA `device`, tasks at or past SeedParams.device_join_threshold
+    (never, by default) take the batched device join; every other task,
+    and every task on the CPU, takes the exact host numpy join (the same
+    anchors).  A multi-device `mesh` is not ported yet and raises.
     """
     sp = cfg.seed
     # fastga mode: adaptamer-style target-unique seed hits
@@ -427,18 +492,24 @@ def anchors_for_tasks(tasks: list[StrandTask], cfg: BlastParams,
         return min(want, 1 << 24)
 
     if mesh is None or len(mesh.devices.flat) <= 1:
-        # single-device path: the exact host-numpy join (target
-        # hashed+sorted once per chunk, shared across strands/tiers/
-        # queries)
+        # single-device path: small tasks run the exact host-numpy join
+        # (target hashed+sorted once per chunk, shared across strands/
+        # tiers/queries; zero device round-trips); big chunk pairs go
+        # to the card as one batched join per shape bin, as the JAX
+        # package sends them to a TPU and joins on the host elsewhere
         from concurrent.futures import ThreadPoolExecutor
 
-        from ..ops import seeds_host
+        from ..ops import resolve_device, seeds_host
 
-        device_set = {i for i, t in enumerate(tasks)
-                      if len(t.q) + len(t.t) >= sp.device_join_threshold}
-        if device_set:
-            _device_join_batch(tasks, sorted(device_set), out, cfg,
-                               max_occ, eff_cap, log)
+        big = [i for i, t in enumerate(tasks)
+               if len(t.q) + len(t.t) >= sp.device_join_threshold]
+        device_set: set[int] = set()
+        if big:
+            dev = resolve_device(device)
+            if dev.type == "cuda":
+                device_set = set(big)
+                _device_join_batch(tasks, big, out, cfg, max_occ, eff_cap,
+                                   log, dev)
         host_idx = [i for i in range(len(tasks)) if i not in device_set]
         if not host_idx:
             return out
@@ -584,7 +655,8 @@ def run_tasks(tasks: list[StrandTask], cfg: BlastParams,
     _prof = _os.environ.get("CACTUS_BLAST_PROF")
     _t = _time.time()
     submat = score_matrix_6(PoaParams().sub_matrix)
-    anchors = anchors_for_tasks(tasks, cfg, mesh=mesh, log=log)
+    anchors = anchors_for_tasks(tasks, cfg, mesh=mesh, log=log,
+                                device=device)
     if _prof:
         print(f"[blast-prof] anchors({len(tasks)} tasks): "
               f"{_time.time() - _t:.2f}s", flush=True)

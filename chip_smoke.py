@@ -125,7 +125,7 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    widest band, with the vcfwave batch's band.  Recorders keep every
    banded_dp and banded_traceback call of each run, and each call is
    launched again on its inputs and held to its plain version
-   (`pan_check_banded`: live cells, end scores and states, moves and
+   (`check_banded_calls`: live cells, end scores and states, moves and
    counts equal).  Then the gfa index|vcf|viz and patch verbs on the star
    GFA, and the sv run one --stage a process, run side by side as
    `python -m cactus_tpu_torch` subprocesses.  Every file of every run
@@ -134,6 +134,39 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    each 2D layout (.lay.tsv) is held instead by its layout_stress, within
    PAN_LAYOUT_RTOL of the JAX package's layout on the same draws, with
    every coordinate finite.
+10. Runs the step-by-step pipeline through the port.  The masker's
+   k-mer count (`kmer_counts_mask`, k 13, max_count 8, dilate 10) runs
+   on one PIPE_MASK_LEN (32 Mb, cut from 64 Mb for the phase's time)
+   sequence with planted repeat families, on the card and on the CPU:
+   the masks must be equal; it logs both times (the device part,
+   `kmer_start_mask`, by CUDA events), the masked fraction and the
+   device peak.  Every other in-process run goes through `recorded_run`:
+   the launch counts set to 0 just before it and read just after, and
+   Recorders keeping each banded_dp and banded_traceback call (and each
+   pairhmm_fwd call where the run must reach the pair-HMM), each launched
+   again on its recorded inputs after the run and held to its plain
+   version (`check_recorded`).  The runs: `cli.main(["preprocess",
+   ...])` with --lastz-mask, --tandem-mask and --satellite softmask on
+   phase 3's five genomes (every FASTA and BED equal to the JAX
+   package's CPU output, pinned as sha256 digests in PIPE_DIGESTS); the
+   device seed join on two related 2 Mb sequences (q + t = 4 Mb, past
+   PIPE_JOIN_THRESHOLD): blast.align_contig_pair once with
+   seed.device_join_threshold lowered to it, which must reach
+   `_device_join_batch` once, and once with the default (the host join),
+   every task's anchors equal to the host join's and the PAF records of
+   the two runs equal (it logs the join's time, its device work by CUDA
+   events, against the host join's, the bins and sub-batches); and
+   `align --mask --maf` on phase 4's human-dog pair at 100 kb (it must
+   launch pairhmm_fwd and pairhmm_bwd) and on phase 5's two-genome
+   seqfile, and `blast --events a,b` in the default, --fastga and
+   --minimap2 modes on the latter.  Each of these runs must launch
+   banded_dp and banded_traceback.  Beside them, in `python -m cactus_tpu_torch`
+   subprocesses, `prepare --script` and `sh` of the plan on the
+   two-genome seqfile (every command must name cactus_tpu_torch; its
+   out.maf must equal the pinned digest, its out.hal read back and
+   validate in HalArchive), then `stats` on the plan's store.  Each
+   output must equal its pinned digest (`python
+   tests/pipeline_digest_report.py` makes them).
 
 Prints one `{"kernels": [...]}` JSON line (each entry also carries the
 shape it was timed at and `replayed_ms`, the path's calls of the kernel
@@ -535,14 +568,15 @@ def check_banded(pairs, band, sub_d, dev, errs, what):
 
 
 def check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, post_r, what,
-              quiet=False):
+              quiet=False, hold_forward=True):
     """A pair-HMM's kernels' outputs against the plain versions': every
     value finite, the posterior within HMM_ATOL, logZ within
     LOGZ_RTOL x max(1, |logZ|), and the forward values in log space,
     log(fM) + lsF, within FWD_LOG_ATOL on the cells where the plain fM is
     above 1e-30 (the value fM * exp(lsF) that both representations hold,
-    whichever way a row's scale is rounded).  Returns (posterior gap,
-    forward log gap); raises on a failed check."""
+    whichever way a row's scale is rounded; hold_forward=False reads
+    that gap without holding it).  Returns (posterior gap, forward log
+    gap); raises on a failed check."""
     import torch
     for name, x in (("fM", fM), ("lsF", lsF), ("logZ", logZ),
                     ("posterior", post)):
@@ -566,7 +600,7 @@ def check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, post_r, what,
     if d_z > LOGZ_RTOL:
         raise AssertionError(f"{what}: logZ differs by {d_z} relative > "
                              f"{LOGZ_RTOL}")
-    if d_fwd > FWD_LOG_ATOL:
+    if hold_forward and d_fwd > FWD_LOG_ATOL:
         raise AssertionError(f"{what}: log(fM) + lsF differs by {d_fwd} > "
                              f"{FWD_LOG_ATOL}")
     return d_post, d_fwd
@@ -2436,11 +2470,12 @@ def pan_layout_graph(lay, read_gfa, gfa=None):
     return read_gfa(os.path.join(root, "pangenome.gfa")), ref
 
 
-def pan_digests(outdir, layout2d, read_gfa, gfa=None) -> dict:
+def pan_digests(outdir, layout2d=None, read_gfa=None, gfa=None) -> dict:
     """{path under outdir: sha256} of every file a run wrote but its
     layout files, and {path of each .lay.tsv: {"stress", "finite"}}: its
     layout_stress and whether every coordinate is finite
-    (`pan_layout_graph` names the graph each is read against)."""
+    (`pan_layout_graph` names the graph each is read against; a directory
+    with layout files needs layout2d and read_gfa)."""
     import numpy as np
     out = {}
     for root, _dirs, files in sorted(os.walk(outdir)):
@@ -2457,9 +2492,13 @@ def pan_digests(outdir, layout2d, read_gfa, gfa=None) -> dict:
                                     6),
                     "finite": bool(np.isfinite(X).all())}
                 continue
-            with open(path, "rb") as fh:
-                out[rel] = hashlib.sha256(fh.read()).hexdigest()
+            out[rel] = sha256_of(path)
     return out
+
+
+def sha256_of(path) -> str:
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
 
 
 def pan_mismatches(got: dict, pinned: dict) -> list[str]:
@@ -2524,49 +2563,210 @@ class Spans:
         self.undo = []
 
 
-def pan_check_banded(run, dp, trace, dev) -> list[str]:
-    """Every banded_dp and banded_traceback call one phase 9 run made,
-    launched again on its recorded inputs and held to its plain version
-    on the same inputs: banded_dp's live cells, end scores and states,
-    and the traceback's moves and counts, equal.  Returns the calls that
-    differ."""
+# bytes of plain output (dirs, or fM and post) a concatenated group of
+# kept calls may make at once in `check_banded_calls` / `check_pairhmm_calls`
+CHECK_GROUP_BYTES = 4 << 30
+
+
+def call_groups(calls, bytes_of):
+    """The indices of kept calls (host copies) whose plain versions can
+    run as one batch: the same rows, keyword arguments (max_live aside,
+    which only the kernel takes) and last argument (the score table), cut
+    so that a group's plain output stays under CHECK_GROUP_BYTES.  A
+    pair's plain result does not depend on the rest of its batch."""
+    by_key: dict = {}
+    for i, (a, k) in enumerate(calls):
+        key = (a[0].shape[1], a[-1].numpy().tobytes(),
+               tuple(sorted((x, v) for x, v in k.items() if x != "max_live")))
+        by_key.setdefault(key, []).append(i)
+    groups = []
+    for idxs in by_key.values():
+        cur, size = [], 0
+        for i in idxs:
+            b = bytes_of(*calls[i])
+            if cur and size + b > CHECK_GROUP_BYTES:
+                groups.append(cur)
+                cur, size = [], 0
+            cur.append(i)
+            size += b
+        groups.append(cur)
+    return groups
+
+
+def concat_calls(calls, idxs, dev):
+    """A group's arguments as one batch on the card: the per-pair tensors
+    concatenated, the last argument (the score table) shared."""
+    import torch
+    first = calls[idxs[0]][0]
+    return tuple(torch.cat([calls[i][0][j] for i in idxs]).to(dev)
+                 for j in range(len(first) - 1)) + (first[-1].to(dev),)
+
+
+def check_banded_calls(run, dp, launches, dev) -> list[str]:
+    """Every banded_dp call one `recorded_run` kept, launched again on
+    its inputs and held to the plain version (one plain batch a
+    `call_groups` group): the live cells, end scores and end states
+    equal; then banded_traceback on that output, with the move capacity
+    the path gives it (`traceback_cap`), equal to the host traceback.
+    The path launches the traceback once after each banded_dp call.
+    Returns the calls that differ."""
     import torch
     from cactus_tpu_torch.ops import banded as tb
     from cactus_tpu_torch.ops import banded_cuda
     bad = []
-    for i, (a, k) in enumerate(dp.calls):
-        a = on_device(a, dev)
-        plain_kw = {x: v for x, v in k.items() if x != "max_live"}
-        if not banded_live_equal(dp.fn(*a, **k),
-                                 tb.banded_align_batch(*a, **plain_kw),
-                                 *a[2:5]):
-            bad.append(f"{run}: banded_dp call {i} at "
-                       f"{[*a[0].shape, k['band']]} differs from the plain "
-                       "version on the live cells")
-    for i, (a, k) in enumerate(trace.calls):
-        a = on_device(a, dev)
-        got = trace.fn(*a, **k)
-        ref = banded_cuda.banded_traceback_plain(*a, **k)
-        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
-            bad.append(f"{run}: banded_traceback call {i} at "
-                       f"{list(a[0].shape)} differs from the host traceback")
-    log(f"  {run}: {len(dp.calls)} banded_dp and {len(trace.calls)} "
-        f"banded_traceback calls, each launched again on its recorded "
-        f"inputs: {'every one equal to' if not bad else 'NOT all equal to'} "
-        f"its plain version")
+    if launches["banded_traceback"] != launches["banded_dp"]:
+        bad.append(f"{run}: {launches['banded_traceback']} banded_traceback "
+                   f"launches for {launches['banded_dp']} banded_dp "
+                   "launches")
+    plain_s = [0.0, 0.0]
+    groups = call_groups(dp.calls, lambda a, k: a[0].numel() * k["band"])
+    for idxs in groups:
+        kw = {x: v for x, v in dp.calls[idxs[0]][1].items()
+              if x != "max_live"}
+        t0 = time.time()
+        ref = tb.banded_align_batch(*concat_calls(dp.calls, idxs, dev), **kw)
+        plain_s[0] += time.time() - t0
+        row = 0
+        for i in idxs:
+            a, k = dp.calls[i]
+            a = on_device(a, dev)
+            rows = slice(row, row + a[0].shape[0])
+            row = rows.stop
+            got = dp.fn(*a, **k)
+            if not banded_live_equal(got, tuple(x[rows] for x in ref),
+                                     *a[2:5]):
+                bad.append(f"{run}: banded_dp call {i} at "
+                           f"{[*a[0].shape, k['band']]} differs from the "
+                           "plain version on the live cells")
+            tb_args = (got[0], *a[2:5], got[2], traceback_cap(a[2], a[3]))
+            moves, counts = banded_cuda.banded_traceback(*tb_args)
+            t0 = time.time()
+            want = banded_cuda.banded_traceback_plain(*tb_args)
+            plain_s[1] += time.time() - t0
+            if not (torch.equal(moves, want[0])
+                    and torch.equal(counts, want[1])):
+                bad.append(f"{run}: banded_traceback after banded_dp call "
+                           f"{i} at {list(a[0].shape)} differs from the "
+                           "host traceback")
+        del ref
+    log(f"  {run}: {len(dp.calls)} banded_dp calls, each launched again on "
+        f"its recorded inputs with banded_traceback on its output: "
+        f"{'every one equal to' if not bad else 'NOT all equal to'} the "
+        f"plain versions ({len(groups)} plain banded batches "
+        f"{plain_s[0]:.1f} s, host tracebacks {plain_s[1]:.1f} s)")
+    return bad
+
+
+def check_pairhmm_calls(run, fwd, launches, dev) -> list[str]:
+    """Every pairhmm_fwd call one `recorded_run` kept, launched again on
+    its inputs with pairhmm_bwd on its outputs, and held to the plain
+    versions (one plain batch a `call_groups` group): the posterior
+    within HMM_ATOL and logZ within LOGZ_RTOL, as `check_hmm` holds them.
+    The forward values are read, not held: at cells some 1e-30 below
+    their row's maximum neither float32 version is accurate (against the
+    plain steps run in float64, both are off by up to 18 in log space on
+    the human-dog pair's calls: tests/pairhmm_float64_report.py); the log
+    names the largest gap and the largest plain fM among the cells past
+    FWD_LOG_ATOL.  Returns the calls that differ."""
+    import torch
+    from cactus_tpu_torch.ops import pairhmm as tp
+    from cactus_tpu_torch.ops import pairhmm_cuda
+    bad, gaps, past = [], [0.0, 0.0], [0, 0.0]
+    if launches["pairhmm_bwd"] != launches["pairhmm_fwd"]:
+        bad.append(f"{run}: {launches['pairhmm_bwd']} pairhmm_bwd launches "
+                   f"for {launches['pairhmm_fwd']} pairhmm_fwd launches")
+    t0 = time.time()
+    groups = call_groups(fwd.calls, lambda a, k: 8 * a[0].numel() * k["band"])
+    for idxs in groups:
+        kw = fwd.calls[idxs[0]][1]
+        cat = concat_calls(fwd.calls, idxs, dev)
+        ref = tp.forward_banded(*cat, **kw)
+        ref = (*ref, tp.backward_posterior(*ref, *cat, **kw))
+        del cat
+        row = 0
+        for i in idxs:
+            a, k = fwd.calls[i]
+            a = on_device(a, dev)
+            rows = slice(row, row + a[0].shape[0])
+            row = rows.stop
+            fM, lsF, logZ = fwd.fn(*a, **k)
+            post = pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ, *a, **k)
+            fM_r, lsF_r = ref[0][rows], ref[1][rows]
+            try:
+                got = check_hmm(fM, lsF, logZ, post,
+                                *(x[rows] for x in ref),
+                                f"{run}: pairhmm call {i} at "
+                                f"{[*a[0].shape, k['band']]}", quiet=True,
+                                hold_forward=False)
+            except AssertionError as err:
+                bad.append(str(err))
+                continue
+            gaps = [max(g, x) for g, x in zip(gaps, got)]
+            far = (fM_r > 1e-30) & (((torch.log(fM) + lsF[..., None])
+                                     - (torch.log(fM_r) + lsF_r[..., None]))
+                                    .abs() > FWD_LOG_ATOL)
+            if bool(far.any()):
+                past = [past[0] + int(far.sum()),
+                        max(past[1], float(fM_r[far].max()))]
+        del ref
+    log(f"  {run}: {len(fwd.calls)} pairhmm_fwd calls, each launched again "
+        f"on its recorded inputs with pairhmm_bwd: "
+        f"{'every one within' if not bad else 'NOT all within'} the "
+        f"posterior and logZ tolerances of the plain versions (largest "
+        f"posterior gap {gaps[0]:.3g}); forward values, read: largest "
+        f"log(fM) + lsF gap {gaps[1]:.3g}, {past[0]} cells past "
+        f"{FWD_LOG_ATOL}, their largest plain fM {past[1]:.3g} of its row "
+        f"maximum; {len(groups)} plain batches, {time.time() - t0:.1f} s")
+    return bad
+
+
+def recorded_run(dev, fn, dp_cells=None, hmm=False):
+    """fn() in process, with the launch counts set to 0 just before it
+    and read just after, and Recorders keeping every banded_dp call (with
+    hmm also every pairhmm_fwd call) as host copies, for
+    `check_recorded`; dp_cells(args, kw), where given, sees each
+    banded_dp call.  Returns (fn's result, launches, wall seconds, device
+    peak bytes, the Recorders by kernel)."""
+    import torch
+    from cactus_tpu_torch.ops import banded_cuda, cuda_build, pairhmm_cuda
+    recs = {"banded_dp": Recorder(banded_cuda, "banded_dp", dp_cells,
+                                  attr="launch_banded_dp", keep_calls="host")}
+    if hmm:
+        recs["pairhmm_fwd"] = Recorder(pairhmm_cuda, "pairhmm_fwd", None,
+                                       keep_calls="host")
+    for rec in recs.values():
+        rec.install()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_build.reset_launches()
+    t0 = time.time()
+    try:
+        out = fn()
+        torch.cuda.synchronize(dev)
+    finally:
+        launches = cuda_build.launches()
+        for rec in recs.values():
+            rec.remove()
+    return (out, launches, time.time() - t0,
+            torch.cuda.max_memory_allocated(dev), recs)
+
+
+def check_recorded(run, recs, launches, dev) -> list[str]:
+    """The calls a `recorded_run` kept, each held to its plain version."""
+    bad = check_banded_calls(run, recs["banded_dp"], launches, dev)
+    if "pairhmm_fwd" in recs:
+        bad += check_pairhmm_calls(run, recs["pairhmm_fwd"], launches, dev)
     return bad
 
 
 def pan_run(dev, run, fn, outdir, pinned, spans_of):
-    """One in-process run of phase 9 with the launch counts set to 0 just
-    before it and read just after; Recorders keep every banded_dp and
-    banded_traceback call (host copies), each held to its plain version
-    after the run (`pan_check_banded`).  Logs the run's wall split, device
-    peak and banded_dp calls (band, live cells, whether inside vcfwave),
-    and returns its launches and the mismatches of its calls and files
+    """One in-process run of phase 9 through `recorded_run`, every
+    banded_dp and banded_traceback call held to its plain version after
+    the run (`check_recorded`).  Logs the run's wall split, device peak
+    and banded_dp calls (band, live cells, whether inside vcfwave), and
+    returns its launches and the mismatches of its calls and files
     against their plain versions and pinned readings."""
-    import torch
-    from cactus_tpu_torch.ops import banded_cuda, cuda_build
+    from cactus_tpu_torch.ops import banded_cuda
     from cactus_tpu_torch.pangenome import layout2d
     from cactus_tpu_torch.pangenome.graph import read_gfa
     spans = spans_of()
@@ -2578,26 +2778,10 @@ def pan_run(dev, run, fn, outdir, pinned, spans_of):
             *args[2:5], M, kw["band"]), "vcfwave" in spans.open))
         return P * M * kw["band"]
 
-    dp = Recorder(banded_cuda, "banded_dp", dp_cells,
-                  attr="launch_banded_dp", keep_calls="host")
-    trace = Recorder(banded_cuda, "banded_traceback", None,
-                     keep_calls="host")
-    for rec in (dp, trace):
-        rec.install()
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    cuda_build.reset_launches()
-    t0 = time.time()
     try:
-        fn()
-        torch.cuda.synchronize(dev)
+        _out, launches, wall, peak, recs = recorded_run(dev, fn, dp_cells)
     finally:
-        launches = cuda_build.launches()
-        for rec in (dp, trace):
-            rec.remove()
         spans.remove()
-    wall = time.time() - t0
-    peak = torch.cuda.max_memory_allocated(dev)
     ran = {k: v for k, v in launches.items() if v}
     log(f"phase 9 {run}: {wall:.1f} s wall, device peak {peak / 1e6:.0f} MB "
         f"allocated, kernel launches {ran}")
@@ -2619,7 +2803,7 @@ def pan_run(dev, run, fn, outdir, pinned, spans_of):
             f"{max(c[0] for c in dp_calls)}; the vcfwave batch: "
             + (f"{len(wave)} launches at band {sorted({c[0] for c in wave})}, "
                f"{sum(c[1] for c in wave)} live cells" if wave else "none"))
-    bad = pan_check_banded(run, dp, trace, dev)
+    bad = check_recorded(run, recs, launches, dev)
     got = pan_digests(outdir, layout2d, read_gfa)
     for rel, val in sorted(got.items()):
         if isinstance(val, dict):
@@ -2749,6 +2933,433 @@ def phase_pangenome(dev):
         "and staged), refmap and split runs and of the gfa and patch verbs "
         "equals the JAX package's CPU output (sha256), and every layout "
         "holds its readings")
+
+
+# ---------------------------------------------- phase 10: the pipeline
+
+# phase 10's inputs: one sequence of PIPE_MASK_LEN bases with planted
+# repeat families for the masker's k-mer count,
+# two related PIPE_JOIN_LEN sequences for the device seed join (their
+# q + t reaches PIPE_JOIN_THRESHOLD, the size past which the JAX package
+# joins on the device and not on the host), phase 3's five genomes for
+# `preprocess` and phase 5's two-genome tree for the plan and verbs, with
+# repeat families planted in both (evolver's genomes have none)
+PIPE_SEED = 31
+# 64 Mb (human chr20's size class) took phase 10 past its 90 s aim (102 s
+# in the first chip run, the CPU's count 20.4 s of it): cut to 32 Mb
+PIPE_MASK_LEN = 32_000_000
+PIPE_JOIN_LEN = 2_000_000
+PIPE_JOIN_THRESHOLD = 4_000_000
+PIPE_PAIR_NEWICK = "(a:0.05,b:0.05)root;"
+PIPE_PREPROCESS_OPTS = ("--lastz-mask", "--tandem-mask", "--satellite",
+                        "softmask")
+PIPE_BLAST_MODES = {"blast": (), "blast_fastga": ("--fastga",),
+                    "blast_minimap2": ("--minimap2",)}
+# the JAX package's CPU output of each phase 10 run (sha256 of each file;
+# "stats" of the stats verb's standard output):
+# `JAX_PLATFORMS=cpu python tests/pipeline_digest_report.py`
+PIPE_DIGESTS = {'align_mask': 'f820341951d420ec73b6188a7b2fb4572d96b64ac7e03c6198a497e74b39d70f',
+ 'align_mask_human_dog': 'd0fc34d2b8ab12e41ed81627879dce72f10ff012bca65b25979eb4393886cada',
+ 'blast': '9df1b5c0bbf8df9ea5a827e2c7576e787e56101d0644401d116af3c79e1ff58a',
+ 'blast_fastga': '3281e87dca7d45f50ddf84a1abfa96cd9304a95e835b30a7ae9c8038162be8f2',
+ 'blast_minimap2': 'd3cd3aa2f31cd23a0b30e7d3442628979332d8699cef9e3f27e4adf203c2687f',
+ 'plan': 'f1016d0f4dfee00b277c94535d24cbfbffc84d2742f50ac4e3a6bd582cf72fab',
+ 'preprocess': {'simCow_chr6.fa': 'e082485ab0dc60cbe2acae5fd9fd69c7cd700122bd8bb7b16550b1b2d4d2450b',
+                'simCow_chr6.satellites.bed': 'b5a524d71e1dc5b8f53030c5d1455d2175065a8a71978da5e85ace407b47f179',
+                'simDog_chr6.fa': 'afb4660dd3fab788a50ac149e5b46bef90ffc0b25176a8fd89a59a71e1795730',
+                'simDog_chr6.satellites.bed': '479264be77909ecc25a6b40b353d3f38615af0838259c27b0c3a4ae00229dbbe',
+                'simHuman_chr6.fa': '1d8a0908e6b07b692e370066095a0aa5e1714d2e6adcd1b7be5cae02137ff0a7',
+                'simHuman_chr6.satellites.bed': '7a91d5ac824eeb0c2aa05185eecb37f63b4c85b0b8af9458676394d2bcf80b0d',
+                'simMouse_chr6.fa': '4ab900d04f34bf09a3038900dd162e2cf36b0630a148ae607c533c74ebf50b77',
+                'simMouse_chr6.satellites.bed': 'ee7878b97fc04bf7405eec9075e1cca1ccd6d3d1cf1056382680e5b08ad9da3c',
+                'simRat_chr6.fa': 'e7eab0270390424b656ba351136beebd411c9b552fee2372e33f5ee7d30f6d4a',
+                'simRat_chr6.satellites.bed': '76bdb3119fb07e398e7944e5494bbb331cbf11cec7616a527e211246d6b740b7'},
+ 'stats': 'e8064f92061c822338cea8d222bf7ddc7c80238b20bdf459d34d6cfccf676e1f'}
+
+
+def repeat_codes(n, seed, families=((300, 1000, 0.12), (6000, 60_000, 0.15),
+                                    (2000, 40_000, 0.05)),
+                 gap_every=640_000):
+    """n random bases with repeat families planted (unit length, one copy
+    every so many bases, substitution rate of a copy: Alu-, L1- and
+    young-family-like) and 10 kb runs of N (assembly gaps)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, n, dtype=np.uint8)
+    for unit_len, every, div in families:
+        unit = rng.integers(0, 4, unit_len, dtype=np.uint8)
+        m = n // every
+        starts = rng.integers(0, n - unit_len, m)
+        idx = (starts[:, None] + np.arange(unit_len)).ravel()
+        vals = np.tile(unit, m)
+        sub = rng.random(len(vals)) < div
+        vals[sub] = rng.integers(0, 4, int(sub.sum()), dtype=np.uint8)
+        codes[idx] = vals
+    if gap_every:
+        for at in rng.integers(0, n - 10_000, n // gap_every):
+            codes[at:at + 10_000] = 4
+    return codes
+
+
+def join_pair(seed=PIPE_SEED, n=PIPE_JOIN_LEN):
+    """Two related n-base sequences (5% substitutions, 1% indels) sharing
+    80 copies of a 300 bp repeat (1% diverged), so that the join's
+    per-k-mer cap (max_occ 64) binds."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = repeat_codes(n + 60_000, seed, families=((300, n // 80, 0.01),),
+                        gap_every=0)
+    t = mutate(rng, base, sub=0.05, indel=0.01)[:n]
+    return np.ascontiguousarray(base[:n]), t
+
+
+def plant_repeats(sim, seed):
+    """Plant repeat families into every genome of an evolver run: a young
+    family (300 bp, 3% diverged copies, one every 6 kb) that the k-mer
+    count masks, an old one (1 kb, 20% diverged, one every 12 kb) that
+    it mostly misses, a 40 bp tandem array and an alpha-satellite-like
+    array (171 bp x 8) in each sequence.  The families' units are shared
+    by all genomes, the copies' places are each genome's own."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    units = [(rng.integers(0, 4, n, dtype=np.uint8), every, div)
+             for n, every, div in ((300, 6000, 0.03), (1000, 12_000, 0.2))]
+    tandem = rng.integers(0, 4, 40, dtype=np.uint8)
+    alpha = rng.integers(0, 4, 171, dtype=np.uint8)
+    for name in sorted(sim.genomes):
+        codes = sim.genomes[name].codes.copy()
+        L = len(codes)
+        for unit, every, div in units:
+            for at in rng.integers(0, L - len(unit), max(1, L // every)):
+                copy = unit.copy()
+                sub = rng.random(len(unit)) < div
+                copy[sub] = rng.integers(0, 4, int(sub.sum()), dtype=np.uint8)
+                codes[at:at + len(unit)] = copy
+        codes[L // 4:L // 4 + 400] = np.tile(tandem, 10)
+        codes[L // 2:L // 2 + 171 * 8] = np.tile(alpha, 8)
+        sim.genomes[name].codes = codes
+
+
+def pipe_inputs(work, evolver, parse_newick):
+    """Phase 10's seqfiles under `work`, made with the given package's
+    evolver, with repeats planted (`plant_repeats`): {"mammals": phase
+    3's five genomes, "pair": phase 5's tree and seed at 24 kb, so that
+    its sequences pass the masker's 20 kb contig floor, "human_dog":
+    phase 4's pair at 100 kb, whose masked alignment reaches the
+    pair-HMM}."""
+    seqfiles = {}
+    for name, newick, root_len, seed in (
+            ("mammals", EVOLVER_MAMMALS_NEWICK, ROOT_LEN, 41),
+            ("pair", PIPE_PAIR_NEWICK, 24_000, 7),
+            ("human_dog", PECAN_NEWICK, 100_000, 41)):
+        sim = evolver.simulate(parse_newick(newick), root_len=root_len,
+                               seed=seed)
+        plant_repeats(sim, PIPE_SEED)
+        seqfiles[name] = evolver.write_seqfile(
+            sim, os.path.join(work, f"in_{name}"))
+    return seqfiles
+
+
+def pipe_verb_runs(seqfiles, work):
+    """[(run, argv, the file it writes, the kernels it must launch)] of
+    `align --mask --maf` on the human-dog pair (its nested refinement
+    reaches the pair-HMM) and on the pair seqfile, and of the `blast`
+    verb in each aligner mode on the pair seqfile."""
+    runs = []
+    for run, sf in (("align_mask_human_dog", "human_dog"),
+                    ("align_mask", "pair")):
+        out = os.path.join(work, f"{run}.maf")
+        runs.append((run, ["align", seqfiles[sf], os.path.join(work, run),
+                           "--mask", "--maf", out], out,
+                     DEFAULT_KERNELS if sf == "human_dog"
+                     else ("banded_dp", "banded_traceback")))
+    for run, opts in PIPE_BLAST_MODES.items():
+        out = os.path.join(work, f"{run}.paf")
+        runs.append((run, ["blast", seqfiles["pair"], out, "--events", "a,b",
+                           *opts], out, ("banded_dp", "banded_traceback")))
+    return runs
+
+
+def python_on_path(work, args=""):
+    """Environment whose `python` runs this interpreter (a script, not a
+    link, so that a virtual environment stays on) with `args` after the
+    command's own, and that imports the checkout's packages (prepare's
+    plan runs `python -m <package>`)."""
+    bindir = os.path.join(work, "bin")
+    os.makedirs(bindir, exist_ok=True)
+    wrapper = os.path.join(bindir, "python")
+    with open(wrapper, "w") as fh:
+        fh.write(f'#!/bin/sh\nexec {sys.executable} "$@" {args}\n')
+    os.chmod(wrapper, 0o755)
+    return dict(os.environ, PATH=bindir + os.pathsep + os.environ["PATH"],
+                PYTHONPATH=HERE)
+
+
+def run_plan(package, seqfile, outdir, work, env, timeout=600):
+    """`python -m <package> prepare seqfile outdir --script plan.sh`, then
+    `sh plan.sh`, in subprocesses; returns (the plan's commands, wall
+    seconds)."""
+    script = os.path.join(work, "plan.sh")
+    t0 = time.time()
+    for argv in ([sys.executable, "-m", package, "prepare", seqfile, outdir,
+                  "--script", script], ["sh", script]):
+        proc = subprocess.run(argv, cwd=HERE, env=env, capture_output=True,
+                              text=True, timeout=timeout)
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(argv[:4])} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    with open(script) as fh:
+        cmds = [ln.strip() for ln in fh
+                if ln.strip() and not ln.startswith("#")
+                and not ln.startswith("set ")]
+    return cmds, time.time() - t0
+
+
+def phase_mask(dev):
+    """Phase 10, step 1: the masker's k-mer count at a chromosome's size,
+    on the card and on the CPU."""
+    import torch
+    from cactus_tpu_torch.preprocessor import masking
+    t0 = time.time()
+    codes = repeat_codes(PIPE_MASK_LEN, PIPE_SEED)
+    log(f"phase 10 mask input: {PIPE_MASK_LEN} bases with planted repeat "
+        f"families, seed {PIPE_SEED}, in {time.time() - t0:.1f} s")
+    masking.kmer_counts_mask(codes[:1 << 20], device=dev)   # warm-up
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    got = masking.kmer_counts_mask(codes, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    # the device part alone (upload, hashes, sort, counts), by CUDA events
+    busy = time_ms(lambda: masking.kmer_start_mask(codes, 13, 8, dev), 3)
+    t0 = time.time()
+    want = masking.kmer_counts_mask(codes, device="cpu")
+    cpu_wall = time.time() - t0
+    if not (got.shape == want.shape and (got == want).all()):
+        raise AssertionError(f"phase 10: the card's mask differs from the "
+                             f"CPU's at {int((got != want).sum())} positions")
+    log(f"phase 10 mask: kmer_counts_mask (k 13, max_count 8, dilate 10) "
+        f"on {PIPE_MASK_LEN} bases equal on the card and the CPU; masked "
+        f"{want.mean():.4f}; card {wall:.3f} s wall, of it the device part "
+        f"(kmer_start_mask: upload, hashes, sort, counts) {busy:.3f} ms by "
+        f"CUDA events, the rest host work; device peak {peak / 1e6:.0f} MB "
+        f"over the input; CPU {cpu_wall:.2f} s")
+
+
+def phase_join(dev):
+    """Phase 10, step 3: the device seed join at q + t = 4 Mb against the
+    host join; each align_contig_pair run through `recorded_run`.
+    Returns the kernel calls that differ from their plain versions and
+    the kernels a run never launched."""
+    import dataclasses
+
+    import numpy as np
+    from cactus_tpu_torch.config import Config
+    from cactus_tpu_torch.io.fasta import Sequence
+    from cactus_tpu_torch.ops import seeds
+    from cactus_tpu_torch.phases import blast
+    q, t = join_pair()
+    qs, ts = Sequence("q", q), Sequence("t", t)
+    cfg = Config.default().blast
+    dev_cfg = dataclasses.replace(cfg, seed=dataclasses.replace(
+        cfg.seed, device_join_threshold=PIPE_JOIN_THRESHOLD))
+    joins, batches, host = [], [], []
+    real_join, real_batch = blast._device_join_batch, seeds.seed_join_batch
+    real_anchors = blast.anchors_for_tasks
+
+    def join_spy(tasks, idxs, out, *a, **kw):
+        t0 = time.time()
+        real_join(tasks, idxs, out, *a, **kw)
+        joins.append((time.time() - t0, [out[i] for i in idxs]))
+
+    def batch_spy(*a, **kw):
+        batches.append((tuple(a[0].shape), kw["max_anchors"], a, kw))
+        return real_batch(*a, **kw)
+
+    def anchors_spy(tasks, *a, **kw):
+        t0 = time.time()
+        out = real_anchors(tasks, *a, **kw)
+        host.append((time.time() - t0, out))
+        return out
+
+    bad, runs = [], {}
+    for run, c, spies in (
+            ("join device", dev_cfg, ((blast, "_device_join_batch", join_spy),
+                                      (seeds, "seed_join_batch", batch_spy))),
+            ("join host", cfg, ((blast, "anchors_for_tasks", anchors_spy),))):
+        for owner, attr, spy in spies:
+            setattr(owner, attr, spy)
+        try:
+            runs[run] = recorded_run(dev, lambda c=c: blast.align_contig_pair(
+                qs, ts, "q", "t", c, device=dev))
+        finally:
+            blast._device_join_batch, seeds.seed_join_batch = real_join, \
+                real_batch
+            blast.anchors_for_tasks = real_anchors
+        _recs, launches, wall, peak, recorders = runs[run]
+        log(f"phase 10 {run}: align_contig_pair {wall:.1f} s wall, device "
+            f"peak {peak / 1e6:.0f} MB, kernel launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        bad += check_recorded(run, recorders, launches, dev)
+        bad += [f"{run}: {name} was never launched"
+                for name in ("banded_dp", "banded_traceback")
+                if launches[name] <= 0]
+    # the join's device work alone, each sub-batch by CUDA events
+    join_ms = sum(time_ms(lambda a=a, kw=kw: real_batch(*a, **kw), 3)
+                  for _shape, _cap, a, kw in batches)
+    if len(joins) != 1:
+        raise AssertionError(f"phase 10: _device_join_batch ran "
+                             f"{len(joins)} times at q + t = "
+                             f"{len(q) + len(t)} (threshold "
+                             f"{PIPE_JOIN_THRESHOLD}), not once")
+    join_s, dev_anchors = joins[0]
+    host_join, host = host[0]
+    diff = [i for i, ((dq, dt), (hq, ht)) in enumerate(zip(dev_anchors, host))
+            if not (np.array_equal(dq, hq) and np.array_equal(dt, ht))]
+    if diff or len(dev_anchors) != len(host):
+        raise AssertionError(f"phase 10: the device join's anchors differ "
+                             f"from the host join's on tasks {diff}")
+    dev_recs, host_recs = runs["join device"][0], runs["join host"][0]
+    if [r.to_line() for r in dev_recs] != [r.to_line() for r in host_recs]:
+        raise AssertionError("phase 10: the PAF records of the device-join "
+                             "run differ from the host-join run's")
+    per_task = blast.join_bytes_per_task(
+        batches[0][0][1], batches[0][0][1], batches[0][1])
+    log(f"phase 10 join: {len(q)} + {len(t)} bases, 2 strand tasks, "
+        f"{len({b[:2] for b in batches})} bin(s), {len(batches)} "
+        f"sub-batch(es) {[b[:2] for b in batches]} (shape, capacity); "
+        f"anchors {[len(a[0]) for a in dev_anchors]} equal to the host "
+        f"join's; device join {join_s:.3f} s (host copies included; "
+        f"seed_join_batch's device work {join_ms:.3f} ms by CUDA events) "
+        f"against the host join's {host_join:.3f} s; {len(dev_recs)} PAF "
+        f"records equal; the budget counts {per_task / 1e6:.0f} MB a task")
+    return bad
+
+
+def phase_preprocess(dev, seqfile, out):
+    """Phase 10, step 2: `preprocess --lastz-mask --tandem-mask --satellite
+    softmask` on phase 3's five genomes through `recorded_run`; returns
+    the kernel calls that differ from their plain versions, the kernels
+    it never launched and the files that differ from the JAX package's."""
+    from cactus_tpu_torch import cli
+    rc, launches, wall, peak, recs = recorded_run(dev, lambda: cli.main(
+        ["preprocess", seqfile, out, *PIPE_PREPROCESS_OPTS]))
+    ran = {k: v for k, v in launches.items() if v}
+    log(f"phase 10 preprocess {' '.join(PIPE_PREPROCESS_OPTS)} on 5 genomes "
+        f"({ROOT_LEN} bp root): exit {rc}, {wall:.1f} s wall, device peak "
+        f"{peak / 1e6:.0f} MB, kernel launches {ran}")
+    bad = check_recorded("preprocess", recs, launches, dev)
+    bad += [f"preprocess/{m}" for m in pan_mismatches(
+        pan_digests(out), PIPE_DIGESTS["preprocess"])]
+    for name in ("banded_dp", "banded_traceback"):
+        if launches[name] <= 0:
+            bad.append(f"preprocess: {name} was never launched")
+    return bad + ([f"preprocess exited {rc}"] if rc else [])
+
+
+def phase_plan_and_verbs(dev, seqfiles, work):
+    """Phase 10, step 4: prepare's plan run by `sh` in `python -m
+    cactus_tpu_torch` subprocesses, and beside it, in process through
+    `recorded_run`, `align --mask --maf` and the blast verb in three
+    modes, then the stats verb on the plan's store (a subprocess);
+    returns the kernel calls that differ from their plain versions, the
+    kernels a run never launched and what differs from the JAX package's
+    output."""
+    from cactus_tpu_torch import cli
+    from cactus_tpu_torch.hal_archive import HalArchive
+    env = python_on_path(work)
+    plan_out = os.path.join(work, "plan")
+    bad, plan = [], {}
+
+    def planned():
+        try:
+            plan["cmds"], plan["secs"] = run_plan(
+                "cactus_tpu_torch", seqfiles["pair"], plan_out, work, env)
+        except (AssertionError, subprocess.TimeoutExpired) as e:
+            plan["err"] = e
+
+    t0 = time.time()
+    thread = threading.Thread(target=planned)
+    thread.start()
+    try:
+        for run, argv, out, need in pipe_verb_runs(seqfiles, work):
+            rc, launches, wall, _peak, recs = recorded_run(
+                dev, lambda argv=argv: cli.main(argv),
+                hmm="pairhmm_fwd" in need)
+            log(f"phase 10 {run}: exit {rc}, {wall:.1f} s wall, kernel "
+                f"launches { {k: v for k, v in launches.items() if v} }")
+            bad += check_recorded(run, recs, launches, dev)
+            bad += [f"{run}: {name} was never launched" for name in need
+                    if launches[name] <= 0]
+            if rc:
+                bad.append(f"{run} exited {rc}")
+            elif sha256_of(out) != PIPE_DIGESTS[run]:
+                bad.append(f"{run}: {os.path.basename(out)} sha256 "
+                           f"{sha256_of(out)[:16]}... != pinned "
+                           f"{PIPE_DIGESTS[run][:16]}...")
+    finally:
+        thread.join()
+    verbs_secs = time.time() - t0
+    if "err" in plan:
+        return bad + [f"plan: {plan['err']}"]
+    cmds = plan["cmds"]
+    bad += [f"plan command runs another package: {c}" for c in cmds
+            if not c.startswith("python -m cactus_tpu_torch ")]
+    maf = os.path.join(plan_out, "out.maf")
+    if sha256_of(maf) != PIPE_DIGESTS["plan"]:
+        bad.append(f"plan: out.maf sha256 {sha256_of(maf)[:16]}... != "
+                   f"pinned {PIPE_DIGESTS['plan'][:16]}...")
+    arc = HalArchive.open(os.path.join(plan_out, "out.hal"))
+    errs = arc.validate()
+    if sorted(arc.genomes()) != ["a", "b", "root"] or errs:
+        bad.append(f"plan: out.hal reads back as genomes {arc.genomes()}, "
+                   f"validate {errs[:5]}")
+    proc = subprocess.run([sys.executable, "-m", "cactus_tpu_torch",
+                           "stats", plan_out], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=300)
+    got = hashlib.sha256(proc.stdout.encode()).hexdigest()
+    if proc.returncode != 0 or got != PIPE_DIGESTS["stats"]:
+        bad.append(f"stats exited {proc.returncode}, stdout sha256 "
+                   f"{got[:16]}... (pinned {PIPE_DIGESTS['stats'][:16]}...)")
+    log(f"phase 10 plan: {len(cmds)} commands, each `python -m "
+        f"cactus_tpu_torch`: " + "; ".join(c.split(" ", 4)[3] for c in cmds)
+        + f"; prepare + sh plan.sh {plan['secs']:.1f} s; beside it, in "
+        f"process, align --mask --maf and blast (default, --fastga, "
+        f"--minimap2), {verbs_secs:.1f} s for all; stats on the plan's "
+        f"store")
+    return bad
+
+
+def phase_pipeline(dev):
+    """The step-by-step pipeline through the port on the card (the module
+    docstring's phase 10)."""
+    from cactus_tpu_torch.testutil import evolver
+    from cactus_tpu_torch.utils.trees import parse_newick
+    phase_mask(dev)
+    work = tempfile.mkdtemp(prefix="smoke_pipe_",
+                            dir=os.path.join(HERE, "cactus_tpu_torch",
+                                             "_build"))
+    try:
+        t0 = time.time()
+        seqfiles = pipe_inputs(work, evolver, parse_newick)
+        log(f"phase 10 inputs: phase 3's five genomes, phase 5's pair and "
+            f"phase 4's human-dog pair as seqfiles, {time.time() - t0:.1f} s")
+        bad = phase_preprocess(dev, seqfiles["mammals"],
+                               os.path.join(work, "prep"))
+        bad += phase_join(dev)
+        bad += phase_plan_and_verbs(dev, seqfiles, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if bad:
+        raise AssertionError("phase 10: launches missing or outputs "
+                             "different from the JAX package's pinned CPU "
+                             "output:\n  " + "\n  ".join(bad))
+    log("phase 10: preprocess, the plan's out.maf, align --mask, blast in "
+        "three modes and stats equal the JAX package's CPU output "
+        "(sha256); the plan's HAL reads back and validates")
 
 
 def dump_banded(recorder, path):
@@ -2942,8 +3553,11 @@ def main() -> int:
     log(f"phase 8 (the wide routes) {time.time() - t0:.1f} s")
     t0 = time.time()
     phase_pangenome(dev)
-    log(f"phase 9 (the pangenome builder) {time.time() - t0:.1f} s; total "
-        f"{time.time() - t_all:.1f} s")
+    log(f"phase 9 (the pangenome builder) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_pipeline(dev)
+    log(f"phase 10 (the step-by-step pipeline) {time.time() - t0:.1f} s; "
+        f"total {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

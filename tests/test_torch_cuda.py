@@ -1018,3 +1018,63 @@ def test_pangenome_star_run_on_the_card_equals_the_cpu_run(cuda, tmp_path):
         with open(os.path.join(out["cpu"], f), "rb") as a, \
                 open(os.path.join(out["cuda"], f), "rb") as b:
             assert a.read() == b.read(), f
+
+
+def test_seed_join_on_the_card_equals_cpu(cuda):
+    from cactus_tpu_torch.config import SEED_12_OF_19
+    from cactus_tpu_torch.ops import seeds
+    rng = np.random.default_rng(4)
+    q = rng.integers(0, 5, (3, 1 << 16)).astype(np.uint8)
+    t = q.copy()
+    t[:, ::7] = rng.integers(0, 4, t[:, ::7].shape)
+    q[:, 1000:9000] = np.tile(q[:, 1000:1040], 200)
+    qv, tv = rng.random(q.shape) > 0.02, rng.random(t.shape) > 0.02
+    for kw in (dict(k=15, max_occ=64, max_anchors=1 << 17),
+               dict(k=15, max_occ=1, max_anchors=1 << 17),
+               dict(k=15, step=3, pattern=SEED_12_OF_19, max_occ=64,
+                    max_anchors=1 << 12)):
+        got = seeds.seed_join_batch(q, qv, t, tv, device=cuda, **kw)
+        want = seeds.seed_join_batch(q, qv, t, tv, device="cpu", **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        assert int(want[2].min()) > 0
+
+
+def test_device_join_batch_on_the_card_equals_the_host_join(cuda):
+    import dataclasses
+    from cactus_tpu_torch.config import Config
+    from cactus_tpu_torch.io.fasta import Sequence
+    from cactus_tpu_torch.phases import blast
+    rng = np.random.default_rng(6)
+    a = rng.integers(0, 4, 300_000).astype(np.uint8)
+    b = a.copy()
+    sub = rng.random(len(b)) < 0.08
+    b[sub] = rng.integers(0, 4, int(sub.sum()))
+    for aligner in ("lastz", "fastga"):
+        cfg = dataclasses.replace(Config.default().blast, aligner=aligner)
+        tasks = blast.pair_tasks(Sequence("q", a), Sequence("t", b), "q",
+                                 "t", cfg, preset="default")
+        out = [None] * len(tasks)
+        blast._device_join_batch(tasks, list(range(len(tasks))), out, cfg,
+                                 1 if aligner == "fastga" else 64,
+                                 lambda lq: 1 << 20, None, cuda)
+        host = blast.anchors_for_tasks(tasks, cfg, device="cpu")
+        for (dq, dt), (hq, ht) in zip(out, host):
+            np.testing.assert_array_equal(dq, hq)
+            np.testing.assert_array_equal(dt, ht)
+        assert len(out[0][0]) > 1000
+
+
+def test_kmer_counts_mask_on_the_card_equals_cpu(cuda):
+    from cactus_tpu_torch.preprocessor import masking
+    rng = np.random.default_rng(8)
+    codes = rng.integers(0, 4, 2_000_000).astype(np.uint8)
+    unit = rng.integers(0, 4, 500).astype(np.uint8)
+    for at in rng.choice(np.arange(0, len(codes) - 500, 500), 400,
+                         replace=False):
+        codes[at:at + 500] = unit
+    codes[5000:6000] = 4
+    got = masking.kmer_counts_mask(codes, device=cuda)
+    want = masking.kmer_counts_mask(codes, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert 0.05 < want.mean() < 0.5

@@ -87,6 +87,28 @@ def test_posteriors_match_jax(band):
     assert fM.shape == ref.shape and lsF.shape == ref.shape[:2]
 
 
+def test_forward_float64_runs_the_same_steps():
+    """dtype=torch.float64, the reference tests/pairhmm_float64_report.py
+    reads the float32 forward values against, returns float64 and agrees
+    with the float32 run where float32 holds the values: logZ, and the
+    forward values of the cells within 1e-6 of their row's maximum."""
+    pairs = _pairs(3, 7, 300)
+    packed = jb.pack_band_batch(pairs, 128)
+    p = tp.HmmParams()
+    kw = dict(band=128, delta=p.delta, epsilon=p.epsilon)
+    targs = [torch.from_numpy(packed[k]) for k in KEYS]
+    em = torch.from_numpy(p.emissions())
+    f32 = tp.forward_banded(*targs, em, **kw)
+    f64 = tp.forward_banded(*targs, em, **kw, dtype=torch.float64)
+    assert all(x.dtype == torch.float64 for x in f64)
+    assert all(x.shape == y.shape for x, y in zip(f32, f64))
+    torch.testing.assert_close(f64[2], f32[2].double(), rtol=1e-5, atol=0)
+    big = f32[0] > 1e-6
+    gap = ((torch.log(f32[0].double()) + f32[1].double()[..., None])
+           - (torch.log(f64[0]) + f64[1][..., None]))[big].abs().max()
+    assert float(gap) < 1e-3, float(gap)
+
+
 @pytest.mark.parametrize("band,gamma", [(128, 0.5), (256, 0.9)])
 def test_hit_lists_identical(band, gamma):
     pairs = _pairs(7 + band, 9, 400)

@@ -128,9 +128,9 @@ def test_cli_align_identical_across_packages(seqfile, tmp_path):
 
 
 def test_cli_unported_verbs_and_options_exit_clearly(seqfile, tmp_path):
-    for argv in (["blast", seqfile, str(tmp_path / "p")],
-                 ["align", seqfile, str(tmp_path / "m"), "--mask",
-                  "--device", "cpu"]):
+    for argv in (["update", "remove", str(tmp_path / "s"), "a"],
+                 ["conservation", str(tmp_path / "s"),
+                  str(tmp_path / "c.wig")]):
         with pytest.raises(SystemExit) as exc:
             tcli.main(argv)
         assert "not ported yet" in str(exc.value)
