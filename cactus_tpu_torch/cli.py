@@ -14,15 +14,18 @@ The PyTorch/CUDA port carries these verbs of the JAX package's CLI
 - `hal2maf`, `stats`, `hal2seqfile`, `chains`, `maf2bigmaf` and `hal`
   (every tool) on a store, MAF or HAL archive;
 - `pangenome` (star, sv and refmap builders, with --stage), `gfa`
-  (indexes, VCF and viz of an external GFA) and `patch`.
-`update` and `conservation` exit with a "not ported yet" message; they
-are queued in ROADMAP.md.
+  (indexes, VCF and viz of an external GFA) and `patch`;
+- `update` (add, add --branch, replace, remove a genome in a store, with
+  --hal) and `conservation` (phyloFit + phyloP-style tracks, the
+  Felsenstein pass on the device).
 
 Every verb that takes `--device` (`align`, `preprocess`, `blast`,
-`pangenome`, and `gfa` for its viz tool's layout) runs its device work
-on the current CUDA device unless `--device cpu` is given (the plain
-PyTorch versions and the native C++ kernels); without a GPU the default
-raises.  The other verbs do host work only.
+`update`, `conservation`, `pangenome`, and `gfa` for its viz tool's
+layout) runs its device work on the current CUDA device unless `--device
+cpu` is given (the plain PyTorch versions and the native C++ kernels);
+without a GPU the default raises.  The other verbs do host work only.
+Launched under `torchrun`, every verb first joins the process group
+(parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -37,17 +40,9 @@ from .io.seqfile import SeqFile
 from .progressive import ProgressiveAligner
 from .store import AlignmentStore
 
-# verbs of cactus_tpu's CLI that this package does not carry yet
-NOT_PORTED_VERBS = ("update", "conservation")
-
 
 def _log(msg: str) -> None:
     print(f"[cactus-tpu-torch] {msg}", file=sys.stderr, flush=True)
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"cactus_tpu_torch: {what} is not ported yet "
-                      "(see ROADMAP.md); use python -m cactus_tpu for it")
 
 
 def load_genomes_from_seqfile(sf: SeqFile,
@@ -266,6 +261,46 @@ def cmd_prepare(args) -> int:
     return 0
 
 
+def cmd_update(args) -> int:
+    """add / add --branch / replace / remove a genome in a store; the
+    re-run ancestor steps run on --device."""
+    from . import update as update_mod
+    store = AlignmentStore(args.store)
+    result = None
+    if args.action == "add":
+        seqs = read_fasta(args.fasta)
+        from .preprocessor.headers import sanitize_genome
+        genome = sanitize_genome(args.event, seqs)
+        if getattr(args, "branch", None):
+            # halAddToBranch analog: new ancestor splits the branch
+            # above --branch, the new leaf attaches to it
+            result = update_mod.add_genome_to_branch(
+                store, args.event, genome, args.branch,
+                branch_length=args.branch_length,
+                min_chain_override=args.min_chain, log=_log,
+                device=args.device)
+        else:
+            result = update_mod.add_genome(
+                store, args.event, genome, args.parent,
+                branch_length=args.branch_length,
+                min_chain_override=args.min_chain, log=_log,
+                device=args.device)
+    elif args.action == "replace":
+        seqs = read_fasta(args.fasta)
+        from .preprocessor.headers import sanitize_genome
+        genome = sanitize_genome(args.event, seqs)
+        result = update_mod.replace_genome(
+            store, args.event, genome,
+            min_chain_override=args.min_chain, log=_log, device=args.device)
+    else:
+        result = update_mod.remove_genome(
+            store, args.event, min_chain_override=args.min_chain,
+            log=_log, device=args.device)
+    if getattr(args, "hal", None) and result is not None:
+        update_mod.refresh_archive(args.hal, result, log=_log)
+    return 0
+
+
 def cmd_maf2bigmaf(args) -> int:
     """MAF → bigMaf bed + autoSql (cactus-maf2bigmaf analog; the exact
     inputs bedToBigBed consumes)."""
@@ -308,6 +343,74 @@ def cmd_chains(args) -> int:
     result = store.load_result()
     n = write_chains(args.out, result, args.ref, args.query)
     _log(f"wrote {n} chains to {args.out}")
+    return 0
+
+
+def cmd_conservation(args) -> int:
+    """phyloFit + phyloP-style conservation wiggle from the alignment; the
+    Felsenstein pass runs on --device."""
+    import json
+    from .phases import hal as hal_phase
+    from . import phast
+    from .ops import resolve_device
+    device = resolve_device(args.device)
+    store = AlignmentStore(args.store)
+    result = store.load_result()
+    blocks = hal_phase.hal2maf(result, args.ref_genome,
+                               include_ancestor=False)
+    tree = result.tree
+    sites = None
+    if getattr(args, "annotation", None):
+        # cactus-phast --mode phyloFit: neutral model from 4d sites of
+        # a gene annotation (GFF seqids = MAF src names)
+        ref = args.ref_genome or tree.name
+        ref_seqs = result.genomes[ref]
+        tx = phast.gff_cds_transcripts(args.annotation)
+        sites = phast.four_d_sites(ref_seqs, tx)
+        _log(f"4d sites: {sum(len(v) for v in sites.values())} positions "
+             f"from {len(tx)} transcripts")
+    scale = phast.phylo_fit(blocks, tree, sites=sites, device=device)
+    method = getattr(args, "method", "LRT") or "LRT"
+    mode = getattr(args, "mode", "CONACC") or "CONACC"
+    subtrees = getattr(args, "subtree", None) or [None]
+
+    def emit(path, scores, meta):
+        phast.write_wig(path, scores, meta)
+        if getattr(args, "bigwig", False):
+            from .io.bigwig import write_bigwig
+            per: dict[str, list] = {}
+            for s, (seq, pos) in zip(scores, meta):
+                if seq is None or pos < 0:
+                    continue
+                per.setdefault(seq, []).append((pos, float(s)))
+            data = {}
+            sizes = {}
+            ref = args.ref_genome or tree.name
+            for seq, pts in per.items():
+                pts.sort()
+                import numpy as _np
+                data[seq] = (_np.array([p for p, _v in pts], _np.uint32),
+                             _np.array([v for _p, v in pts], _np.float32))
+                seqs = result.genomes.get(ref, {})
+                sizes[seq] = (len(seqs[seq].codes) if seq in seqs
+                              else int(data[seq][0][-1]) + 1)
+            write_bigwig(path + ".bw", data, sizes)
+            _log(f"wrote {path}.bw")
+
+    for name in subtrees:
+        # cactus_phast --subtree: one track per named node; naming the
+        # root yields the standard whole-tree track (no .s tag)
+        sub = None if (name is None or name == tree.name) else name
+        scores, meta = phast.phylo_p(blocks, tree, neutral_scale=scale,
+                                     method=method, mode=mode,
+                                     subtree=sub, device=device)
+        path = args.out if sub is None else f"{args.out}.{sub}.wig"
+        emit(path, scores, meta)
+        _log(f"track {'root' if sub is None else sub}: wrote {path}")
+    with open(args.out + ".mod.json", "w") as fh:
+        json.dump({"model": "JC69", "rate_scale": scale,
+                   "method": method, "mode": mode}, fh)
+    _log(f"neutral rate scale {scale:.3f}; wrote {args.out}")
     return 0
 
 
@@ -525,8 +628,6 @@ def _add_device(parser, what: str = "the kernels") -> None:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in NOT_PORTED_VERBS:
-        raise _not_ported(f"the {argv[0]!r} verb")
     p = argparse.ArgumentParser(prog="cactus-tpu-torch")
     sub = p.add_subparsers(dest="command", required=True)
 
@@ -608,6 +709,24 @@ def main(argv=None) -> int:
                     help="write an ordered shell script")
     pr.set_defaults(fn=cmd_prepare)
 
+    pu = sub.add_parser("update",
+                        help="add/replace/remove a genome in a store")
+    pu.add_argument("action", choices=["add", "replace", "remove"])
+    pu.add_argument("store")
+    pu.add_argument("event")
+    pu.add_argument("--fasta", default=None)
+    pu.add_argument("--parent", default=None,
+                    help="add-to-node: attach the new leaf under this event")
+    pu.add_argument("--branch", default=None,
+                    help="add-to-branch: split the branch above this event "
+                         "with a new ancestor (halAddToBranch)")
+    pu.add_argument("--branch-length", type=float, default=0.1)
+    pu.add_argument("--min-chain", type=int, default=None)
+    pu.add_argument("--hal", default=None,
+                    help="also refresh this HAL archive after the update")
+    _add_device(pu, "the re-run ancestor steps")
+    pu.set_defaults(fn=cmd_update)
+
     pc = sub.add_parser("chains",
                         help="UCSC chains between two genomes")
     pc.add_argument("store")
@@ -615,6 +734,30 @@ def main(argv=None) -> int:
     pc.add_argument("query")
     pc.add_argument("out")
     pc.set_defaults(fn=cmd_chains)
+
+    pv = sub.add_parser("conservation",
+                        help="phyloP-style conservation wiggle")
+    pv.add_argument("store")
+    pv.add_argument("out")
+    pv.add_argument("--ref-genome", default=None)
+    pv.add_argument("--annotation", default=None,
+                    help="GFF with CDS rows: fit the neutral model on "
+                         "4d sites only (cactus-phast phyloFit mode)")
+    pv.add_argument("--method", default="LRT",
+                    choices=["ratio", "LRT", "SCORE"],
+                    help="phyloP --method (cactus_phast.py:158)")
+    pv.add_argument("--mode", default="CONACC",
+                    choices=["CONACC", "CON", "ACC", "NNEUT"],
+                    help="phyloP --mode sign convention")
+    pv.add_argument("--subtree", nargs="+", default=None, metavar="NAME",
+                    help="one lineage-specific track per named internal "
+                         "node (phyloP --subtree; the root name gives "
+                         "the standard whole-tree track)")
+    pv.add_argument("--bigwig", action="store_true",
+                    help="also write .bw (native bbi writer, no "
+                         "wigToBigWig needed)")
+    _add_device(pv, "the Felsenstein pass")
+    pv.set_defaults(fn=cmd_conservation)
 
     ph = sub.add_parser("hal", help="HAL archive tools (halStats/"
                         "hal2fasta/hal2maf/halValidate/halRemoveDupes)")
@@ -713,6 +856,10 @@ def main(argv=None) -> int:
     pg.set_defaults(fn=cmd_pangenome)
 
     args = p.parse_args(argv)
+    # join the process group when launched by torchrun (no-op unless
+    # MASTER_ADDR is set); host verbs take the CPU's gloo backend
+    from .parallel import distributed
+    distributed.initialize(device=getattr(args, "device", "cpu"), log=_log)
     return args.fn(args)
 
 

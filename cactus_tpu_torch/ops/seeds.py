@@ -132,9 +132,12 @@ def seed_join_batch(q_codes, q_valid, t_codes, t_valid,
                           device=dev)
         return none, none.clone(), total
     # expand-by-rank: slot s belongs to query kmer src(s); its rank within
-    # that kmer's hit list is s - (ends[src] - cnt[src])
-    slots = torch.arange(max_anchors, dtype=torch.int32,
-                         device=dev).expand(B, max_anchors).contiguous()
+    # that kmer's hit list is s - (ends[src] - cnt[src]).  Only the slots
+    # below the batch's largest count hold anchors, so only those are
+    # expanded (one sync reads the count); the rest of the table is -1
+    used = int(total.max()) if B else 0
+    slots = torch.arange(used, dtype=torch.int32,
+                         device=dev).expand(B, used).contiguous()
     src = torch.searchsorted(ends, slots, right=True, out_int32=True)
     src.clamp_(max=nq - 1)
     start = (torch.gather(ends, 1, src) - torch.gather(cnt, 1, src)).neg_()
@@ -143,8 +146,10 @@ def seed_join_batch(q_codes, q_valid, t_codes, t_valid,
     start.clamp_(max=nt - 1)
     ok = slots < total[:, None]
     del slots
-    out_q = torch.where(ok, qpos[src], -1)
-    out_t = torch.where(ok, torch.gather(tpos_s, 1, start), -1)
+    out_q = torch.full((B, max_anchors), -1, dtype=torch.int32, device=dev)
+    out_t = torch.full((B, max_anchors), -1, dtype=torch.int32, device=dev)
+    out_q[:, :used] = torch.where(ok, qpos[src], -1)
+    out_t[:, :used] = torch.where(ok, torch.gather(tpos_s, 1, start), -1)
     return out_q, out_t, total
 
 

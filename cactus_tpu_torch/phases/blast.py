@@ -15,8 +15,9 @@ src/cactus/paf/local_alignment.py:370-408 make_chunked_alignments and
      (tp:A:P / tp:A:S as in paffy; local_alignment.py:133-143 consumes them)
 
 Functions that join seeds or fill gaps take `device` (None = the current
-CUDA device, see ops.resolve_device).  The multi-device mesh path is not
-ported yet (ROADMAP.md, "parallel").
+CUDA device, see ops.resolve_device).  `run_tasks(mesh=...)` shards the
+chunk-pair seed joins over a parallel/mesh.py mesh of devices and
+processes.
 """
 
 from __future__ import annotations
@@ -404,7 +405,8 @@ def _warn_anchor_overflow(task: StrandTask, n: int, cap: int, log) -> None:
 #     own key + index workspace (as large again) and the gathered int32
 #     positions, 4 + 8 + 12 + 4 = 28 lt;
 #   query tables: int32 left, right, cnt and ends, 16 lq;
-#   expand by rank over the capacity `cap`: int32 slots, src, the start
+#   expand by rank over the capacity `cap` (at most: only the slots below
+#     the bin's largest count are expanded): int32 slots, src, the start
 #     index and one gathered operand, the bool mask, and the two int32
 #     output tables, 4 * 4 + 1 + 8 = 25 cap (40 with the gathers' own
 #     int32 results in flight).
@@ -473,7 +475,10 @@ def anchors_for_tasks(tasks: list[StrandTask], cfg: BlastParams,
     On a CUDA `device`, tasks at or past SeedParams.device_join_threshold
     (never, by default) take the batched device join; every other task,
     and every task on the CPU, takes the exact host numpy join (the same
-    anchors).  A multi-device `mesh` is not ported yet and raises.
+    anchors).  With a multi-shard `mesh`, tasks are binned by padded shape
+    + seed scheme and run D per dispatch through sharded_pair_seed_join
+    on the mesh's shards; output per task is shard-count independent
+    (bit-identical 1 vs N shards or processes).
     """
     sp = cfg.seed
     # fastga mode: adaptamer-style target-unique seed hits
@@ -577,9 +582,37 @@ def anchors_for_tasks(tasks: list[StrandTask], cfg: BlastParams,
                 out[i] = res
         return out
 
-    raise NotImplementedError(
-        "the mesh-sharded seed join (cactus_tpu/phases/blast.py:594) is "
-        "not ported to cactus_tpu_torch yet: see ROADMAP.md, 'parallel'")
+    from ..parallel.mesh import sharded_pair_seed_join
+    D = len(mesh.devices.flat)
+    bins: dict[tuple, list[int]] = {}
+    prepped = [_task_inputs(t) for t in tasks]
+    for i, (qp, qv, tp, tv) in enumerate(prepped):
+        key = (len(qp), len(tp), sp.step_for(tasks[i].preset),
+               sp.pattern_for(tasks[i].preset))
+        bins.setdefault(key, []).append(i)
+    for (lq, lt, step, pattern), idxs in bins.items():
+        cap = eff_cap(lq)
+        for g0 in range(0, len(idxs), D):
+            grp = idxs[g0:g0 + D]
+            qc = np.zeros((D, lq), np.uint8)
+            qv = np.zeros((D, lq), bool)
+            tc = np.zeros((D, lt), np.uint8)
+            tv = np.zeros((D, lt), bool)
+            for row, i in enumerate(grp):
+                a, b, c, d = prepped[i]
+                qc[row], qv[row], tc[row], tv[row] = a, b, c, d
+            qpos, tpos, counts = sharded_pair_seed_join(
+                mesh, qc, qv, tc, tv, k=sp.k, step=step,
+                max_occ=max_occ, max_anchors=cap,
+                pattern=pattern)
+            counts = counts.cpu().numpy()
+            for row, i in enumerate(grp):
+                n = int(counts[row])
+                _warn_anchor_overflow(tasks[i], n, cap, log)
+                # slice on the device: copy n anchors, not the table
+                out[i] = (qpos[row, :n].cpu().numpy(),
+                          tpos[row, :n].cpu().numpy())
+    return out
 
 
 def _task_runs(task: StrandTask, qpos: np.ndarray, tpos: np.ndarray,

@@ -256,14 +256,14 @@ class ProgressiveAligner:
             self.div_tree = get_ancestor_scaled_tree(
                 self.tree, max_div=2.0, branch_scale=branch_scale,
                 upweight_ancestors=upweight_ancestors)
-        # the blast chunk-pair grid sharded over several devices is not
-        # ported yet
+        # shard the blast chunk-pair grid over an n-shard mesh of
+        # devices and processes (outputs are bit-identical to one device
+        # by construction — see parallel/mesh.py); the shards are cards,
+        # or logical shards where self.device is the CPU
         self.mesh = None
         if n_devices is not None and n_devices > 1:
-            raise NotImplementedError(
-                "multi-device alignment (cactus_tpu/progressive.py:258) is "
-                "not ported to cactus_tpu_torch yet: see ROADMAP.md, "
-                "'parallel'")
+            from .parallel.mesh import make_mesh
+            self.mesh = make_mesh(n_devices, device=self.device)
 
     def run(self, targets: set[str] | None = None) -> ProgressiveResult:
         """Run all ancestor steps (or only `targets`, relying on the

@@ -17,11 +17,11 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    end states and the live cells' direction bytes bit-equal; it logs the
    live cells beside the band cells), banded_traceback against the host
    traceback_band (equal), pairhmm_fwd/pairhmm_bwd at bands 512 and 2048
-   with 4096 rows (posterior max |diff| <= HMM_ATOL, logZ within
-   LOGZ_RTOL, and the forward values log(fM) + lsF within FWD_LOG_ATOL
+   with pieces of up to 2048 rows (posterior max |diff| <= HMM_ATOL, logZ
+   within LOGZ_RTOL, and the forward values log(fM) + lsF within FWD_LOG_ATOL
    where the plain fM is above 1e-30: the kernel rescales once per 8 rows
    and rounds its rows differently), and pairhmm5_fwd/pairhmm5_bwd at
-   bands 1024, 2048 and 4096 with pieces of up to 3000 rows and at band
+   bands 1024, 2048 and 4096 with pieces of up to 2048 rows and at band
    16384, with max_live as the pecan path passes it (the same three
    tolerances; it logs the live cells beside the computed ones).
 3. Runs the default path: the evolverMammals-scale regression of
@@ -115,7 +115,7 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
 9. Runs the pangenome builder (cactus_tpu_torch.pangenome) on 4
    haplotypes of PAN_NEWICK, seed 23, in process, each run with the
    launch counts set to 0 just before it and read just after:
-   `cli.main(["pangenome", ...])` in star mode at 200 kb and in sv and
+   `cli.main(["pangenome", ...])` in star mode at 100 kb and in sv and
    refmap modes at 20 kb, and `run_pangenome_split` on the two-chromosome
    input.  The star run must launch banded_dp and banded_traceback; each
    run logs whether pairhmm_fwd / pairhmm_bwd ran, its wall split into the
@@ -167,6 +167,31 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    validate in HalArchive), then `stats` on the plan's store.  Each
    output must equal its pinned digest (`python
    tests/pipeline_digest_report.py` makes them).
+11. Runs the store's life through the port (`phase_store`): `align --hal`
+   of phase 3's five genomes into a store, then `update add` of a sixth
+   leaf under anc1, `update add --branch` of a seventh above simCow_chr6,
+   `update replace` of simDog_chr6 and `update remove` of simMouse_chr6,
+   each with --hal, in process through `recorded_run` (every banded_dp,
+   banded_traceback and pairhmm_fwd call of the five runs held to its
+   plain version after the last); after each, `hal2maf`, and the store
+   (its .npz files by their arrays), the MAF and the HAL must equal the
+   JAX package's CPU output,
+   pinned in UPD_DIGESTS (`python tests/update_digest_report.py` makes
+   them).  Then `conservation` on the updated store on the card (LRT with
+   a --subtree track and --bigwig; ratio with --annotation), its neutral
+   scales within UPD_SCALE_ATOL of the JAX package's (UPD_SCALES);
+   phylo_fit on the card held to the port's CPU run and to the JAX
+   package's scale, also on the 4d sites of a seeded annotation of
+   UPD_REF; phylo_p's LRT, --subtree LRT, SCORE and ratio scores on the
+   card held to the CPU's within PHAST_TOL (every
+   CONSERVATION_CPU_STRIDE-th block); it logs the Felsenstein pass's time
+   on the LRT grid by CUDA events and its device peak.  Then two ranks
+   sharing cuda:0 in a gloo group (`RANK_WORKER` subprocesses) run
+   ProgressiveAligner(n_devices=2) on the five genomes at blast.chunk_size
+   UPD_CHUNK (every ancestor at least 8 chunk pairs) beside the
+   one-process run in this process: both ranks' MAFs must equal the
+   one-process MAF, and that the pinned digest; and beside them `python
+   -m cactus_tpu_torch.parallel.dryrun 1` runs in a one-rank NCCL group.
 
 Prints one `{"kernels": [...]}` JSON line (each entry also carries the
 shape it was timed at and `replayed_ms`, the path's calls of the kernel
@@ -238,6 +263,10 @@ POA_SWEEP_CASES = (
     ("poa_affine", 1, 2048, 10000, 16384), ("poa_chain", 16000, 64, 63, 64),
     ("poa_chain", 64, 200, 900, 128), ("poa_chain", 4, 1024, 3000, 512),
     ("poa_chain", 1, 512, 9000, 16384))
+# the longest pieces of phase 2's pair-HMM checks: 2048 rows, the rows of
+# the default path's largest call (at 4096 rows these checks took 149 s
+# on the H100, and the whole script with phase 11 1097 s of its 1200)
+PHASE2_HMM_ROWS = 2048
 # posterior tolerance: the posterior is exp(lsF + lsB - logZ), a
 # difference of float32 sums of per-row log-scales that reach ~1e4 over
 # 4096 rows, where one float32 ulp is ~1e-3; the kernels also sum the
@@ -629,7 +658,8 @@ def phase_kernels_vs_plain(dev, errs):
     p = tp.HmmParams()
     em = torch.from_numpy(p.emissions()).to(dev)
     for band in (512, 2048):
-        pairs = ragged_pairs(band + 7, 4, 2100, 4096, band)
+        pairs = ragged_pairs(band + 7, 4, PHASE2_HMM_ROWS // 2 + 52,
+                             PHASE2_HMM_ROWS, band)
         packed = tb.pack_band_batch(pairs, band, min_batch=1)
         args = to_device(packed, dev)
         hk = dict(band=band, delta=p.delta, epsilon=p.epsilon)
@@ -646,12 +676,13 @@ def phase_kernels_vs_plain(dev, errs):
         errs["pairhmm_bwd"] = max(errs.get("pairhmm_bwd", 0.0), d_post)
 
     # pecan pieces: a divergence-trained p_match, MUM-split pieces of up
-    # to 3000 rows at bands 1024-4096, and band 16384 (use_banding off)
+    # to PHASE2_HMM_ROWS rows at bands 1024-4096, and band 16384
+    # (use_banding off)
     p5 = tp5.Hmm5Params(p_match=0.7)
     em5 = torch.from_numpy(p5.emissions()).to(dev)
-    for band, n, lo_len, hi_len in ((1024, 4, 1500, 3000),
-                                    (2048, 2, 2000, 3000),
-                                    (4096, 2, 2500, 3000),
+    for band, n, lo_len, hi_len in ((1024, 4, 1100, PHASE2_HMM_ROWS),
+                                    (2048, 2, 1600, PHASE2_HMM_ROWS),
+                                    (4096, 2, 1800, PHASE2_HMM_ROWS),
                                     (16384, 2, 600, 1000)):
         pairs = ragged_pairs(band + 11, n, lo_len, hi_len, band,
                              sub=0.2, indel=0.06)
@@ -2260,13 +2291,13 @@ def phase_wide(dev, errs):
 # ---------------------------------------------------------------- pangenome
 
 # phase 9's inputs: the pangenome builder on the 4 haplotypes of a star
-# tree, seed 23: star mode at 200 kb (the largest input whose host graph
-# emission fits the phase: its cost grows faster than the bases), sv and
-# refmap modes at 20 kb, and the two-chromosome split of
-# tests/test_pangenome.py
+# tree, seed 23: star mode at 100 kb (the host graph emission's cost grows
+# faster than the bases: at 200 kb the star run took 94.7 s on the H100,
+# and the script with phase 11 1097 s of its 1200), sv and refmap modes at
+# 20 kb, and the two-chromosome split of tests/test_pangenome.py
 PAN_NEWICK = "(a:0.02,b:0.02,c:0.02,d:0.02)root;"
 PAN_SEED = 23
-PAN_STAR_LEN = 200_000
+PAN_STAR_LEN = 100_000
 PAN_SMALL_LEN = 20_000
 PAN_REF = "a"
 # the 2D layout's files hold random draws (the JAX package's threefry
@@ -2282,15 +2313,15 @@ PAN_LAYOUT_RTOL = 0.01
 # the JAX package's CPU output of each phase 9 run (sha256 of each file,
 # the layout_stress of each layout on the port's draws):
 # `JAX_PLATFORMS=cpu python tests/pangenome_digest_report.py`
-PAN_DIGESTS = {'gfa_index': {'graph.dist': '7f3186ffbb2dc642aeff658a36e5431b4e33f7b5acb895346298610e074cc727',
-               'graph.gbz': '25df54f23c786ef7c49f51cad0b4850ce8dd858b54f78e85ece37f127acec944',
-               'graph.min': 'cf0cbb7c1eb64ea0c01695117e38e7d73526318eedefb04724bfd6996d328b79',
-               'snarls.json': 'e2f73c7a64fd35ec763d50ab9ea18321ff75a1e9a6ce9f6bc7276e8f2ca8a8c7',
-               'stats.json': '974198c7fd222d27e4255fc3a6711ecb91032fb1c6ac457d2021fa0a1dd659d3'},
- 'gfa_vcf': {'graph.vcf': '978c1d4e2fb3e651ea0ab213db74faf212c5dc0069c36d13fc089eab0c5da710'},
- 'gfa_viz': {'graph.lay.tsv': {'stress': 459.015717},
-             'graph.png': 'e14af0c7da6f5d5e4163a56693633dc85397ce6d5bca796dce4acb83261df1a8'},
- 'patch': {'b.patched.fa': '3fe6368466588817a72e9fa493e26473206901cc1403f7dde9a23b241e1c289d',
+PAN_DIGESTS = {'gfa_index': {'graph.dist': 'd34cf68dc5f3fdb02af4dcbef089cc5dae33c2b37c64acf8a7a83a7ebf3f7f2f',
+               'graph.gbz': '7b7813999b6a42f94909a6a897006801260f854f232bd75947b036ce3e77435c',
+               'graph.min': '503953ddcd09296ba3db29e6c35c48eaaca23afd33e77510f69dd1245b6c37f7',
+               'snarls.json': 'fad7e302438c9880ed29ed841c83306f328e33139ba31aa6242462098dc90345',
+               'stats.json': 'c072dbe51496c08cb0c60f167deed6ea8b6f950ba77eda140503ea4f561435a9'},
+ 'gfa_vcf': {'graph.vcf': '395dbbdc1d1a84f49cb6e362384bff4cc7de0fafd8f067aa2957774e65e9c657'},
+ 'gfa_viz': {'graph.lay.tsv': {'stress': 344.930603},
+             'graph.png': '02d6c39df0c2051e3361634c06175d201da7e2875628fda1429703b3d4902ce4'},
+ 'patch': {'b.patched.fa': '21101f664c5c71bf1da4d8fc74c33f88cb12dd26a71e953fccc95c502acaea7d',
            'patch_report.json': '1d9e9a771d0d2dc64cfa9b669c924f0e4b936643502739ee7efbd4853f00e472'},
  'refmap': {'clipped.bed': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
             'exclusions.tsv': '52696fc52082f3d462f06c5e21817a628a10f4abb55d5e0179c22b30da61ae05',
@@ -2349,23 +2380,23 @@ PAN_DIGESTS = {'gfa_index': {'graph.dist': '7f3186ffbb2dc642aeff658a36e5431b4e33
            'ref.chr2/pangenome.wave.vcf': 'f5ecb98c76363bfd3136362174c4338d6c0e7aa3b9f7ea1ada9c6f22ab65974a',
            'ref.chr2/snarls.json': '7aa3f2905f92657cfb8068de0c842af6f48be002b9d840e21041fdf38ddfc6bf'},
  'star': {'clipped.bed': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
-          'exclusions.tsv': '9d9cab5ca24f7ff30bd742c907d444ac006b07859bca25aa52c1d53225a5e70d',
-          'exclusions.tsv.json': 'dbe68d671a49b3c3873e3e6688b0c3c64fb4f76424cf7239ad56ec5f8cf2e04e',
-          'filtered.bed': '5e6d29571acdf3b3c6c478358696c6ee8adce8e8b569faad5895f8b71f5769d2',
-          'graph_stats.json': 'b6c9a2e5a68606818493a60fc672b66128781cf2e0347516ef531a6bca424e1f',
-          'pangenome.bub.vcf': '4793c3f3e37cedb80b0d8a4fb7502aa1727f191326117a8e8339dd25c7524ee5',
-          'pangenome.clip.gfa': '531809262fd9b2b68166b82cde8b02a119d47927ca2beb7f9a6222f612585b9c',
-          'pangenome.clip.viz.png': 'e14af0c7da6f5d5e4163a56693633dc85397ce6d5bca796dce4acb83261df1a8',
-          'pangenome.dist': '7f3186ffbb2dc642aeff658a36e5431b4e33f7b5acb895346298610e074cc727',
-          'pangenome.filter.gfa': 'd248d8b6024ff93292e1e198dbd2eb7b761dbf40f69acccb66339c71eb0ccede',
-          'pangenome.gbz': '418ade4f16f78ab48c8398cc59b6da0639cf284c334f1d380f4b999522c0a06a',
-          'pangenome.gfa': '531809262fd9b2b68166b82cde8b02a119d47927ca2beb7f9a6222f612585b9c',
-          'pangenome.lay.tsv': {'stress': 459.015717},
-          'pangenome.min': 'cf0cbb7c1eb64ea0c01695117e38e7d73526318eedefb04724bfd6996d328b79',
-          'pangenome.vcf': '978c1d4e2fb3e651ea0ab213db74faf212c5dc0069c36d13fc089eab0c5da710',
-          'pangenome.viz.png': 'e14af0c7da6f5d5e4163a56693633dc85397ce6d5bca796dce4acb83261df1a8',
-          'pangenome.wave.vcf': 'ab11024073b406b3630267f00d5cb7799b644b63e50e06f4a682cf6812d1ec1e',
-          'snarls.json': 'e2f73c7a64fd35ec763d50ab9ea18321ff75a1e9a6ce9f6bc7276e8f2ca8a8c7'},
+          'exclusions.tsv': '6ff295aa7b33c5e16e213c58a0f879e6d603e6eaaf3df5fae653cdb1d7d6760e',
+          'exclusions.tsv.json': '97b32e35005ca043f0976108303d32a208bbbe03ef5272cd952429d11ccf4425',
+          'filtered.bed': '256164d78b8ec912e74dfd61cad922f11258f69ad448f9d58b08bf98d980650a',
+          'graph_stats.json': '7837f6d04333b2878ffa6b3ae7e5b8e213dc8aa56552b366c36a9ead8e6fa719',
+          'pangenome.bub.vcf': '1fff2950e08109cf782dc0b4c74f217a57ffd54b664a4e0a51a8cab13f11782f',
+          'pangenome.clip.gfa': '56d792fda4577b0fcf08085c6cc63cc49a548288730c79c8cd3150625b310eb7',
+          'pangenome.clip.viz.png': '02d6c39df0c2051e3361634c06175d201da7e2875628fda1429703b3d4902ce4',
+          'pangenome.dist': 'd34cf68dc5f3fdb02af4dcbef089cc5dae33c2b37c64acf8a7a83a7ebf3f7f2f',
+          'pangenome.filter.gfa': '929de1438bf7ff9b99f38006be7ab989333608395a9342b5ba3b406046e11577',
+          'pangenome.gbz': '7b7e56cdd86188540aebb4165fdd71c49e44d72ec6b23b8d8c2951e8c5d8f7e4',
+          'pangenome.gfa': '56d792fda4577b0fcf08085c6cc63cc49a548288730c79c8cd3150625b310eb7',
+          'pangenome.lay.tsv': {'stress': 344.930603},
+          'pangenome.min': '503953ddcd09296ba3db29e6c35c48eaaca23afd33e77510f69dd1245b6c37f7',
+          'pangenome.vcf': '395dbbdc1d1a84f49cb6e362384bff4cc7de0fafd8f067aa2957774e65e9c657',
+          'pangenome.viz.png': '02d6c39df0c2051e3361634c06175d201da7e2875628fda1429703b3d4902ce4',
+          'pangenome.wave.vcf': '0ae3333cdcd87a6fe935bb30a01c91a372456dadf501301c2907d8e9a85e847d',
+          'snarls.json': 'fad7e302438c9880ed29ed841c83306f328e33139ba31aa6242462098dc90345'},
  'sv': {'clipped.bed': 'e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855',
         'exclusions.tsv': '52696fc52082f3d462f06c5e21817a628a10f4abb55d5e0179c22b30da61ae05',
         'exclusions.tsv.json': 'b696eafad8828e50f6ba3377784f711a14b691ee856c166ab0bad86a8c4acb62',
@@ -2423,7 +2454,7 @@ def pan_inputs(work, evolver, parse_newick, Sequence):
 
 
 def pan_cli_runs(seqfiles, work):
-    """[(run, argv of the pangenome verb)]: star mode on the 200 kb input,
+    """[(run, argv of the pangenome verb)]: star mode on the 100 kb input,
     sv and refmap modes on the 20 kb one."""
     def argv(run, sf, *mode):
         return ["pangenome", seqfiles[sf], os.path.join(work, run),
@@ -3362,6 +3393,511 @@ def phase_pipeline(dev):
         "(sha256); the plan's HAL reads back and validates")
 
 
+# phase 11's inputs: phase 3's five genomes (EVOLVER_MAMMALS_NEWICK at
+# ROOT_LEN, seed 41) aligned into a store, and the genomes the updates
+# bring, each evolved from a genome of the same simulation with evolver's
+# branch model (seeded by UPD_SEED, in this order): a sixth leaf from the
+# ancestor anc1, added under it; a seventh from anc2, added to the branch
+# above simCow_chr6; and simDog_chr6's replacement, 1% away from it; then
+# simMouse_chr6 is removed
+UPD_SEED = 43
+UPD_GENOMES = (("simChimp_chr6", "anc1", 0.06),
+               ("simSheep_chr6", "anc2", 0.15),
+               ("simDog_chr6", "simDog_chr6", 0.01))
+# the 2-rank run's chunk size: 4 chunks of each 600 kb genome, so at least
+# 16 chunk pairs for each pair of genomes an ancestor aligns
+UPD_CHUNK = 200_000
+# phast_gff annotates this genome's sequences: the 4d sites phylo_fit is
+# held on (the `conservation --annotation` verb reads 4d sites on the
+# reference ancestor's sequence names, which no row of its MAF carries,
+# so its fit takes no column and returns 1.0 in both packages)
+UPD_REF = "simHuman_chr6"
+# the neutral scale (phylo_fit) on the card against the JAX package's
+# pinned CPU value, and against the port's CPU run: the golden section
+# (tol 1e-3) takes the other branch where two evaluations tie within the
+# ulps by which two float32 passes differ.  The updated store's MAF reads
+# 1.05e-3 on the H100 against the JAX package (0 against the port's CPU
+# run); over the inputs of `JAX_PLATFORMS=cpu python
+# tests/phast_gap_report.py --seeds 8` the CPU gap reaches 2.55e-3, which
+# tests/test_torch_phast.py's FIT_ATOL covers
+UPD_SCALE_ATOL = 2e-3
+# conservation scores, |got - want| <= tol max(1, |want|) (atol = rtol):
+# ratio is a difference of two log-likelihoods (the report: 1.9e-6); LRT
+# reads its statistic at the grid maximum (4.8e-4); SCORE divides a second
+# difference by h^2 = 0.0025 and squares a first difference,
+# U^2 / max(|I|, 1e-3), which magnifies the ulps by ~400 and more where
+# |I| nears its floor (0.0415)
+PHAST_TOL = {"ratio": 1e-5, "LRT": 1e-3, "SCORE": 0.1}
+# the card's phylo_p scores are held to the CPU's on every 4th block of
+# the MAF (a quarter of the columns: the CPU's LRT passes over all of them
+# took 43 s of phase 11's first chip run)
+CONSERVATION_CPU_STRIDE = 4
+# the JAX package's CPU output of each phase 11 step: sha256 of the
+# store's files (an .npz by its arrays: `store_digests`), of the MAF and
+# of the HAL archive; "chunked" the one-process MAF at UPD_CHUNK; the
+# neutral scales on the updated store: the conservation verb's without
+# and with --annotation ("all", "annotation"), and phylo_fit's on the 4d
+# sites of UPD_REF ("4d"):
+# `JAX_PLATFORMS=cpu python tests/update_digest_report.py`
+UPD_DIGESTS = {'add': {'hal': '4bd494ca4de57de229361163fbbf889fa7cc8a25a4ebfd56356a354ab959938a',
+         'maf': '64eff7a6961672224235eab05f323b2b8dea7919618cfdc26e567b6e6403ca30',
+         'store': '551fb0ccf6cd051e3e66028d325407a85fb25ba55fc1b2a33ae7eb90ba5942c7'},
+ 'add_branch': {'hal': 'c20cd286613482cc620264144237a3159ef7113f497e44d188f460815a1cc6cd',
+                'maf': '37513fa84c71a717249f6e66cc11a5647b3204ca79c757d7698c2426e77843fe',
+                'store': '95018ce44640a4bfd4c9247d62a90e67ac72c1f102a29cc130ab2f7749a578ef'},
+ 'align': {'hal': '882bd1b4ee6fbc12d8dd57e9400332eb096f112390b00d253c63454b5b6f8701',
+           'maf': '67e6997928e1768b2aa7ce0e393adbd2e3aedcf1a9120c02c89ca73767b2bfc3',
+           'store': '5393d6a815c520658199c39b881ab1514df1e56b027c2068470a226c4e9bbd1e'},
+ 'chunked': 'e42732da1c81331b9ecf32c5e49446648dfb762f53bd8f0f9a58c3d8640ec3a5',
+ 'remove': {'hal': '57682c61f04330ee8dff8ee5007f1d1e71141f27fdc98142f815ecdddce91e9f',
+            'maf': '4839a2884004eb696be4380cbb64193da35f2cfbe517562fbfbb591904a318eb',
+            'store': '04b1d9dd0cb06f6267b750c6e06b0b33cb07ba3bc0b079cfbe34a9167f8a476c'},
+ 'replace': {'hal': '9e99123fe095ebf9c32055142a8eda8f32652acc41e33cd59cd4ed66d33c7f57',
+             'maf': '1de1a474f2b88a76c682b976554252670c0beb4123c690dff99c84426b0866ef',
+             'store': 'b7fb5daf9a6112849cf0e2fb63bf54158a52e014af5c8fb9c97897c4e150243c'}}
+UPD_SCALES = {'all': 0.9867315267301777, 'annotation': 1.0, '4d': 0.9567389553374812}
+
+
+def write_fasta_codes(path, name, codes) -> str:
+    """One-sequence FASTA of base codes (0-3 ACGT, 4 N), 60 a line."""
+    text = "".join("ACGTN"[c] for c in codes.tolist())
+    with open(path, "w") as fh:
+        fh.write(f">{name}\n")
+        for i in range(0, len(text), 60):
+            fh.write(text[i:i + 60] + "\n")
+    return path
+
+
+def update_inputs(work, evolver, parse_newick):
+    """Phase 11's inputs under `work`, made with the given package's
+    evolver: {"seqfile": the five genomes' seqfile, "store", "hal": the
+    paths the runs write, and a FASTA for each of UPD_GENOMES}."""
+    import numpy as np
+    sim = evolver.simulate(parse_newick(EVOLVER_MAMMALS_NEWICK),
+                           root_len=ROOT_LEN, seed=41)
+    out = {"seqfile": evolver.write_seqfile(sim, os.path.join(work, "in")),
+           "store": os.path.join(work, "store"),
+           "hal": os.path.join(work, "aln.hal")}
+    rng = np.random.default_rng(UPD_SEED)
+    for name, src, dist in UPD_GENOMES:
+        g = sim.genomes[src]
+        codes, _i, _s = evolver._evolve_branch(g.codes, g.anc_idx,
+                                               g.anc_strand, dist, rng)
+        out[name] = write_fasta_codes(
+            os.path.join(work, "in", f"{name}.new.fa"), "chr6", codes)
+    return out
+
+
+def update_argvs(inputs):
+    """[(run, argv)] of `align --hal` into the store, then `update add`
+    under anc1, `update add --branch` above simCow_chr6, `update replace`
+    and `update remove`, each with --hal."""
+    store, hal = inputs["store"], inputs["hal"]
+    (chimp, _a, d1), (sheep, _b, d2), (dog, _c, _d) = UPD_GENOMES
+    return [
+        ("align", ["align", inputs["seqfile"], store, "--hal", hal]),
+        ("add", ["update", "add", store, chimp, "--fasta", inputs[chimp],
+                 "--parent", "anc1", "--branch-length", str(d1),
+                 "--hal", hal]),
+        ("add_branch", ["update", "add", store, sheep, "--fasta",
+                        inputs[sheep], "--branch", "simCow_chr6",
+                        "--branch-length", str(d2), "--hal", hal]),
+        ("replace", ["update", "replace", store, dog, "--fasta",
+                     inputs[dog], "--hal", hal]),
+        ("remove", ["update", "remove", store, "simMouse_chr6", "--hal",
+                    hal])]
+
+
+def store_digests(root) -> dict:
+    """{relative path: sha256} of a store's files; an .npz by its arrays
+    (name, dtype, shape, bytes), since its zip entries carry the time they
+    were written."""
+    import numpy as np
+    out = {}
+    for d, _dirs, files in os.walk(root):
+        for f in sorted(files):
+            p = os.path.join(d, f)
+            h = hashlib.sha256()
+            if f.endswith(".npz"):
+                with np.load(p) as z:
+                    for k in sorted(z.files):
+                        a = z[k]
+                        h.update(f"{k} {a.dtype} {a.shape}".encode())
+                        h.update(np.ascontiguousarray(a).tobytes())
+            else:
+                with open(p, "rb") as fh:
+                    h.update(fh.read())
+            out[os.path.relpath(p, root)] = h.hexdigest()
+    return out
+
+
+def update_digests(store, maf, hal) -> dict:
+    """One phase 11 step's readings: the store (`store_digests`, hashed
+    again), its MAF and the HAL archive."""
+    s = json.dumps(store_digests(store), sort_keys=True).encode()
+    return {"store": hashlib.sha256(s).hexdigest(), "maf": sha256_of(maf),
+            "hal": sha256_of(hal)}
+
+
+def phast_gff(path, ref_seqs, seed=UPD_SEED) -> str:
+    """A seeded synthetic annotation for `conservation --annotation`: six
+    CDS runs a reference sequence on alternating strands, frames 0-2
+    (their seqids are the reference's sequence names, as the MAF's)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lines = []
+    for name, seq in sorted(ref_seqs.items()):
+        n = len(seq.codes)
+        for t in range(6):
+            a = int(rng.integers(0, max(1, n - 700)))
+            b = min(n, a + 300 + 3 * int(rng.integers(0, 100)))
+            lines.append(f"{name}\tsim\tCDS\t{a + 1}\t{b}\t.\t"
+                         f"{'+-'[t % 2]}\t{t % 3}\ttranscript_id t{t}\n")
+    with open(path, "w") as fh:
+        fh.writelines(lines)
+    return path
+
+
+def chunked_run(package, seqfile, out, **kw):
+    """The package's ProgressiveAligner on the seqfile's genomes with
+    blast.chunk_size UPD_CHUNK, its MAF written to `out`; returns (wall
+    seconds, {ancestor: blast tasks} where the driver logs them)."""
+    import importlib
+    mod = {m: importlib.import_module(f"{package}.{m}")
+           for m in ("cli", "config", "progressive", "io.seqfile",
+                     "phases.hal")}
+    sf = mod["io.seqfile"].SeqFile.parse(seqfile)
+    genomes = mod["cli"].load_genomes_from_seqfile(sf)
+    cfg = mod["config"].Config.default()
+    cfg.blast.chunk_size = UPD_CHUNK
+    tasks = {}
+
+    def note(msg):
+        if " blast tasks over " in msg:
+            anc, rest = msg.split(": ", 1)
+            tasks[anc] = tasks.get(anc, 0) + int(rest.split()[0])
+
+    t0 = time.time()
+    result = mod["progressive"].ProgressiveAligner(
+        sf.tree, genomes, config=cfg, log=note, **kw).run()
+    wall = time.time() - t0
+    mod["phases.hal"].write_hal2maf(out, result)
+    return wall, tasks
+
+
+RANK_WORKER = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as c
+from cactus_tpu_torch.parallel import distributed
+rank, port, seqfile, out = int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+t0 = time.time()
+dev = torch.device("cuda", 0)
+distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
+                       num_processes=2, process_id=rank, backend="gloo",
+                       device=dev)
+wall, tasks = c.chunked_run("cactus_tpu_torch", seqfile, out, n_devices=2,
+                            device=dev)
+torch.cuda.synchronize(dev)
+distributed.shutdown()
+with open(out + ".json", "w") as fh:
+    json.dump({"wall": wall, "tasks": tasks, "since_start": time.time() - t0,
+               "peak": torch.cuda.max_memory_allocated(dev)}, fh)
+"""
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_update(dev, inputs):
+    """Phase 11, step 1: `align --hal` and the four updates in process,
+    each through `recorded_run` and then `hal2maf`; the kernel calls the
+    five runs kept are held to their plain versions together after the
+    last (one plain batch a row count and band across the runs, as
+    `call_groups` makes them).  Returns the kernel calls that differ from
+    their plain versions, the kernels a run never launched and the
+    readings that differ from the JAX package's."""
+    import types
+    from cactus_tpu_torch import cli
+    bad, kept, total = [], {}, {}
+    for run, argv in update_argvs(inputs):
+        rc, launches, wall, peak, recs = recorded_run(
+            dev, lambda argv=argv: cli.main(argv), hmm=True)
+        ran = {k: v for k, v in launches.items() if v}
+        log(f"phase 11 {run}: exit {rc}, {wall:.1f} s wall, device peak "
+            f"{peak / 1e6:.0f} MB, kernel launches {ran}")
+        for name, rec in recs.items():
+            kept.setdefault(name, types.SimpleNamespace(fn=rec.fn, calls=[]))
+            kept[name].calls += rec.calls
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        bad += [f"{run}: {name} was never launched"
+                for name in ("banded_dp", "banded_traceback")
+                if launches[name] <= 0]
+        if launches["banded_traceback"] != launches["banded_dp"]:
+            bad.append(f"{run}: {launches['banded_traceback']} "
+                       f"banded_traceback launches for "
+                       f"{launches['banded_dp']} banded_dp launches")
+        if rc:
+            bad.append(f"{run} exited {rc}")
+            break
+        maf = os.path.join(os.path.dirname(inputs["store"]), f"{run}.maf")
+        if cli.main(["hal2maf", inputs["store"], maf]) != 0:
+            bad.append(f"{run}: hal2maf failed")
+            break
+        got = update_digests(inputs["store"], maf, inputs["hal"])
+        bad += [f"{run}/{m}" for m in pan_mismatches(
+            got, UPD_DIGESTS.get(run, {}))]
+    return bad + check_recorded("phase 11's runs", kept, total, dev)
+
+
+def phase_conservation(dev, store, work):
+    """Phase 11, step 2: the conservation verb on the updated store on the
+    card (LRT with a --subtree track and --bigwig; ratio with
+    --annotation), its neutral scales held to the JAX package's pinned
+    values; phylo_fit (every column, and UPD_REF's 4d sites) on the card
+    held to the port's CPU run and the JAX package's, and phylo_p's LRT,
+    --subtree LRT, SCORE and ratio scores on the card held to the port's
+    CPU run (on every CONSERVATION_CPU_STRIDE-th block); then the
+    Felsenstein pass on the LRT grid by CUDA events."""
+    import numpy as np
+    import torch
+    from cactus_tpu_torch import cli, phast
+    from cactus_tpu_torch.io.bigwig import read_bigwig
+    from cactus_tpu_torch.phases import hal as hal_phase
+    from cactus_tpu_torch.store import AlignmentStore
+    bad = []
+    result = AlignmentStore(store).load_result()
+    tree = result.tree
+    gff = phast_gff(os.path.join(work, "genes.gff"), result.genomes[UPD_REF])
+    wig = os.path.join(work, "cons")
+    runs = (("LRT", ["--subtree", "anc2", tree.name, "--bigwig"]),
+            ("ratio_annotation", ["--annotation", gff]))
+    t0 = time.time()
+    for name, extra in runs:
+        out = f"{wig}.{name}.wig"
+        method = name.split("_")[0]
+        t1 = time.time()
+        rc = cli.main(["conservation", store, out, "--method", method,
+                       *extra])
+        scale = json.load(open(out + ".mod.json"))["rate_scale"] \
+            if rc == 0 else None
+        log(f"phase 11 conservation {name}: exit {rc}, "
+            f"{time.time() - t1:.1f} s wall, neutral scale {scale!r}")
+        if rc:
+            bad.append(f"conservation {name} exited {rc}")
+            continue
+        key = "annotation" if name.endswith("annotation") else "all"
+        want = UPD_SCALES.get(key)
+        if want is None or abs(scale - want) > UPD_SCALE_ATOL:
+            bad.append(f"conservation {name}: neutral scale {scale!r} not "
+                       f"within {UPD_SCALE_ATOL} of the JAX package's "
+                       f"{want!r}")
+    bw, _sizes = read_bigwig(f"{wig}.LRT.wig.anc2.wig.bw")
+    verbs_s = time.time() - t0
+    # the card against the port's own CPU run, at the card's scale
+    blocks = hal_phase.hal2maf(result, None, include_ancestor=False)
+    obs, _meta = phast.columns_from_maf(blocks, tree)
+    sites = phast.four_d_sites(result.genomes[UPD_REF],
+                               phast.gff_cds_transcripts(gff))
+    t1 = time.time()
+    scales = {d: phast.phylo_fit(blocks, tree, device=d)
+              for d in (dev, "cpu")}
+    fit_s = time.time() - t1
+    scales_4d = {d: phast.phylo_fit(blocks, tree, sites=sites, device=d)
+                 for d in (dev, "cpu")}
+    for what, got in (("all", scales), ("4d", scales_4d)):
+        if abs(got[dev] - got["cpu"]) > UPD_SCALE_ATOL:
+            bad.append(f"phylo_fit ({what}) on the card {got[dev]!r}, on "
+                       f"the CPU {got['cpu']!r}")
+    want = UPD_SCALES.get("4d")
+    if want is None or abs(scales_4d[dev] - want) > UPD_SCALE_ATOL:
+        bad.append(f"phylo_fit on the 4d sites: {scales_4d[dev]!r} on the "
+                   f"card, the JAX package's {want!r}")
+    cpu_s, gaps = 0.0, {}
+    part = blocks[::CONSERVATION_CPU_STRIDE]
+    for method, sub in (("LRT", None), ("LRT", "anc2"), ("SCORE", None),
+                        ("ratio", None)):
+        got, gmeta = phast.phylo_p(part, tree, scales[dev], method=method,
+                                   subtree=sub, device=dev)
+        t1 = time.time()
+        want, wmeta = phast.phylo_p(part, tree, scales[dev], method=method,
+                                    subtree=sub, device="cpu")
+        cpu_s += time.time() - t1
+        gap = float((np.abs(got - want)
+                     / np.maximum(1.0, np.abs(want))).max())
+        gaps[f"{method}{'/' + sub if sub else ''}"] = gap
+        if gmeta != wmeta or gap > PHAST_TOL[method]:
+            bad.append(f"phylo_p {method} subtree {sub}: the card's scores "
+                       f"{gap:.3g} (relative) from the CPU's, tolerance "
+                       f"{PHAST_TOL[method]}")
+    # the Felsenstein pass alone on the LRT grid, by CUDA events
+    nE = sum(1 for n in tree.postorder() if n.parent is not None)
+    grid = np.full((33, nE), scales[dev])
+    obs_dev = torch.from_numpy(obs).to(dev)
+    phast.column_ll_multi(obs_dev, tree, grid, device=dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ms = time_ms(lambda: phast.column_ll_multi(obs_dev, tree, grid,
+                                               device=dev), 3)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    del obs_dev
+    log(f"phase 11 conservation: {len(obs)} columns x {obs.shape[1]} events; "
+        f"the verbs {verbs_s:.1f} s ({len(bw)} sequences in the --subtree "
+        f"bigwig); phylo_fit card {scales[dev]!r} / CPU {scales['cpu']!r} "
+        f"({fit_s:.1f} s for both), on {sum(len(v) for v in sites.values())} "
+        f"4d sites of {UPD_REF} card {scales_4d[dev]!r} / CPU "
+        f"{scales_4d['cpu']!r}; scores card vs CPU, relative gap "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f" (on {len(gmeta)} columns of every "
+        f"{CONSERVATION_CPU_STRIDE}th block, CPU runs {cpu_s:.1f} s); the "
+        f"Felsenstein pass on the LRT grid "
+        f"(33 rates): {ms:.3f} ms by CUDA events (host copy of the "
+        f"(33, C) result included), device peak {peak / 1e6:.0f} MB above "
+        f"the observations")
+    return bad
+
+
+def start_ranks(inputs, work):
+    """Two `chunked_run` ranks sharing cuda:0 in a gloo group, each a
+    subprocess (`RANK_WORKER`) started now; returns [(Popen, MAF path)]."""
+    port = free_port()
+    script = os.path.join(work, "rank_worker.py")
+    with open(script, "w") as fh:
+        fh.write(RANK_WORKER)
+    env = dict(os.environ, PYTHONPATH=HERE)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    procs = []
+    for rank in range(2):
+        out = os.path.join(work, f"rank{rank}.maf")
+        procs.append((subprocess.Popen(
+            [sys.executable, script, HERE, str(rank), str(port),
+             inputs["seqfile"], out], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT), out))
+    return procs
+
+
+def finish_ranks(procs, timeout=600) -> list[str]:
+    """Waits for the ranks (kills both if one outlasts `timeout`); returns
+    what failed."""
+    bad = []
+    for p, out in procs:
+        try:
+            stdout, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            for q, _o in procs:
+                q.kill()
+                q.wait()
+            return [f"a rank outlasted {timeout} s"]
+        if p.returncode:
+            bad.append(f"rank writing {os.path.basename(out)} exited "
+                       f"{p.returncode}:\n"
+                       + stdout.decode(errors="replace")[-3000:])
+    return bad
+
+
+def phase_parallel(dev, inputs, work):
+    """Phase 11, step 3: two ranks sharing cuda:0 over gloo run
+    ProgressiveAligner(n_devices=2) at blast.chunk_size UPD_CHUNK beside
+    the one-process run in this process, and beside them `python -m
+    cactus_tpu_torch.parallel.dryrun 1` in a 1-rank NCCL group; both
+    ranks' MAFs must equal the one-process MAF, and that the JAX package's
+    digest."""
+    env = dict(os.environ, PYTHONPATH=HERE, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0",
+               LOCAL_RANK="0")
+    t0 = time.time()
+    dry = subprocess.Popen([sys.executable, "-m",
+                            "cactus_tpu_torch.parallel.dryrun", "1"],
+                           cwd=HERE, env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+    procs = start_ranks(inputs, work)
+    try:
+        ref = os.path.join(work, "one.maf")
+        wall, tasks = chunked_run("cactus_tpu_torch", inputs["seqfile"], ref,
+                                  device=dev)
+    finally:
+        bad = finish_ranks(procs)
+        try:
+            text, _ = dry.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            dry.kill()
+            text, _ = dry.communicate()
+        dry_s = time.time() - t0
+    if (dry.returncode != 0 or "backend nccl" not in text
+            or "in a process group: ok" not in text):
+        bad.append(f"dryrun in a 1-rank NCCL group exited "
+                   f"{dry.returncode}:\n{text[-3000:]}")
+    log(f"phase 11 dry run: `python -m cactus_tpu_torch.parallel.dryrun 1` "
+        f"in a 1-rank NCCL group beside the ranks, exit {dry.returncode}, "
+        f"{dry_s:.1f} s")
+    if bad:
+        return bad
+    want = sha256_of(ref)
+    if want != UPD_DIGESTS.get("chunked"):
+        bad.append(f"chunked: one-process MAF sha256 {want[:16]}... != "
+                   f"pinned {str(UPD_DIGESTS.get('chunked'))[:16]}...")
+    walls, equal = [], True
+    for _p, out in procs:
+        info = json.load(open(out + ".json"))
+        walls.append(info)
+        if sha256_of(out) != want:
+            equal = False
+            bad.append(f"{os.path.basename(out)} differs from the "
+                       "one-process MAF")
+        few = {a: n for a, n in info["tasks"].items() if n < 16}
+        if few or not info["tasks"]:
+            bad.append(f"ancestors with under 8 chunk pairs (16 strand "
+                       f"tasks): {few or info['tasks']}")
+    log(f"phase 11 parallel: one process {wall:.1f} s wall at chunk_size "
+        f"{UPD_CHUNK}; two gloo ranks on cuda:0 beside it, "
+        + "; ".join(f"rank {r} {w['wall']:.1f} s ({w['since_start']:.1f} s "
+                    f"from its start), peak {w['peak'] / 1e6:.0f} MB"
+                    for r, w in enumerate(walls))
+        + f"; blast tasks an ancestor {walls[0]['tasks']}; "
+        f"{'both MAFs equal' if equal else 'NOT both equal'} to the "
+        "one-process MAF")
+    return bad
+
+
+def phase_store(dev):
+    """The store, its updates, conservation and the multi-device runtime
+    through the port on the card (the module docstring's phase 11)."""
+    from cactus_tpu_torch.testutil import evolver
+    from cactus_tpu_torch.utils.trees import parse_newick
+    work = tempfile.mkdtemp(prefix="smoke_store_",
+                            dir=os.path.join(HERE, "cactus_tpu_torch",
+                                             "_build"))
+    try:
+        inputs = update_inputs(work, evolver, parse_newick)
+        t0 = time.time()
+        bad = phase_update(dev, inputs)
+        t1 = time.time()
+        if not any("exited" in b for b in bad):
+            bad += phase_conservation(dev, inputs["store"], work)
+        t2 = time.time()
+        bad += phase_parallel(dev, inputs, work)
+        log(f"phase 11 walls: store and updates {t1 - t0:.1f} s, "
+            f"conservation {t2 - t1:.1f} s, parallel {time.time() - t2:.1f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if bad:
+        raise AssertionError("phase 11: launches missing or outputs "
+                             "different from the JAX package's pinned CPU "
+                             "output or the port's CPU run:\n  "
+                             + "\n  ".join(bad))
+    log("phase 11: the store and every update equal the JAX package's CPU "
+        "output (store, MAF, HAL); conservation within the CPU run's "
+        "tolerances; both ranks' MAFs equal the one-process MAF")
+
+
 def dump_banded(recorder, path):
     """Save the inputs of every banded_dp call a path made (host copies)
     with torch.save, for tests/banded_sweep_report.py --replay."""
@@ -3556,8 +4092,11 @@ def main() -> int:
     log(f"phase 9 (the pangenome builder) {time.time() - t0:.1f} s")
     t0 = time.time()
     phase_pipeline(dev)
-    log(f"phase 10 (the step-by-step pipeline) {time.time() - t0:.1f} s; "
-        f"total {time.time() - t_all:.1f} s")
+    log(f"phase 10 (the step-by-step pipeline) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_store(dev)
+    log(f"phase 11 (update, conservation, parallel) {time.time() - t0:.1f} "
+        f"s; total {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

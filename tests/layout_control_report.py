@@ -3,7 +3,7 @@
     JAX_PLATFORMS=cpu python tests/layout_control_report.py [--seeds N]
         [--work DIR]
 
-Builds the star (200 kb), sv and refmap (20 kb) graphs of chip_smoke.py's
+Builds the star (100 kb), sv and refmap (20 kb) graphs of chip_smoke.py's
 phase 9 with the JAX package's `pangenome` verb on the CPU (--no-viz; the
 graphs equal the port's byte for byte), then lays each graph out and
 prints one JSON line a graph with the layout_stress and the log error

@@ -12,9 +12,9 @@ change, parent in one command.
 
 Shapes (pairs, rows, band): the default path's nested refinement
 launches, `[2, 2048, 512]` and `[2, 2048, 2048]` (two pieces of 1500-2048
-bases); chip_smoke.py's 4096-row checks at bands 512 and 2048 (four
-pieces of 2100-4095 bases); and a many-pair `[32, 1024, 512]` (pieces of
-600-1024 bases, as nested refinement batches up to 32 pieces a launch on
+bases); 4096-row ragged checks at bands 512 and 2048 (four pieces of
+2100-4095 bases); and a many-pair `[32, 1024, 512]` (pieces of 600-1024
+bases, as nested refinement batches up to 32 pieces a launch on
 a genome-scale input).  For each it prints one JSON line with the
 wrapper's time by CUDA events (mean of --reps launches after a warm-up),
 the kernel's device time from torch.profiler (`device_ms`, None where the
@@ -28,10 +28,10 @@ name and power limit first.  Needs a CUDA device.
 
 With --model 5 it times pairhmm5_fwd and pairhmm5_bwd instead, with
 max_live as posterior_pairs_banded5 passes it where the tree's wrappers
-take one: at chip_smoke.py's four ragged checks (bands 1024, 2048, 4096
-and 16384; p_match 0.7) and at `[512, 256, 1024]`, the shape of the pecan
-path's largest call with every piece 150-255 bases long, and with
---replay at every call that `python3 chip_smoke.py --dump-pairhmm5 FILE`
+take one: at four ragged checks (bands 1024, 2048, 4096 and 16384;
+p_match 0.7; pieces of up to 3000 rows) and at `[512, 256, 1024]`, the
+shape of the pecan path's largest call with every piece 150-255 bases
+long, and with --replay at every call that `python3 chip_smoke.py --dump-pairhmm5 FILE`
 saved.  Each line also carries the live cells of the pairs' windows and
 the cells the tree's kernels compute (rows 1..m x the lanes' cover, or x
 the band for a tree without max_live).

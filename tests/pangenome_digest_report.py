@@ -4,7 +4,7 @@
 
 Runs the JAX package (cactus_tpu) on the CPU on phase 9's inputs
 (chip_smoke.pan_inputs: 4 haplotypes of PAN_NEWICK, seed 23): the
-`pangenome` verb in star mode at 200 kb and in sv and refmap modes at
+`pangenome` verb in star mode at 100 kb and in sv and refmap modes at
 20 kb, `run_pangenome_split` on the two-chromosome input, and the `gfa
 index|vcf|viz` and `patch` verbs on the star run's GFA.  Prints the
 sha256 of every file each run wrote, and for each .lay.tsv the

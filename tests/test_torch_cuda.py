@@ -1078,3 +1078,79 @@ def test_kmer_counts_mask_on_the_card_equals_cpu(cuda):
     want = masking.kmer_counts_mask(codes, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert 0.05 < want.mean() < 0.5
+
+
+def test_felsenstein_on_the_card_equals_cpu(cuda):
+    from cactus_tpu_torch import phast
+    from cactus_tpu_torch.utils.trees import parse_newick
+    tree = parse_newick("(((a:0.1,b:0.2)x:0.05,c:0.3)y:0.1,(d:0.2,e:0.1)z:"
+                        "0.2)r;")
+    E = len(list(tree.preorder()))
+    rng = np.random.default_rng(10)
+    obs = np.where(rng.random((200_000, E, 4)) < 0.3, 1.0,
+                   1e-3).astype(np.float32)
+    obs[:, [0, 1, 4]] = 1.0                      # ancestors: missing
+    sc = np.exp(rng.normal(size=(33, E - 1)))
+    got = phast.column_ll_multi(obs, tree, sc, device=cuda)
+    want = phast.column_ll_multi(obs, tree, sc, device="cpu")
+    ulp = np.spacing(np.abs(want).max(axis=0).astype(np.float32))
+    assert float((np.abs(got - want) / ulp).max()) <= 4
+    small = phast.felsenstein_bytes_per_column(33, E) * 1000
+    chunked = phast.column_ll_multi(obs, tree, sc, device=cuda, budget=small)
+    np.testing.assert_array_equal(chunked, got)
+
+
+def test_make_mesh_refuses_more_cards_than_the_process_has(cuda):
+    from cactus_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    mesh = make_mesh(n, device=cuda)
+    assert all(s.device.type == "cuda" for s in mesh.devices.flat)
+    with pytest.raises(ValueError):
+        make_mesh(n + 1, device=cuda)
+
+
+_RANK = r"""
+import sys
+sys.path.insert(0, sys.argv[4])
+import torch
+from cactus_tpu_torch.parallel import distributed as dist
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dev = torch.device("cuda", 0)
+assert dist.initialize(coordinator_address=f"127.0.0.1:{port}",
+                       num_processes=2, process_id=rank, backend="gloo",
+                       device=dev)
+import test_torch_parallel as t
+t._maf("cactus_tpu_torch", out, device=dev, n_devices=2)
+dist.shutdown()
+"""
+
+
+def test_two_gloo_ranks_share_the_card(cuda, tmp_path):
+    """Two ranks on cuda:0 (NCCL refuses two ranks a card, so gloo):
+    both MAFs of the multi-chip driver workload equal the one-process
+    run's on the card."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import test_torch_parallel as tpar
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "rank.py"
+    script.write_text(_RANK)
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("MASTER_ADDR", None)
+    procs = [subprocess.Popen([sys.executable, str(script), str(r),
+                               str(port), str(tmp_path / f"r{r}.maf"),
+                               os.path.join(repo, "tests")], env=env,
+                              cwd=repo, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    _res, want = tpar._maf("cactus_tpu_torch", tmp_path / "one.maf",
+                           device=cuda)
+    for p in procs:
+        out, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, out.decode(errors="replace")[-4000:]
+    for r in range(2):
+        assert (tmp_path / f"r{r}.maf").read_bytes() == want

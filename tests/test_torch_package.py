@@ -39,8 +39,16 @@ VERBATIM = [
     "pangenome/giraffe.py", "pangenome/patch.py",
     "preprocessor/stats.py", "prepare.py", "utils/resources.py",
     "chains_export.py", "io/hal_hdf5.py", "io/bigwig.py",
-    "graph/flowers.py", "ops/train.py",
+    "graph/flowers.py", "ops/train.py", "parallel/__init__.py",
 ]
+
+# the Pallas modules' counterparts: a CUDA wrapper module and its source
+PALLAS_COUNTERPARTS = {
+    "ops/banded_pallas.py": ("ops/banded_cuda.py", "csrc/banded.cu"),
+    "ops/pairhmm_pallas.py": ("ops/pairhmm_cuda.py", "csrc/pairhmm.cu"),
+    "ops/pairhmm5_pallas.py": ("ops/pairhmm5_cuda.py", "csrc/pairhmm5.cu"),
+    "ops/poa_pallas.py": ("ops/poa_cuda.py", "csrc/poa.cu"),
+}
 
 
 def test_import_leaves_jax_and_cactus_tpu_out():
@@ -68,12 +76,30 @@ def test_import_leaves_jax_and_cactus_tpu_out():
             "cactus_tpu_torch.chains_export, cactus_tpu_torch.io.hal_hdf5, "
             "cactus_tpu_torch.io.bigwig, cactus_tpu_torch.graph.flowers, "
             "cactus_tpu_torch.ops.train, cactus_tpu_torch.utils.resources\n"
+            "import cactus_tpu_torch.phast, cactus_tpu_torch.update, "
+            "cactus_tpu_torch.parallel, cactus_tpu_torch.parallel.mesh, "
+            "cactus_tpu_torch.parallel.distributed, "
+            "cactus_tpu_torch.parallel.dryrun\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'cactus_tpu' or "
             "m.startswith('cactus_tpu.')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
                    timeout=120)
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    missing = []
+    src = os.path.join(REPO, "cactus_tpu")
+    for root, _dirs, files in os.walk(src):
+        for f in files:
+            if not f.endswith((".py", ".cpp")):
+                continue
+            rel = os.path.relpath(os.path.join(root, f), src)
+            want = PALLAS_COUNTERPARTS.get(rel, (rel,))
+            missing += [w for w in want
+                        if not os.path.exists(os.path.join(PORT, w))]
+    assert not missing, missing
 
 
 def _port_files(suffix=".py"):

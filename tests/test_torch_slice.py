@@ -127,14 +127,29 @@ def test_cli_align_identical_across_packages(seqfile, tmp_path):
     assert open(maf2).read() == open(tmaf).read()
 
 
-def test_cli_unported_verbs_and_options_exit_clearly(seqfile, tmp_path):
-    for argv in (["update", "remove", str(tmp_path / "s"), "a"],
+def _verbs(main, capsys):
+    """The verbs a CLI's parser offers, read from its usage message."""
+    capsys.readouterr()
+    with pytest.raises(SystemExit):
+        main([])
+    usage = capsys.readouterr().err
+    return set(usage[usage.index("{") + 1:usage.index("}")].split(","))
+
+
+def test_cli_unported_verbs_and_options_exit_clearly(seqfile, tmp_path,
+                                                     capsys):
+    """Every verb of the JAX package's CLI is in the port's, and a verb or
+    option neither offers exits with a usage error in both."""
+    assert _verbs(jcli.main, capsys) <= _verbs(tcli.main, capsys)
+    for argv in (["update", "frobnicate", str(tmp_path / "s"), "a"],
                  ["conservation", str(tmp_path / "s"),
-                  str(tmp_path / "c.wig")]):
-        with pytest.raises(SystemExit) as exc:
-            tcli.main(argv)
-        assert "not ported yet" in str(exc.value)
-        assert "ROADMAP.md" in str(exc.value)
+                  str(tmp_path / "c.wig"), "--method", "GERP"],
+                 ["phyloFit", str(tmp_path / "s")]):
+        for main in (jcli.main, tcli.main):
+            with pytest.raises(SystemExit) as exc:
+                main(argv)
+            assert exc.value.code == 2
+        assert "invalid choice" in capsys.readouterr().err
 
 
 def test_store_written_by_jax_package_loads_in_port(seqfile, tmp_path):

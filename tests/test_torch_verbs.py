@@ -82,12 +82,31 @@ def _both(argv_of, capsys, tmp_path, setup=None):
 
 
 def test_not_ported_verbs_are_update_and_conservation(aligned, tmp_path):
-    assert tcli.NOT_PORTED_VERBS == ("update", "conservation")
-    for argv in (["update", "remove", aligned["torch"][0], "a"],
-                 ["conservation", aligned["torch"][0],
-                  str(tmp_path / "c.wig")]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            tcli.main(argv)
+    """`update` and `conservation`, the last verbs to be ported, run
+    through the port's CLI on either package's store: `update remove
+    --hal` writes what the JAX package's writes, and `conservation
+    --method ratio` the same positions (its values are held by
+    tests/test_torch_phast.py)."""
+    assert not hasattr(tcli, "NOT_PORTED_VERBS")
+    for src in ("jax", "torch"):
+        runs = []
+        for name, main, extra in (("jax", jcli.main, []),
+                                  ("torch", tcli.main, ["--device", "cpu"])):
+            d = str(tmp_path / f"{src}_{name}")
+            shutil.copytree(aligned[src][0], d)
+            assert main(["update", "remove", d, "b", "--min-chain", "64",
+                         "--hal", d + ".hal", *extra]) == 0
+            assert main(["hal2maf", d, d + ".maf"]) == 0
+            runs.append([open(d + x, "rb").read() for x in (".hal", ".maf")])
+        assert runs[0] == runs[1]
+        wig = str(tmp_path / f"{src}.wig")
+        assert tcli.main(["conservation", aligned[src][0], wig, "--method",
+                          "ratio", "--device", "cpu"]) == 0
+        assert jcli.main(["conservation", aligned[src][0], wig + ".j.wig",
+                          "--method", "ratio"]) == 0
+        pos = [ln.split()[0] for ln in open(wig)]
+        assert pos == [ln.split()[0] for ln in open(wig + ".j.wig")]
+        assert len(pos) > 5000
 
 
 @pytest.mark.parametrize("mode", [[], ["--fastga"], ["--minimap2"],
