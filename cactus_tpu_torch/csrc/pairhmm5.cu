@@ -77,15 +77,61 @@
 // tests/test_torch_pairhmm5_live.py holds a numpy model of this schedule
 // to the plain version and the JAX package.
 // A launch whose widest live row passes kMaxCells (65,536 cells: 32 warps
-// of 64 cells a lane) takes the wide kernels (pairhmm5_fwd_wide_kernel,
-// pairhmm5_bwd_wide_kernel): the whole band of every row, a block's
-// threads looping over it, the state rows in global scratch.  The
-// wrapper routes by max_live (ops/pairhmm5_cuda.py::pairhmm5_route).
+// of 64 cells a lane, past which a lane's cells no longer fit its
+// registers) takes the wide route (ops/pairhmm5_cuda.py::pairhmm5_route):
+// pairhmm5_fwd_cluster_kernel and pairhmm5_bwd_cluster_kernel, the same
+// two Pallas kernels' counterparts for rows wider than one SM holds.  What
+// bounds them is the same chain of rows; a row costs the cells each SM
+// computes (~75 instructions a cell) plus a fixed exchange.  So a pair's
+// row is spread over a thread-block cluster of up to 16 CTAs on
+// neighbouring SMs (non-portable past 8), whose shared memories are
+// readable by each other (distributed shared memory):
+//  - One cluster a pair, on the live window only: cluster lane L = rank T
+//    + t owns window cells k = L C .. L C + C - 1 (cluster_shape: 8 cells a
+//    lane in the fewest warps that cover max_live, over as many CTAs as
+//    there are warps, up to 16).  The card must schedule the cluster
+//    (cudaOccupancyMaxActiveClusters, asked once a shape), or the launch
+//    returns an error.
+//  - The previous row's states in each CTA's own shared memory (its
+//    window cells in order, one pad word in 33, as the narrow kernels),
+//    up to 16 x 1024 x 8 = 131,072 cells; past that the same kernel
+//    (kSmem false) keeps them, and the lanes' own cells, in the pair's
+//    global scratch at c lanes + L (neighbouring lanes, neighbouring
+//    words) with ceil(max_live / 16384) cells a lane, so no width is
+//    refused.  A warp stores its rows' cells (fM forward, the posterior
+//    backward) in order, 32 neighbouring cells a store, read back from
+//    the state row (a lane's own C cells a store, 8 sectors apart, took
+//    a third of a row's time on an H100 80GB HBM3 at 700 W,
+//    tests/pairhmm5_cluster_report.py).
+//  - The narrow kernels' multi-warp schedule, lifted to the cluster: each
+//    warp scans its lanes' 2x2 chain maps by shuffles and publishes its
+//    maps and edge cells; after the block barrier warp 0 scans the warps'
+//    maps (one shuffle scan: each warp's carry map and the map to its
+//    neighbour cell) and pushes the CTA's aggregate maps, its maximum of
+//    the row before and its edge cells into the rings of the CTAs that
+//    read them (DSMEM stores, double-buffered by row parity); after the
+//    row's one cluster barrier warp 0 walks the maps in its own ring into
+//    the carry entering its CTA, and a block barrier hands it to the
+//    warps, which replay their cells from the exact carry.  Nothing is
+//    loaded remotely: every push lands before the barrier.  The row
+//    maximum is deferred a row, as in the narrow kernels, and the cells
+//    across a CTA edge (forward: M, SX, LX of the first and last cells
+//    and the previous CTA's last SY, LY from its map; backward: the next
+//    CTA's first bM, formed from its pass-1 values and its map without
+//    its first cell) travel in the rings.  Rescales multiply by the
+//    reciprocal.
+//  - The (M, B) output is zeroed once over the cluster's lanes, and the
+//    backward pass forms the posterior in its row loop.
+// tests/test_torch_pairhmm5_live.py models this schedule too (ncta).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <mutex>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -95,14 +141,49 @@ constexpr int kMaxWarps = 32;
 // the widest cover (lanes x cells) whose state rows live in shared memory
 constexpr int kSmemMaxCells = 8192;
 // the widest live row a narrow launch takes (32 warps of 64 cells a
-// lane); wider launches take the wide kernels
+// lane); wider launches take the cluster kernels
 constexpr int kMaxCells = 32 * kMaxWarps * 64;
-// the wide kernels' block
-constexpr int kWideThreads = 512;
 
 struct Trans {
   float mc, os, ol, es, el, wsl, wls, ms, ml;
 };
+
+// The recurrences of one cell, shared by every kernel here (the plain
+// version's forward_banded5 and backward_posterior5, term for term).
+// Forward, row i from row i - 1: mM from the cell at j - 1, mSX and mLX
+// from the cell at j ("u": the row above).
+__device__ __forceinline__ float fwd_m(const Trans& tr, float emit, float fm,
+                                       float fsx, float flx, float fsy,
+                                       float fly) {
+  return emit * ((tr.mc * fm + tr.ms * (fsx + fsy)) + tr.ml * (flx + fly));
+}
+
+__device__ __forceinline__ float fwd_sx(const Trans& tr, float fmu,
+                                        float fsxu, float flxu) {
+  return (tr.os * fmu + tr.es * fsxu) + tr.wls * flxu;
+}
+
+__device__ __forceinline__ float fwd_lx(const Trans& tr, float fmu,
+                                        float fsxu, float flxu) {
+  return (tr.ol * fmu + tr.el * flxu) + tr.wsl * fsxu;
+}
+
+// Backward, row i - 1 from row i: mm = emit * bM at j + 1, sx and lx the
+// bSX, bLX at j, r the SY/LY chain at j + 1.
+__device__ __forceinline__ float bwd_m(const Trans& tr, float mm, float sx,
+                                       float lx, float r1, float r2) {
+  return (tr.mc * mm + tr.os * (sx + r1)) + tr.ol * (lx + r2);
+}
+
+__device__ __forceinline__ float bwd_sx(const Trans& tr, float mm, float sx,
+                                        float lx) {
+  return (tr.ms * mm + tr.es * sx) + tr.wsl * lx;
+}
+
+__device__ __forceinline__ float bwd_lx(const Trans& tr, float mm, float sx,
+                                        float lx) {
+  return (tr.ml * mm + tr.el * lx) + tr.wls * sx;
+}
 
 // y -> [[a11, a12], [a21, a22]] y + (v1, v2)
 struct Aff {
@@ -181,57 +262,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Exclusive scan of the threads' chain maps over the block, applied to
-// y = 0: the chain value entering this thread's first cell.  Forward: the
-// maps of lower threads apply first.  Reverse: those of higher threads.
-template <bool kReverse>
-__device__ float2 block_chain_carry(Aff x, Aff* buf) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const Aff o = shfl_aff<kReverse>(x, off);
-    const bool has = kReverse ? (lane + off < 32) : (lane >= off);
-    if (has) x = compose(x, o);   // the other lanes' maps apply first
-  }
-  Aff ex = shfl_aff<kReverse>(x, 1);   // lane-exclusive map
-  if (lane == (kReverse ? 31 : 0)) ex = aff_identity();
-  if (lane == (kReverse ? 0 : 31)) buf[warp] = x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    Aff acc = aff_identity();
-    for (int k = 0; k < nwarps; ++k) {
-      const int w = kReverse ? nwarps - 1 - k : k;
-      const Aff tot = buf[w];
-      buf[w] = acc;
-      acc = compose(tot, acc);
-    }
-  }
-  __syncthreads();
-  const Aff wp = buf[warp];
-  return make_float2((ex.a11 * wp.v1 + ex.a12 * wp.v2) + ex.v1,
-                     (ex.a21 * wp.v1 + ex.a22 * wp.v2) + ex.v2);
-}
-
-__device__ float block_max(float v, float* buf) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if (lane == 0) buf[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float acc = buf[0];
-    for (int w = 1; w < nwarps; ++w) acc = fmaxf(acc, buf[w]);
-    buf[32] = acc;
-  }
-  __syncthreads();
-  return buf[32];
-}
-
 // The exchange between the warps of a pair, double-buffered by row parity
 // (kW = 1 for one-warp blocks, which never use it).
 template <int kW>
@@ -261,16 +291,21 @@ __device__ __forceinline__ Window window(int i, int n, int lo, int B) {
   return Window{jlo, max(0, jhi - jlo + 1)};
 }
 
-// Zeros over a pair's (M, B) band, coalesced.
-__device__ void zero_band(float* base, int M, int B) {
-  const size_t cells = (size_t)M * B;
-  if ((B & 3) == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0) {
+// Zeros over `cells` floats from base, coalesced: thread `first` of
+// `step` threads.
+__device__ void zero_cells(float* base, size_t cells, int first, int step) {
+  if ((cells & 3) == 0 && (reinterpret_cast<uintptr_t>(base) & 15) == 0) {
     float4* p4 = reinterpret_cast<float4*>(base);
-    for (size_t k = threadIdx.x; k < cells / 4; k += blockDim.x)
+    for (size_t k = first; k < cells / 4; k += step)
       p4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
   } else {
-    for (size_t k = threadIdx.x; k < cells; k += blockDim.x) base[k] = 0.f;
+    for (size_t k = first; k < cells; k += step) base[k] = 0.f;
   }
+}
+
+// Zeros over a pair's (M, B) band, by the block.
+__device__ void zero_band(float* base, int M, int B) {
+  zero_cells(base, (size_t)M * B, threadIdx.x, blockDim.x);
 }
 
 template <bool kSmem>
@@ -495,11 +530,9 @@ pairhmm5_fwd_kernel(const uint8_t* __restrict__ q,
       const bool okx = k < win.wd;
       const bool ok = okx && win.jlo + k >= 1;
       const float emit = okx ? erow[tp[i - 1 + bb + k]] : 0.f;
-      rM[c] = ok ? emit * ((tr.mc * fm + tr.ms * (fsx + fsy)) +
-                           tr.ml * (flx + fly))
-                 : 0.f;
-      rSX[c] = okx ? (tr.os * fmu + tr.es * fsxu) + tr.wls * flxu : 0.f;
-      rLX[c] = okx ? (tr.ol * fmu + tr.el * flxu) + tr.wsl * fsxu : 0.f;
+      rM[c] = ok ? fwd_m(tr, emit, fm, fsx, flx, fsy, fly) : 0.f;
+      rSX[c] = okx ? fwd_sx(tr, fmu, fsxu, flxu) : 0.f;
+      rLX[c] = okx ? fwd_lx(tr, fmu, fsxu, flxu) : 0.f;
     }
     const Aff ex = fwd_scan<C, kMulti>(rM, k0, win.jlo, win.wd, cover, tr, A,
                                        xs, par);
@@ -910,8 +943,8 @@ pairhmm5_bwd_kernel(const float* __restrict__ fM,
       }
       if (lane == 31) {
         const float mm = rMM[C - 1], sx = rSX[C - 1], lx = rLX[C - 1];
-        xs.edge[par][warp][3] = (tr.ms * mm + tr.es * sx) + tr.wsl * lx;
-        xs.edge[par][warp][4] = (tr.ml * mm + tr.el * lx) + tr.wls * sx;
+        xs.edge[par][warp][3] = bwd_sx(tr, mm, sx, lx);
+        xs.edge[par][warp][4] = bwd_lx(tr, mm, sx, lx);
       }
       __syncthreads();   // the row's one barrier
     } else {
@@ -952,9 +985,9 @@ pairhmm5_bwd_kernel(const float* __restrict__ fM,
       const float n2 = (At[2] * y1 + At[3] * y2) + c2[c];
       y1 = n1;
       y2 = n2;
-      float nM = (tr.mc * mm + tr.os * (sx + r1)) + tr.ol * (lx + r2);
-      float nSX = (tr.ms * mm + tr.es * sx) + tr.wsl * lx;
-      float nLX = (tr.ml * mm + tr.el * lx) + tr.wls * sx;
+      float nM = bwd_m(tr, mm, sx, lx, r1, r2);
+      float nSX = bwd_sx(tr, mm, sx, lx);
+      float nLX = bwd_lx(tr, mm, sx, lx);
       float nSY = n1, nLY = n2;
       if (!(k < win.wd)) {
         nM = nSX = nLX = nSY = nLY = 0.f;
@@ -990,9 +1023,7 @@ pairhmm5_bwd_kernel(const float* __restrict__ fM,
         const float mm = xs.edge[par][warp + 1][0];
         const float sx = xs.edge[par][warp + 1][1];
         const float lx = xs.edge[par][warp + 1][2];
-        nbR = x < win.wd
-                  ? (tr.mc * mm + tr.os * (sx + yn1)) + tr.ol * (lx + yn2)
-                  : 0.f;
+        nbR = x < win.wd ? bwd_m(tr, mm, sx, lx, yn1, yn2) : 0.f;
         if (i < m) nbR = nbR * isp;
       }
       if (lane == 0 && warp > 0) {
@@ -1039,377 +1070,763 @@ pairhmm5_bwd_kernel(const float* __restrict__ fM,
   posterior_row<C>(fp, pp, bm, k0, win.jlo - 1 - lo_p, win.wd, g);
 }
 
-// ------------------------------------------------------------ wide rows
+// --------------------------------------------------------- cluster rows
 
-// The wide kernels take a launch whose widest live row passes kMaxCells:
-// one block of kWideThreads threads a pair, each thread a contiguous run
-// of B / kWideThreads cells of every row's whole band (masked to the
-// contract's zeros outside the live window), the state rows in a
-// per-pair global scratch row (pairhmm5_wide_scratch_floats), three
-// passes a row with a block scan of the chain maps and a block maximum
-// between them, and every row rescaled by division as the plain version
-// does.  They are the full-band kernels of the port's first design.
-__global__ void __launch_bounds__(kWideThreads)
-pairhmm5_fwd_wide_kernel(const uint8_t* __restrict__ q,
-                    const uint8_t* __restrict__ t_shift,
-                    const int* __restrict__ m_len,
-                    const int* __restrict__ n_len,
-                    const int* __restrict__ lo,
-                    const float* __restrict__ em, int M, int B, Trans tr,
-                    float* scratch, float* __restrict__ fM_out,
-                    float* __restrict__ lsF_out,
-                    float* __restrict__ logZ_out) {
-  __shared__ Aff aff_buf[32];
-  __shared__ float max_buf[33];
-  __shared__ float s_em[36];
-  __shared__ float s_end;
-  const int W = row_words(B);
-  float* sM = scratch + (size_t)blockIdx.x * 5 * W;
-  float* sSX = sM + W;
-  float* sLX = sSX + W;
-  float* sSY = sLX + W;
-  float* sLY = sSY + W;
+// The cluster kernels take a launch whose widest live row passes
+// kMaxCells (the header sets out the design): one thread-block cluster a
+// pair, up to kClusterMax CTAs of up to kClusterThreads threads.
+constexpr int kClusterMax = 16;        // CTAs a cluster (non-portable past 8)
+constexpr int kClusterThreads = 1024;
+constexpr int kClusterCells = 8;       // cells a lane, rows in shared memory
+// rows of CTAs x threads x cells words a pair's global scratch holds (the
+// state rows, then the lanes' own cells): five and five forward, three
+// and three backward
+constexpr int kClusterFwdRows = 10;
+constexpr int kClusterBwdRows = 6;
 
-  const int p = blockIdx.x;
-  const int T = blockDim.x;
+// What the other CTAs of a pair's cluster push into this CTA's shared
+// memory for a row, double-buffered by row parity.
+struct Ring {
+  Aff agg[2][kClusterMax];     // fwd: each earlier CTA's map followed by
+                               // its next CTA's first cell; bwd: each
+                               // later CTA's whole map
+  Aff near[2];                 // fwd: the previous CTA's map to its last
+                               // cell; bwd: the next CTA's map without its
+                               // first cell
+  float max[2][kClusterMax];   // every CTA's maximum of the row before
+  float lo[2][3];              // the next CTA's first cell
+  float hi[2][3];              // the previous CTA's last cell
+};
+
+struct ClusterSmem {
+  Slots<kMaxWarps> xs;         // the exchange between this CTA's warps
+  Aff pre[kMaxWarps];          // the CTA's warps before (fwd) or after
+                               // (bwd) warp w, composed
+  Aff near[kMaxWarps];         // fwd: the map to warp w's last cell; bwd:
+                               // to its second cell
+  Aff mine[2];                 // the CTA's own two maps, for the push
+  Ring ring;
+  float carry[5];              // the chain entering the CTA (2), at the
+                               // previous CTA's last cell (fwd) or the
+                               // next CTA's second cell (bwd) (2), and the
+                               // cluster's maximum of the row before
+  float em[36];
+  float end;
+};
+
+// A lane's window cells of the row being computed: in registers (C of
+// them), or, for the global-scratch instance, in the pair's scratch at
+// cell c of lane L -> c * lanes + L.
+template <int C, bool kReg>
+struct Cells {
+  float v[C];
+  __device__ __forceinline__ float& operator[](int c) { return v[c]; }
+  __device__ __forceinline__ void bind(float*, int) {}
+};
+
+template <int C>
+struct Cells<C, false> {
+  float* p;
+  int stride;
+  __device__ __forceinline__ float& operator[](int c) {
+    return p[(size_t)c * stride];
+  }
+  __device__ __forceinline__ void bind(float* base, int s) {
+    p = base;
+    stride = s;
+  }
+};
+
+// Warp 0, after the block barrier: composes the CTA's warps' maps (fwd:
+// each warp's tot2 from the left; bwd: each warp's tot from the right)
+// into each warp's exclusive map s.pre[w] and its near map s.near[w], and
+// pushes the CTA's own maps and edge cells into the rings of the CTAs
+// that read them.
+template <bool kBwd>
+__device__ void cta_publish(ClusterSmem& s, int par, int nw) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  const int rank = (int)cl.block_rank();
+  const int ctas = (int)cl.num_blocks();
+  const bool has = lane < nw;
+  const Aff id = aff_identity();
+  const Aff t1 = has ? s.xs.tot[par][lane] : id;
+  const Aff t2 = has ? s.xs.tot2[par][lane] : id;
+  Aff ex;
+  const Aff inc = warp_scan<kBwd>(kBwd ? t1 : t2, &ex);
+  const Aff nr = compose(kBwd ? t2 : t1, ex);
+  if (has) {
+    s.pre[lane] = ex;
+    s.near[lane] = nr;
+  }
+  if (lane == (kBwd ? 0 : nw - 1)) {
+    s.mine[0] = inc;
+    s.mine[1] = nr;
+  }
+  __syncwarp();
+  if (lane < ctas) {
+    Ring* r = cl.map_shared_rank(&s.ring, lane);
+    if (kBwd ? lane < rank : lane > rank) r->agg[par][rank] = s.mine[0];
+    if (lane == (kBwd ? rank - 1 : rank + 1)) r->near[par] = s.mine[1];
+    if (lane == rank - 1)
+      for (int e = 0; e < 3; ++e) r->lo[par][e] = s.xs.edge[par][0][e];
+    if (lane == rank + 1)
+      for (int e = 0; e < 3; ++e)
+        r->hi[par][e] = s.xs.edge[par][nw - 1][3 + e];
+  }
+}
+
+// Warp 0: the CTA's maximum of its warps' maxima xs.max[src], pushed into
+// every CTA's ring.max[par][rank].
+__device__ void cta_push_max(ClusterSmem& s, int src, int par, int nw) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  const float v = warp_max(lane < nw ? s.xs.max[src][lane] : 0.f);
+  if (lane < (int)cl.num_blocks())
+    cl.map_shared_rank(&s.ring, lane)->max[par][cl.block_rank()] = v;
+}
+
+// Warp 0, after the cluster barrier: the chain value entering this CTA
+// (the pushed maps of the CTAs before it, fwd, or after it, bwd, applied
+// to 0 one after the other), the value at the previous CTA's last cell
+// (fwd) or at the next CTA's second cell (bwd), and the cluster's maximum
+// of the row before, into s.carry.
+template <bool kBwd>
+__device__ void cta_carry(ClusterSmem& s, int par, bool maps) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  const int rank = (int)cl.block_rank();
+  const int ctas = (int)cl.num_blocks();
+  float y1 = 0.f, y2 = 0.f, n1 = 0.f, n2 = 0.f;
+  const int steps = !maps ? 0 : kBwd ? ctas - 1 - rank : rank;
+  for (int k = 0; k < steps; ++k) {
+    const int r = kBwd ? ctas - 1 - k : k;
+    if (r == (kBwd ? rank + 1 : rank - 1)) {
+      n1 = y1;
+      n2 = y2;
+      apply(s.ring.near[par], n1, n2);
+    }
+    apply(s.ring.agg[par][r], y1, y2);
+  }
+  const float mx = warp_max(lane < ctas ? s.ring.max[par][lane] : 0.f);
+  if (lane == 0) {
+    s.carry[0] = y1;
+    s.carry[1] = y2;
+    s.carry[2] = n1;
+    s.carry[3] = n2;
+    s.carry[4] = mx;
+  }
+}
+
+// A row's exchange, by every thread of the cluster: the block barrier,
+// warp 0 composes and pushes the CTA's maps (when `maps`) and its maximum
+// of xs.max[src], the cluster barrier, warp 0 composes the carry, and a
+// block barrier hands s.carry to the CTA's warps.
+template <bool kBwd>
+__device__ void cluster_exchange(ClusterSmem& s, int par, int src, int nw,
+                                 bool maps) {
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (warp == 0) {
+    if (maps) cta_publish<kBwd>(s, par, nw);
+    cta_push_max(s, src, par, nw);
+  }
+  cg::this_cluster().sync();
+  if (warp == 0) cta_carry<kBwd>(s, par, maps);
+  __syncthreads();
+}
+
+template <int C, bool kSmem>
+__global__ void __launch_bounds__(kClusterThreads)
+pairhmm5_fwd_cluster_kernel(const uint8_t* __restrict__ q,
+                            const uint8_t* __restrict__ t_shift,
+                            const int* __restrict__ m_len,
+                            const int* __restrict__ n_len,
+                            const int* __restrict__ lo,
+                            const float* __restrict__ em, int M, int B,
+                            Trans tr, int cells, float* scratch,
+                            float* __restrict__ fM_out,
+                            float* __restrict__ lsF_out,
+                            float* __restrict__ logZ_out) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float4 smem_f4[];
+  __shared__ ClusterSmem s;
   const int t = threadIdx.x;
-  const int C = (B + T - 1) / T;
-  const int b0 = min(t * C, B);
-  const int b1 = min(b0 + C, B);
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int T = blockDim.x;
+  const int nw = T >> 5;
+  const int rank = (int)cl.block_rank();
+  const int ctas = (int)cl.num_blocks();
+  const int nc = kSmem ? C : cells;   // window cells a lane
+  const int lanes = ctas * T;
+  const int L = rank * T + t;         // the lane's place in the cluster
+  const int cover = lanes * nc;
+  const int k0 = L * nc;              // the lane's first window cell
+  // a lane 0 past the cluster's first: the warp before pushes its first
+  // cell into its published map tot2
+  const bool skip = lane == 0 && L > 0;
+  // the state rows: the CTA's window cells in order in shared memory
+  // (one pad word in 33), or cell c of the cluster's lane L at c lanes + L
+  // in the pair's global scratch (five rows, then the five rows of the
+  // lanes' own cells); word(dl, c): cell c of the lane dl lanes on
+  const size_t RW = kSmem ? (size_t)row_words(T * nc) : (size_t)lanes * nc;
+  const int p = blockIdx.x / ctas;
+  float* rows = kSmem ? reinterpret_cast<float*>(smem_f4)
+                      : scratch + (size_t)p * kClusterFwdRows * RW;
+  auto word = [&](int dl, int c) -> size_t {
+    return kSmem ? (size_t)pix((t + dl) * nc + c)
+                 : (size_t)c * lanes + (L + dl);
+  };
+  float* sM = rows;
+  float* sSX = sM + RW;
+  float* sLX = sSX + RW;
+  float* sSY = sLX + RW;
+  float* sLY = sSY + RW;
+  Cells<C, kSmem> rM, rSX, rLX;
+  rM.bind(sLY + RW + L, lanes);
+  rSX.bind(sLY + 2 * RW + L, lanes);
+  rLX.bind(sLY + 3 * RW + L, lanes);
+  // the warp's cells in order, lane after lane, for coalesced row stores:
+  // its j-th of nc steps holds window cell kw0 + kl (kl = 32 j + lane),
+  // cell kl % nc of the lane kl / nc - lane lanes on
+  const int kw0 = (L - lane) * nc;
+
   const int lo_p = lo[p];
-  const int m = m_len[p];
+  const int m = min(m_len[p], M);
   const int n = n_len[p];
-  const int b_end = n - m - lo_p;
   const int end_row = m > 1 ? m : 1;
   const uint8_t* qp = q + (size_t)p * M;
   const uint8_t* tp = t_shift + (size_t)p * (M + B);
   float* fp = fM_out + (size_t)p * M * B;
-  // forward chain matrix A = [[es, wls], [wsl, el]]
-  const float a11 = tr.es, a12 = tr.wls, a21 = tr.wsl, a22 = tr.el;
-  const float A[4] = {a11, a12, a21, a22};
+  float* lp = lsF_out + (size_t)p * M;
+  const float A[4] = {tr.es, tr.wls, tr.wsl, tr.el};
 
-  for (int k = t; k < 36; k += T) s_em[k] = em[k];
-  if (t == 0) s_end = 0.f;
-  // row 0: M at j == 0; the SY/LY chains seeded by that M cell
-  for (int b = b0; b < b1; ++b) {
-    sM[pix(b)] = lo_p + b == 0 ? 1.f : 0.f;
-    sSX[pix(b)] = 0.f;
-    sLX[pix(b)] = 0.f;
-  }
-  __syncthreads();
-  {
-    Aff a = aff_identity();
-    for (int b = b0; b < b1; ++b) {
-      const int j0 = lo_p + b;
-      const bool ok = j0 >= 1 && j0 <= n;
-      const float prev = b > 0 ? sM[pix(b - 1)] : 0.f;
-      a = push_cell(a, A, ok ? tr.os * prev : 0.f,
-                    ok ? tr.ol * prev : 0.f);
-    }
-    const float2 y0 = block_chain_carry<false>(a, aff_buf);
-    float y1 = y0.x, y2 = y0.y;
-    for (int b = b0; b < b1; ++b) {
-      const int j0 = lo_p + b;
-      const bool ok = j0 >= 1 && j0 <= n;
-      const float prev = b > 0 ? sM[pix(b - 1)] : 0.f;
-      const float c1 = ok ? tr.os * prev : 0.f;
-      const float c2 = ok ? tr.ol * prev : 0.f;
-      const float n1 = (a11 * y1 + a12 * y2) + c1;
-      const float n2 = (a21 * y1 + a22 * y2) + c2;
-      y1 = n1;
-      y2 = n2;
-      sSY[pix(b)] = ok ? y1 : 0.f;
-      sLY[pix(b)] = ok ? y2 : 0.f;
-    }
-  }
+  for (int k = t; k < 36; k += T) s.em[k] = em[k];
+  if (t == 0) s.end = 0.f;
+  // the whole band first, over the cluster's lanes; the rows then store
+  // their windows (after at least one cluster barrier)
+  zero_cells(fp, (size_t)M * B, L, lanes);
+
+  // the cells across the lane's warp edge: the next warp's first (M, SX,
+  // LX) and the previous warp's last (M, SX, LX, SY, LY), as stored
+  float nbR[3] = {0.f, 0.f, 0.f}, nbL[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
   float ls = 0.f;
-  __syncthreads();
-
-  const bool vec_ok = (B % 4) == 0;
-  for (int i = 1; i <= M; ++i) {
-    float* frow = fp + (size_t)(i - 1) * B;
-    if (i > m) {
-      // past the pair's end every state is masked to exactly 0 and the
-      // row scale is TINY
-      if (vec_ok) {
-        float4* dst = reinterpret_cast<float4*>(frow);
-        for (int k = t; k < B / 4; k += T) dst[k] = make_float4(0, 0, 0, 0);
-      } else {
-        for (int k = t; k < B; k += T) frow[k] = 0.f;
+  float isp = 1.f;   // the reciprocal of the scale of the row before
+  Window win = window(0, n, lo_p, B);
+  // row 0 (M at j == 0, the SY/LY chains it seeds), then rows 1..m, each
+  // computed from the row before as it stood before its rescale
+  for (int i = 0; i <= m; ++i) {
+    const Window prev = win;
+    win = window(i, n, lo_p, B);
+    const int delta = win.jlo - prev.jlo;
+    const int par = i & 1;
+    const int bb = win.jlo - i - lo_p;
+    __syncwarp();
+    if (i == 0) {
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int k = k0 + c;
+        rM[c] = k < win.wd && win.jlo + k == 0 ? 1.f : 0.f;
+        rSX[c] = 0.f;
+        rLX[c] = 0.f;
       }
-      ls = ls + logf(kTiny);
-      if (t == 0) {
-        lsF_out[(size_t)p * M + i - 1] = ls;
-        if (i == end_row) logZ_out[p] = logf(kTiny) + ls;
+    } else {
+      const float* erow = s.em + 6 * qp[i - 1];
+      // pass 1: M at k - 1 + delta, SX and LX at k + delta of the row
+      // before (own cells, the neighbour lane's, or across the warp edge)
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int k = k0 + c;
+        float fm, fsx, flx, fsy, fly;
+        if (delta == 1 || c > 0) {
+          const size_t o = word(0, c - 1 + delta);
+          fm = sM[o];
+          fsx = sSX[o];
+          flx = sLX[o];
+          fsy = sSY[o];
+          fly = sLY[o];
+        } else if (k0 == 0) {
+          fm = fsx = flx = fsy = fly = 0.f;
+        } else if (lane == 0) {
+          fm = nbL[0];
+          fsx = nbL[1];
+          flx = nbL[2];
+          fsy = nbL[3];
+          fly = nbL[4];
+        } else {
+          const size_t o = word(-1, nc - 1);
+          fm = sM[o];
+          fsx = sSX[o];
+          flx = sLX[o];
+          fsy = sSY[o];
+          fly = sLY[o];
+        }
+        float fmu, fsxu, flxu;
+        if (delta == 0 || c + 1 < nc) {
+          const size_t o = word(0, c + delta);
+          fmu = sM[o];
+          fsxu = sSX[o];
+          flxu = sLX[o];
+        } else if (L + 1 == lanes) {
+          fmu = fsxu = flxu = 0.f;
+        } else if (lane == 31) {
+          fmu = nbR[0];
+          fsxu = nbR[1];
+          flxu = nbR[2];
+        } else {
+          const size_t o = word(1, 0);
+          fmu = sM[o];
+          fsxu = sSX[o];
+          flxu = sLX[o];
+        }
+        const bool okx = k < win.wd;
+        const bool ok = okx && win.jlo + k >= 1;
+        const float emit = okx ? erow[tp[i - 1 + bb + k]] : 0.f;
+        rM[c] = ok ? fwd_m(tr, emit, fm, fsx, flx, fsy, fly) : 0.f;
+        rSX[c] = okx ? fwd_sx(tr, fmu, fsxu, flxu) : 0.f;
+        rLX[c] = okx ? fwd_lx(tr, fmu, fsxu, flxu) : 0.f;
       }
-      continue;
     }
-    const float* erow = s_em + 6 * qp[i - 1];
-    // the right neighbour's first cell of the previous row, read before
-    // that thread overwrites it
-    float nbM = 0.f, nbSX = 0.f, nbLX = 0.f;
-    if (b1 < B && b0 < b1) {
-      nbM = sM[pix(b1)];
-      nbSX = sSX[pix(b1)];
-      nbLX = sLX[pix(b1)];
-    }
-    __syncthreads();
-
-    // pass 1: mM, mSX, mLX from the previous row (cell b and b + 1)
-    for (int b = b0; b < b1; ++b) {
-      const float fm = sM[pix(b)], fsx = sSX[pix(b)], flx = sLX[pix(b)];
-      const float fsy = sSY[pix(b)], fly = sLY[pix(b)];
-      const bool last = b + 1 >= b1;
-      const float fmu = last ? nbM : sM[pix(b + 1)];
-      const float fsxu = last ? nbSX : sSX[pix(b + 1)];
-      const float flxu = last ? nbLX : sLX[pix(b + 1)];
-      const float emit = erow[tp[i - 1 + b]];
-      const int j = i + lo_p + b;
-      float mM = emit * ((tr.mc * fm + tr.ms * (fsx + fsy)) +
-                         tr.ml * (flx + fly));
-      if (!(j >= 1 && j <= n)) mM = 0.f;
-      float mSX = (tr.os * fmu + tr.es * fsxu) + tr.wls * flxu;
-      float mLX = (tr.ol * fmu + tr.el * flxu) + tr.wsl * fsxu;
-      if (!(j >= 0 && j <= n)) {
-        mSX = 0.f;
-        mLX = 0.f;
+    // the lane's chain map c[k] = ok(k) (os, ol) M[k - 1], the warp scan,
+    // the warp's maps and edge cells
+    float left = __shfl_up_sync(kFull, rM[nc - 1], 1);
+    if (lane == 0) left = 0.f;
+    {
+      Aff a = aff_identity();
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int k = k0 + c;
+        const bool ok = k < win.wd && win.jlo + k >= 1;
+        const float pm = c > 0 ? rM[c - 1] : left;
+        if (!(c == 0 && skip))
+          a = push_cell(a, A, ok ? tr.os * pm : 0.f, ok ? tr.ol * pm : 0.f);
       }
-      sM[pix(b)] = mM;
-      sSX[pix(b)] = mSX;
-      sLX[pix(b)] = mLX;
-    }
-    __syncthreads();
+      Aff ex;
+      const Aff x = warp_scan<false>(a, &ex);
+      if (lane == 31) {
+        const int kn = k0 + nc;   // the next warp's first cell
+        const bool ok = kn < win.wd && win.jlo + kn >= 1 && kn < cover;
+        const float last = rM[nc - 1];
+        s.xs.tot[par][warp] = x;
+        s.xs.tot2[par][warp] =
+            push_cell(x, A, ok ? tr.os * last : 0.f, ok ? tr.ol * last : 0.f);
+        s.xs.edge[par][warp][3] = last;
+        s.xs.edge[par][warp][4] = rSX[nc - 1];
+        s.xs.edge[par][warp][5] = rLX[nc - 1];
+      }
+      if (lane == 0) {
+        s.xs.edge[par][warp][0] = rM[0];
+        s.xs.edge[par][warp][1] = rSX[0];
+        s.xs.edge[par][warp][2] = rLX[0];
+      }
+      cluster_exchange<false>(s, par, par ^ 1, nw, true);
 
-    // compose this thread's chain maps y -> A y + ok*(os, ol)*mM[b-1]
-    Aff a = aff_identity();
-    for (int b = b0; b < b1; ++b) {
-      const int j = i + lo_p + b;
-      const bool ok = j >= 1 && j <= n;
-      const float prev = b > 0 ? sM[pix(b - 1)] : 0.f;
-      a = push_cell(a, A, ok ? tr.os * prev : 0.f,
-                    ok ? tr.ol * prev : 0.f);
-    }
-    const float2 carry = block_chain_carry<false>(a, aff_buf);
-
-    // pass 2: replay the chain from the exact carry; the band maximum
-    float y1 = carry.x, y2 = carry.y;
-    float lmax = -INFINITY;
-    for (int b = b0; b < b1; ++b) {
-      const int j = i + lo_p + b;
-      const bool ok = j >= 1 && j <= n;
-      const float prev = b > 0 ? sM[pix(b - 1)] : 0.f;
-      const float c1 = ok ? tr.os * prev : 0.f;
-      const float c2 = ok ? tr.ol * prev : 0.f;
-      const float n1 = (a11 * y1 + a12 * y2) + c1;
-      const float n2 = (a21 * y1 + a22 * y2) + c2;
-      y1 = n1;
-      y2 = n2;
-      const float mSY = ok ? y1 : 0.f;
-      const float mLY = ok ? y2 : 0.f;
-      sSY[pix(b)] = mSY;
-      sLY[pix(b)] = mLY;
-      lmax = fmaxf(lmax, (((sM[pix(b)] + sSX[pix(b)]) + sLX[pix(b)]) + mSY) +
-                             mLY);
-    }
-    const float scale = fmaxf(block_max(lmax, max_buf), kTiny);
-
-    // pass 3: rescale
-    for (int b = b0; b < b1; ++b) {
-      const int k = pix(b);
-      const float nM = sM[k] / scale;
-      const float nSX = sSX[k] / scale;
-      const float nLX = sLX[k] / scale;
-      const float nSY = sSY[k] / scale;
-      const float nLY = sLY[k] / scale;
-      sM[k] = nM;
-      sSX[k] = nSX;
-      sLX[k] = nLX;
-      sSY[k] = nSY;
-      sLY[k] = nLY;
-      if (i == end_row && b == b_end)
-        s_end = nM + (((nSX + nLX) + nSY) + nLY);
-    }
-    ls = ls + logf(scale);
-    __syncthreads();
-    for (int k = t; k < B; k += T) frow[k] = sM[pix(k)];
-    if (t == 0) {
-      lsF_out[(size_t)p * M + i - 1] = ls;
-      if (i == end_row) logZ_out[p] = logf(fmaxf(s_end, kTiny)) + ls;
+      // pass 2: the carries, the deferred store of row i - 1, the chain
+      // from the exact carry, the rescale by row i - 1's scale
+      float y1 = s.carry[0], y2 = s.carry[1];
+      float yl1 = s.carry[2], yl2 = s.carry[3];
+      if (warp > 0) {
+        yl1 = y1;
+        yl2 = y2;
+        apply(s.near[warp - 1], yl1, yl2);
+      }
+      apply(s.pre[warp], y1, y2);
+      if (i >= 2) {
+        const float sp = fmaxf(s.carry[4], kTiny);
+        isp = 1.f / sp;
+        const int bbp = prev.jlo - (i - 1) - lo_p;
+        float* frow = fp + (size_t)(i - 2) * B;
+#pragma unroll
+        for (int j = 0; j < nc; ++j) {
+          const int kl = 32 * j + lane;
+          if (kw0 + kl < prev.wd)
+            frow[bbp + kw0 + kl] = sM[word(kl / nc - lane, kl % nc)] * isp;
+        }
+        __syncwarp();   // the warp's cells are read before they are stored
+        ls = ls + logf(sp);
+        if (L == 0) lp[i - 2] = ls;
+      }
+      apply(ex, y1, y2);
+      float lmax = 0.f;
+      float pm = left;
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int k = k0 + c;
+        const bool ok = k < win.wd && win.jlo + k >= 1;
+        float vM = rM[c];
+        if (!(c == 0 && skip)) {
+          const float c1 = ok ? tr.os * pm : 0.f;
+          const float c2 = ok ? tr.ol * pm : 0.f;
+          const float n1 = (A[0] * y1 + A[1] * y2) + c1;
+          const float n2 = (A[2] * y1 + A[3] * y2) + c2;
+          y1 = n1;
+          y2 = n2;
+        }
+        pm = vM;
+        float vSX = rSX[c], vLX = rLX[c];
+        float vSY = ok ? y1 : 0.f, vLY = ok ? y2 : 0.f;
+        if (i >= 2) {
+          vM = vM * isp;
+          vSX = vSX * isp;
+          vLX = vLX * isp;
+          vSY = vSY * isp;
+          vLY = vLY * isp;
+        }
+        lmax = fmaxf(lmax, (((vM + vSX) + vLX) + vSY) + vLY);
+        // the row as it stands, before its rescale
+        const size_t o = word(0, c);
+        sM[o] = vM;
+        sSX[o] = vSX;
+        sLX[o] = vLX;
+        sSY[o] = vSY;
+        sLY[o] = vLY;
+      }
+      lmax = warp_max(lmax);
+      if (lane == 0) s.xs.max[par][warp] = lmax;
+      const float g = i >= 2 ? isp : 1.f;
+      if (lane == 31 && L + 1 < lanes) {
+        const float* e = warp + 1 < nw ? s.xs.edge[par][warp + 1]
+                                       : s.ring.lo[par];
+        for (int e3 = 0; e3 < 3; ++e3) nbR[e3] = e[e3] * g;
+      }
+      if (lane == 0 && L > 0) {
+        const float* e = warp > 0 ? &s.xs.edge[par][warp - 1][3]
+                                  : s.ring.hi[par];
+        const int kl = k0 - 1;
+        const bool okl = kl < win.wd && win.jlo + kl >= 1;
+        for (int e3 = 0; e3 < 3; ++e3) nbL[e3] = e[e3] * g;
+        nbL[3] = (okl ? yl1 : 0.f) * g;
+        nbL[4] = (okl ? yl2 : 0.f) * g;
+      }
     }
   }
-  if (M < end_row && t == 0) logZ_out[p] = logf(kTiny) + ls;
+  if (m >= 1) {
+    // row m's scale, from the cluster's maxima of the last row
+    cluster_exchange<false>(s, (m + 1) & 1, m & 1, nw, false);
+    const float sp = fmaxf(s.carry[4], kTiny);
+    isp = 1.f / sp;
+    const int bb = win.jlo - m - lo_p;
+    float* frow = fp + (size_t)(m - 1) * B;
+#pragma unroll
+    for (int j = 0; j < nc; ++j) {
+      const int kl = 32 * j + lane;
+      if (kw0 + kl < win.wd)
+        frow[bb + kw0 + kl] = sM[word(kl / nc - lane, kl % nc)] * isp;
+    }
+#pragma unroll
+    for (int c = 0; c < nc; ++c) {
+      const int k = k0 + c;
+      if (k < win.wd) {
+        const size_t o = word(0, c);
+        const float nM = sM[o] * isp;
+        if (win.jlo + k == n) {
+          const float nSX = sSX[o] * isp;
+          const float nLX = sLX[o] * isp;
+          const float nSY = sSY[o] * isp;
+          const float nLY = sLY[o] * isp;
+          *cl.map_shared_rank(&s.end, 0) = nM + (((nSX + nLX) + nSY) + nLY);
+        }
+      }
+    }
+    ls = ls + logf(sp);
+    if (L == 0) lp[m - 1] = ls;
+  }
+  cl.sync();   // the end cell's sum has reached CTA 0
+  if (L == 0) {
+    // rows past m: every state masked to 0, the row scale TINY
+    float lz = logf(fmaxf(s.end, kTiny)) + ls;
+    for (int i = m + 1; i <= M; ++i) {
+      ls = ls + logf(kTiny);
+      lp[i - 1] = ls;
+      if (i == end_row) lz = logf(kTiny) + ls;
+    }
+    if (M < end_row) lz = logf(kTiny) + ls;
+    logZ_out[p] = lz;
+  }
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-pairhmm5_bwd_wide_kernel(const float* __restrict__ fM,
-                    const float* __restrict__ lsF,
-                    const float* __restrict__ logZ,
-                    const uint8_t* __restrict__ q,
-                    const uint8_t* __restrict__ t_shift,
-                    const int* __restrict__ m_len,
-                    const int* __restrict__ n_len,
-                    const int* __restrict__ lo,
-                    const float* __restrict__ em, int M, int B, Trans tr,
-                    float* scratch, float* __restrict__ post) {
-  __shared__ Aff aff_buf[32];
-  __shared__ float max_buf[33];
-  __shared__ float s_em[36];
-  const int W = row_words(B);
-  // bM, bSX, bLX of the carried row; sx and lx (bSX, bLX of the cell to
-  // the left, masked) between the two passes of a row.  bSY and bLY of a
-  // row feed only its rescale, so they are never stored.
-  float* sM = scratch + (size_t)blockIdx.x * 5 * W;
-  float* sSX = sM + W;
-  float* sLX = sSX + W;
-  float* sTX = sLX + W;
-  float* sTL = sTX + W;
-
-  const int p = blockIdx.x;
-  const int T = blockDim.x;
+template <int C, bool kSmem>
+__global__ void __launch_bounds__(kClusterThreads)
+pairhmm5_bwd_cluster_kernel(const float* __restrict__ fM,
+                            const float* __restrict__ lsF,
+                            const float* __restrict__ logZ,
+                            const uint8_t* __restrict__ q,
+                            const uint8_t* __restrict__ t_shift,
+                            const int* __restrict__ m_len,
+                            const int* __restrict__ n_len,
+                            const int* __restrict__ lo,
+                            const float* __restrict__ em, int M, int B,
+                            Trans tr, int cells, float* scratch,
+                            float* __restrict__ post) {
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float4 smem_f4[];
+  __shared__ ClusterSmem s;
   const int t = threadIdx.x;
-  const int C = (B + T - 1) / T;
-  const int b0 = min(t * C, B);
-  const int b1 = min(b0 + C, B);
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int T = blockDim.x;
+  const int nw = T >> 5;
+  const int rank = (int)cl.block_rank();
+  const int ctas = (int)cl.num_blocks();
+  const int nc = kSmem ? C : cells;
+  const int lanes = ctas * T;
+  const int L = rank * T + t;
+  const int k0 = L * nc;
+  // bM, bSX, bLX of the carried row (bSY and bLY of a row feed only its
+  // rescale, so they are never stored), laid out as the forward pass's;
+  // global scratch: three rows, then the lanes' own three
+  const size_t RW = kSmem ? (size_t)row_words(T * nc) : (size_t)lanes * nc;
+  const int p = blockIdx.x / ctas;
+  float* rows = kSmem ? reinterpret_cast<float*>(smem_f4)
+                      : scratch + (size_t)p * kClusterBwdRows * RW;
+  auto word = [&](int dl, int c) -> size_t {
+    return kSmem ? (size_t)pix((t + dl) * nc + c)
+                 : (size_t)c * lanes + (L + dl);
+  };
+  float* sM = rows;
+  float* sSX = sM + RW;
+  float* sLX = sSX + RW;
+  Cells<C, kSmem> rMM, rSX, rLX;
+  rMM.bind(sLX + RW + L, lanes);
+  rSX.bind(sLX + 2 * RW + L, lanes);
+  rLX.bind(sLX + 3 * RW + L, lanes);
+  const int kw0 = (L - lane) * nc;   // the warp's first window cell
+
   const int lo_p = lo[p];
   const int m = m_len[p];
   const int n = n_len[p];
   const uint8_t* qp = q + (size_t)p * M;
   const uint8_t* tp = t_shift + (size_t)p * (M + B);
   const float* fp = fM + (size_t)p * M * B;
+  const float* lp = lsF + (size_t)p * M;
   float* pp = post + (size_t)p * M * B;
   const float lz = logZ[p];
-  // backward chain matrix A^T = [[es, wsl], [wls, el]]
-  const float a11 = tr.es, a12 = tr.wsl, a21 = tr.wls, a22 = tr.el;
-  const float A[4] = {a11, a12, a21, a22};
+  const float At[4] = {tr.es, tr.wsl, tr.wls, tr.el};
 
-  for (int k = t; k < 36; k += T) s_em[k] = em[k];
+  for (int k = t; k < 36; k += T) s.em[k] = em[k];
   // rows past the pair's end have zero posterior (every row when m_len
   // is 0, or beyond the padded row count, where no terminal row exists)
   const bool live = m >= 1 && m <= M;
-  for (size_t k = (size_t)(live ? m : 0) * B + t; k < (size_t)M * B; k += T)
-    pp[k] = 0.f;
-  if (!live) return;
+  zero_cells(pp, (size_t)M * B, L, lanes);
+  if (!live) return;   // the whole cluster: no shared memory is read
 
-  // terminal row i = m: only the Y-gap chains remain,
-  // ty[b] = A^T ty[b+1] + (1, 1)[j == n], and bM = opens . ty[b+1]
-  {
-    Aff a = aff_identity();
-    for (int b = b1 - 1; b >= b0; --b) {
-      const float c = n - (m + lo_p + b) == 0 ? 1.f : 0.f;
-      a = push_cell(a, A, c, c);
-    }
-    const float2 carry = block_chain_carry<true>(a, aff_buf);
-    // ty of the cell to the right, masked (sl of the masked chain)
-    float r1 = 0.f, r2 = 0.f;
-    if (b1 < B) {
-      const int j1 = m + lo_p + b1;
-      if (n - j1 >= 0 && j1 >= 0) {
-        r1 = carry.x;
-        r2 = carry.y;
+  // the cells across the lane's warp edge: the next warp's first bM and
+  // the previous warp's last bSX, bLX, as stored
+  float nbR = 0.f, nbL[2] = {0.f, 0.f};
+  float ls = 0.f;
+  float isp = 1.f;   // the reciprocal of the carried row's scale
+  Window win = window(m, n, lo_p, B);
+  // step i computes row i - 1 from row i and forms row i's posterior;
+  // step m + 1 is the terminal row m (only the Y-gap chains remain,
+  // ty[k] = A^T ty[k + 1] + (1, 1)[j == n], bM = opens . ty[k + 1])
+  for (int i = m + 1; i >= 2; --i) {
+    const bool term = i == m + 1;
+    const Window cur = win;   // row i, whose posterior this step forms
+    win = window(i - 1, n, lo_p, B);
+    const int delta = term ? 0 : cur.jlo - win.jlo;
+    const int par = (i - 1) & 1;
+    const int bb = win.jlo - (i - 1) - lo_p;
+    __syncwarp();
+    if (term) {
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int k = k0 + c;
+        const float ce = k < win.wd && win.jlo + k == n ? 1.f : 0.f;
+        rMM[c] = 0.f;
+        rSX[c] = ce;
+        rLX[c] = ce;
+      }
+    } else {
+      const float* erow = s.em + 6 * qp[i - 1];
+      // pass 1: mm from bM at k + 1 - delta, sx and lx from bSX, bLX at
+      // k - delta of row i
+#pragma unroll
+      for (int c = 0; c < nc; ++c) {
+        const int k = k0 + c;
+        float mmv;
+        if (delta == 1 || c + 1 < nc) {
+          mmv = sM[word(0, c + 1 - delta)];
+        } else if (L + 1 == lanes) {
+          mmv = 0.f;
+        } else if (lane == 31) {
+          mmv = nbR;
+        } else {
+          mmv = sM[word(1, 0)];
+        }
+        float sxv, lxv;
+        if (delta == 0 || c > 0) {
+          const size_t o = word(0, c - delta);
+          sxv = sSX[o];
+          lxv = sLX[o];
+        } else if (k0 == 0) {
+          sxv = lxv = 0.f;
+        } else if (lane == 0) {
+          sxv = nbL[0];
+          lxv = nbL[1];
+        } else {
+          const size_t o = word(-1, nc - 1);
+          sxv = sSX[o];
+          lxv = sLX[o];
+        }
+        const bool okp = k < win.wd;
+        const bool okm = okp && win.jlo + k + 1 <= n;
+        rMM[c] = okm ? erow[tp[i - 1 + bb + k]] * mmv : 0.f;
+        rSX[c] = okp ? sxv : 0.f;
+        rLX[c] = okp ? lxv : 0.f;
       }
     }
-    float y1 = carry.x, y2 = carry.y;
-    for (int b = b1 - 1; b >= b0; --b) {
-      const int j = m + lo_p + b;
-      const int jn = n - j;
-      const bool at_end = jn == 0;
-      const bool okc = jn >= 0 && j >= 0;
-      const float c = at_end ? 1.f : 0.f;
-      const float n1 = (a11 * y1 + a12 * y2) + c;
-      const float n2 = (a21 * y1 + a22 * y2) + c;
-      y1 = n1;
-      y2 = n2;
-      sM[pix(b)] = at_end ? 1.f : (okc ? tr.os * r1 + tr.ol * r2 : 0.f);
-      sSX[pix(b)] = c;
-      sLX[pix(b)] = c;
-      r1 = okc ? y1 : 0.f;
-      r2 = okc ? y2 : 0.f;
+    // the lane's chain map from the right, c = (ms, ml) mm (terminal row:
+    // (1, 1) at j == n), and the map without its first cell
+    Aff a = aff_identity(), rest = a;
+#pragma unroll
+    for (int c = nc - 1; c >= 0; --c) {
+      if (c == 0) rest = a;
+      a = term ? push_cell(a, At, rSX[c], rSX[c])
+               : push_cell(a, At, tr.ms * rMM[c], tr.ml * rMM[c]);
     }
-  }
-  float ls = 0.f;
-  __syncthreads();
+    Aff ex;
+    const Aff x = warp_scan<true>(a, &ex);
+    if (lane == 0) {
+      s.xs.tot[par][warp] = x;
+      s.xs.tot2[par][warp] = compose(rest, ex);
+      s.xs.edge[par][warp][0] = rMM[0];
+      s.xs.edge[par][warp][1] = rSX[0];
+      s.xs.edge[par][warp][2] = rLX[0];
+    }
+    if (lane == 31) {
+      const float mm = rMM[nc - 1], sx = rSX[nc - 1], lx = rLX[nc - 1];
+      s.xs.edge[par][warp][3] = term ? sx : bwd_sx(tr, mm, sx, lx);
+      s.xs.edge[par][warp][4] = term ? lx : bwd_lx(tr, mm, sx, lx);
+    }
+    cluster_exchange<true>(s, par, par ^ 1, nw, true);
 
-  for (int i = m; i >= 1; --i) {
-    // posterior of row i from fM, the current bM and the log-scales
-    {
-      const float g = expf(fminf(fmaxf((lsF[(size_t)p * M + i - 1] + ls) - lz,
-                                       -60.f), 60.f));
+    // pass 2 (descending): the carries, row i's posterior, the chain from
+    // the exact carry, row i - 1's values rescaled by row i's scale
+    float y1 = s.carry[0], y2 = s.carry[1];
+    float yn1 = s.carry[2], yn2 = s.carry[3];
+    if (warp + 1 < nw) {
+      yn1 = y1;
+      yn2 = y2;
+      apply(s.near[warp + 1], yn1, yn2);
+    }
+    apply(s.pre[warp], y1, y2);
+    const bool scaled = i < m;
+    if (scaled) {
+      const float sp = fmaxf(s.carry[4], kTiny);
+      isp = 1.f / sp;
+      ls = ls + logf(sp);
+    }
+    if (!term) {
+      const float g =
+          expf(fminf(fmaxf((lp[i - 1] + ls) - lz, -60.f), 60.f));
+      const int bbi = cur.jlo - i - lo_p;
       const float* frow = fp + (size_t)(i - 1) * B;
       float* prow = pp + (size_t)(i - 1) * B;
-      for (int k = t; k < B; k += T) {
-        const float v = (frow[k] * sM[pix(k)]) * g;
-        prow[k] = fminf(fmaxf(v, 0.f), 1.5f);
+#pragma unroll
+      for (int j = 0; j < nc; ++j) {
+        const int kl = 32 * j + lane;
+        const int k = kw0 + kl;
+        if (k < cur.wd) {
+          float bm = sM[word(kl / nc - lane, kl % nc)];
+          if (scaled) bm = bm * isp;
+          const float v = (frow[bbi + k] * bm) * g;
+          prow[bbi + k] = fminf(fmaxf(v, 0.f), 1.5f);
+        }
+      }
+      __syncwarp();   // the warp's cells are read before they are stored
+    }
+    apply(ex, y1, y2);
+    float lmax = 0.f;
+#pragma unroll
+    for (int c = nc - 1; c >= 0; --c) {
+      const int k = k0 + c;
+      const float mm = rMM[c], sx = rSX[c], lx = rLX[c];
+      const float r1 = y1, r2 = y2;   // the chain at k + 1 (unmasked)
+      const size_t o = word(0, c);
+      if (term) {
+        const float n1 = (At[0] * y1 + At[1] * y2) + sx;
+        const float n2 = (At[2] * y1 + At[3] * y2) + sx;
+        y1 = n1;
+        y2 = n2;
+        const bool okr = k + 1 < win.wd;
+        sM[o] = sx != 0.f ? 1.f
+                          : (k < win.wd && okr ? tr.os * r1 + tr.ol * r2
+                                               : 0.f);
+        sSX[o] = sx;
+        sLX[o] = lx;
+      } else {
+        const float n1 = (At[0] * y1 + At[1] * y2) + tr.ms * mm;
+        const float n2 = (At[2] * y1 + At[3] * y2) + tr.ml * mm;
+        y1 = n1;
+        y2 = n2;
+        float nM = bwd_m(tr, mm, sx, lx, r1, r2);
+        float nSX = bwd_sx(tr, mm, sx, lx);
+        float nLX = bwd_lx(tr, mm, sx, lx);
+        float nSY = n1, nLY = n2;
+        if (!(k < win.wd)) nM = nSX = nLX = nSY = nLY = 0.f;
+        if (scaled) {
+          nM = nM * isp;
+          nSX = nSX * isp;
+          nLX = nLX * isp;
+          nSY = nSY * isp;
+          nLY = nLY * isp;
+        }
+        lmax = fmaxf(lmax, (((nM + nSX) + nLX) + nSY) + nLY);
+        // row i - 1 as it stands, before its rescale
+        sM[o] = nM;
+        sSX[o] = nSX;
+        sLX[o] = nLX;
       }
     }
-    if (i == 1) break;
-    const float* erow = s_em + 6 * qp[i - 1];
-    // the left neighbour's last cell, read before that thread overwrites it
-    float nbSX = 0.f, nbLX = 0.f;
-    if (b0 > 0 && b0 < b1) {
-      nbSX = sSX[pix(b0 - 1)];
-      nbLX = sLX[pix(b0 - 1)];
-    }
-    __syncthreads();
-
-    // pass 1 (descending): mm, sx, lx, nSX, nLX; compose the reverse chain
-    // maps y -> A^T y + (ms, ml) * mm
-    Aff a = aff_identity();
-    for (int b = b1 - 1; b >= b0; --b) {
-      const int jprev = i - 1 + lo_p + b;
-      float mm = erow[tp[i - 1 + b]] * sM[pix(b)];
-      if (!(jprev + 1 <= n)) mm = 0.f;
-      const bool first = b <= b0;
-      float sx = first ? nbSX : sSX[pix(b - 1)];
-      float lx = first ? nbLX : sLX[pix(b - 1)];
-      if (!(jprev >= 0 && jprev <= n)) {
-        sx = 0.f;
-        lx = 0.f;
+    lmax = warp_max(lmax);
+    if (lane == 0) s.xs.max[par][warp] = lmax;
+    if (lane == 31 && L + 1 < lanes) {
+      // the next warp's first bM, from its pass-1 values and the chain at
+      // its second cell
+      const float* e = warp + 1 < nw ? s.xs.edge[par][warp + 1]
+                                     : s.ring.lo[par];
+      const int xk = k0 + nc;
+      if (term) {
+        nbR = e[1] != 0.f ? 1.f
+                          : (xk < win.wd && xk + 1 < win.wd
+                                 ? tr.os * yn1 + tr.ol * yn2
+                                 : 0.f);
+      } else {
+        nbR = xk < win.wd ? bwd_m(tr, e[0], e[1], e[2], yn1, yn2) : 0.f;
+        if (scaled) nbR = nbR * isp;
       }
-      sM[pix(b)] = mm;
-      sSX[pix(b)] = (tr.ms * mm + tr.es * sx) + tr.wsl * lx;
-      sLX[pix(b)] = (tr.ml * mm + tr.el * lx) + tr.wls * sx;
-      sTX[pix(b)] = sx;
-      sTL[pix(b)] = lx;
-      a = push_cell(a, A, tr.ms * mm, tr.ml * mm);
     }
-    // y at b1 = composite of every later cell's map applied to y[B] = 0
-    const float2 carry = block_chain_carry<true>(a, aff_buf);
-
-    // pass 2 (descending): the chain, nM, masks, band maximum
-    float y1 = carry.x, y2 = carry.y;   // the chain at b + 1 (unmasked)
-    float lmax = -INFINITY;
-    for (int b = b1 - 1; b >= b0; --b) {
-      const int jprev = i - 1 + lo_p + b;
-      const int k = pix(b);
-      const float mm = sM[k], sx = sTX[k], lx = sTL[k];
-      const float c1 = tr.ms * mm, c2 = tr.ml * mm;
-      const float n1 = (a11 * y1 + a12 * y2) + c1;
-      const float n2 = (a21 * y1 + a22 * y2) + c2;
-      float nM = (tr.mc * mm + tr.os * (sx + y1)) + tr.ol * (lx + y2);
-      float nSX = sSX[k], nLX = sLX[k], nSY = n1, nLY = n2;
-      if (!(jprev >= 0 && jprev <= n)) {
-        nM = 0.f;
-        nSX = 0.f;
-        nLX = 0.f;
-        nSY = 0.f;
-        nLY = 0.f;
+    if (lane == 0 && L > 0) {
+      const float* e = warp > 0 ? &s.xs.edge[par][warp - 1][3]
+                                : s.ring.hi[par];
+      nbL[0] = e[0];
+      nbL[1] = e[1];
+      if (scaled) {
+        nbL[0] = nbL[0] * isp;
+        nbL[1] = nbL[1] * isp;
       }
-      lmax = fmaxf(lmax, (((nM + nSX) + nLX) + nSY) + nLY);
-      sM[k] = nM;
-      sSX[k] = nSX;
-      sLX[k] = nLX;
-      y1 = n1;
-      y2 = n2;
     }
-    const float scale = fmaxf(block_max(lmax, max_buf), kTiny);
-    for (int b = b0; b < b1; ++b) {
-      const int k = pix(b);
-      sM[k] = sM[k] / scale;
-      sSX[k] = sSX[k] / scale;
-      sLX[k] = sLX[k] / scale;
+  }
+  // row 1's posterior (row m's when m is 1), rescaled by its own scale
+  if (m >= 2) {
+    cluster_exchange<true>(s, 0, 1, nw, false);
+    const float sp = fmaxf(s.carry[4], kTiny);
+    isp = 1.f / sp;
+    ls = ls + logf(sp);
+  }
+  const float g = expf(fminf(fmaxf((lp[0] + ls) - lz, -60.f), 60.f));
+  const int bb1 = win.jlo - 1 - lo_p;
+#pragma unroll
+  for (int j = 0; j < nc; ++j) {
+    const int kl = 32 * j + lane;
+    const int k = kw0 + kl;
+    if (k < win.wd) {
+      float bm = sM[word(kl / nc - lane, kl % nc)];
+      if (m >= 2) bm = bm * isp;
+      const float v = (fp[bb1 + k] * bm) * g;
+      pp[bb1 + k] = fminf(fmaxf(v, 0.f), 1.5f);
     }
-    ls = ls + logf(scale);
-    __syncthreads();
   }
 }
 
@@ -1490,6 +1907,93 @@ cudaError_t bwd_launch(const Args& a, int threads, const float* fM,
   return cudaGetLastError();
 }
 
+// The cluster a wide launch takes for max_live W: kClusterCells cells a
+// lane in the fewest warps that cover W, spread over as many CTAs as there
+// are warps, up to kClusterMax (a row's time is the cells each SM computes
+// plus a fixed exchange, so a row is spread over as many SMs as the
+// cluster has), the state rows in each CTA's shared memory; past that
+// cover (kClusterMax x kMaxWarps warps of kClusterCells cells, 131,072)
+// kClusterMax CTAs of kClusterThreads threads with ceil(W / 16384) cells a
+// lane, the rows in global scratch.
+struct ClusterShape {
+  int ctas, threads, cells, smem;
+};
+
+ClusterShape cluster_shape(int W) {
+  const long long per_warp = 32 * kClusterCells;
+  const long long warps = (W + per_warp - 1) / per_warp;
+  if (warps <= (long long)kClusterMax * kMaxWarps) {
+    const int ctas = (int)(warps < kClusterMax ? warps : kClusterMax);
+    return ClusterShape{ctas, 32 * (int)((warps + ctas - 1) / ctas),
+                        kClusterCells, 1};
+  }
+  const long long lanes = (long long)kClusterMax * kClusterThreads;
+  return ClusterShape{kClusterMax, kClusterThreads,
+                      (int)((W + lanes - 1) / lanes), 0};
+}
+
+// Whether the card schedules a cluster of this shape, asked once per
+// kernel and shape (cudaOccupancyMaxActiveClusters).
+cudaError_t cluster_fits(const void* kernel, const cudaLaunchConfig_t& cfg) {
+  struct Seen {
+    const void* kernel;
+    unsigned ctas, threads;
+    size_t smem;
+    int clusters;
+  };
+  static std::mutex mu;
+  static Seen seen[64];
+  static int n_seen = 0;
+  const unsigned ctas = cfg.attrs[0].val.clusterDim.x;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int k = 0; k < n_seen; ++k) {
+    const Seen& s = seen[k];
+    if (s.kernel == kernel && s.ctas == ctas && s.threads == cfg.blockDim.x &&
+        s.smem == cfg.dynamicSmemBytes)
+      return s.clusters > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
+  }
+  int clusters = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (n_seen < 64)
+    seen[n_seen++] = Seen{kernel, ctas, cfg.blockDim.x, cfg.dynamicSmemBytes,
+                          clusters};
+  return clusters > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
+}
+
+// P clusters of sh.ctas CTAs (one a pair) on `stream`; an error where the
+// card cannot schedule the cluster.
+template <typename... Params, typename... Actual>
+cudaError_t launch_cluster(void (*kernel)(Params...), const ClusterShape& sh,
+                           int P, size_t smem, size_t* allowed,
+                           cudaStream_t stream, Actual... args) {
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  if (sh.ctas > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = sh.ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)P * sh.ctas);
+  cfg.blockDim = dim3(sh.threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cluster_fits(reinterpret_cast<const void*>(kernel), cfg);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // The instance of FN<C, bound, smem> for max_live W: one warp of 4 cells
 // a lane; up to 16 warps of 4 (the 128 registers of a 512-thread bound);
 // up to 32 warps of 4 or 8 with shared-memory rows; 16 or 64 cells a lane
@@ -1519,9 +2023,6 @@ extern "C" {
 const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
-
-// float32 words of global scratch a wide launch needs per pair of band B
-int pairhmm5_wide_scratch_floats(int B) { return 5 * row_words(B); }
 
 // float32 words of global scratch a launch needs per pair for max_live W
 // (0 when the state rows fit shared memory)
@@ -1586,48 +2087,103 @@ int pairhmm5_bwd_launch(const void* fM, const void* lsF, const void* logZ,
                     static_cast<float*>(post));
 }
 
-// The wide route (max_live past kMaxCells): full-band kernels with the
-// state rows in `scratch`, pairhmm5_wide_scratch_floats(B) words a pair.
+// The cluster a wide launch takes for max_live W (cluster_shape): out[0..5]
+// = CTAs, threads a CTA, cells a lane, 1 where the state rows live in the
+// CTAs' shared memory, and the float32 words of global scratch a pair
+// needs forward and backward (0 with shared-memory rows).
+int pairhmm5_cluster_shape(int W, void* out) {
+  if (W < 1) return (int)cudaErrorInvalidValue;
+  const ClusterShape sh = cluster_shape(W);
+  const long long words = sh.smem ? 0 : (long long)sh.ctas * sh.threads *
+                                            sh.cells;
+  long long* o = static_cast<long long*>(out);
+  o[0] = sh.ctas;
+  o[1] = sh.threads;
+  o[2] = sh.cells;
+  o[3] = sh.smem;
+  o[4] = kClusterFwdRows * words;
+  o[5] = kClusterBwdRows * words;
+  return 0;
+}
+
+// The wide route (max_live past kMaxCells, or any max_live a caller
+// forces): one cluster a pair.  `scratch` is needed where cluster_shape
+// puts the rows in global scratch.
 int pairhmm5_fwd_wide_launch(const void* q, const void* t_shift,
                              const void* m_len, const void* n_len,
                              const void* lo, const void* em, int P, int M,
-                             int B, float mc, float os, float ol, float es,
-                             float el, float wsl, float wls, float ms,
-                             float ml, void* scratch, void* fM, void* lsF,
-                             void* logZ, void* stream) {
+                             int B, int W, float mc, float os, float ol,
+                             float es, float el, float wsl, float wls,
+                             float ms, float ml, void* scratch, void* fM,
+                             void* lsF, void* logZ, void* stream) {
   if (P <= 0) return 0;
-  if (B < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
-  pairhmm5_fwd_wide_kernel<<<P, kWideThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t_shift),
-      static_cast<const int*>(m_len), static_cast<const int*>(n_len),
-      static_cast<const int*>(lo), static_cast<const float*>(em), M, B,
-      Trans{mc, os, ol, es, el, wsl, wls, ms, ml},
-      static_cast<float*>(scratch), static_cast<float*>(fM),
-      static_cast<float*>(lsF), static_cast<float*>(logZ));
-  return (int)cudaGetLastError();
+  if (W < 1 || W > B) return (int)cudaErrorInvalidValue;
+  const ClusterShape sh = cluster_shape(W);
+  if (!sh.smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const Trans tr{mc, os, ol, es, el, wsl, wls, ms, ml};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qq = static_cast<const uint8_t*>(q);
+  const auto* tt = static_cast<const uint8_t*>(t_shift);
+  const auto* mm = static_cast<const int*>(m_len);
+  const auto* nn = static_cast<const int*>(n_len);
+  const auto* ll = static_cast<const int*>(lo);
+  const auto* ee = static_cast<const float*>(em);
+  auto* sc = static_cast<float*>(scratch);
+  auto* f = static_cast<float*>(fM);
+  auto* l = static_cast<float*>(lsF);
+  auto* z = static_cast<float*>(logZ);
+  if (sh.smem) {
+    static size_t allowed = 48 * 1024;
+    const size_t smem = 5 * (size_t)row_words(sh.threads * sh.cells) * 4;
+    return (int)launch_cluster(
+        pairhmm5_fwd_cluster_kernel<kClusterCells, true>, sh, P, smem,
+        &allowed, st, qq, tt, mm, nn, ll, ee, M, B, tr, sh.cells, sc, f, l,
+        z);
+  }
+  static size_t allowed = 48 * 1024;
+  return (int)launch_cluster(pairhmm5_fwd_cluster_kernel<kClusterCells, false>,
+                             sh, P, 0, &allowed, st, qq, tt, mm, nn, ll, ee, M,
+                             B, tr, sh.cells, sc, f, l, z);
 }
 
 int pairhmm5_bwd_wide_launch(const void* fM, const void* lsF,
                              const void* logZ, const void* q,
                              const void* t_shift, const void* m_len,
                              const void* n_len, const void* lo,
-                             const void* em, int P, int M, int B, float mc,
-                             float os, float ol, float es, float el,
-                             float wsl, float wls, float ms, float ml,
-                             void* scratch, void* post, void* stream) {
+                             const void* em, int P, int M, int B, int W,
+                             float mc, float os, float ol, float es,
+                             float el, float wsl, float wls, float ms,
+                             float ml, void* scratch, void* post,
+                             void* stream) {
   if (P <= 0) return 0;
-  if (B < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
-  pairhmm5_bwd_wide_kernel<<<P, kWideThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fM), static_cast<const float*>(lsF),
-      static_cast<const float*>(logZ), static_cast<const uint8_t*>(q),
-      static_cast<const uint8_t*>(t_shift), static_cast<const int*>(m_len),
-      static_cast<const int*>(n_len), static_cast<const int*>(lo),
-      static_cast<const float*>(em), M, B,
-      Trans{mc, os, ol, es, el, wsl, wls, ms, ml},
-      static_cast<float*>(scratch), static_cast<float*>(post));
-  return (int)cudaGetLastError();
+  if (W < 1 || W > B) return (int)cudaErrorInvalidValue;
+  const ClusterShape sh = cluster_shape(W);
+  if (!sh.smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const Trans tr{mc, os, ol, es, el, wsl, wls, ms, ml};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const float*>(fM);
+  const auto* l = static_cast<const float*>(lsF);
+  const auto* z = static_cast<const float*>(logZ);
+  const auto* qq = static_cast<const uint8_t*>(q);
+  const auto* tt = static_cast<const uint8_t*>(t_shift);
+  const auto* mm = static_cast<const int*>(m_len);
+  const auto* nn = static_cast<const int*>(n_len);
+  const auto* ll = static_cast<const int*>(lo);
+  const auto* ee = static_cast<const float*>(em);
+  auto* sc = static_cast<float*>(scratch);
+  auto* out = static_cast<float*>(post);
+  if (sh.smem) {
+    static size_t allowed = 48 * 1024;
+    const size_t smem = 3 * (size_t)row_words(sh.threads * sh.cells) * 4;
+    return (int)launch_cluster(
+        pairhmm5_bwd_cluster_kernel<kClusterCells, true>, sh, P, smem,
+        &allowed, st, f, l, z, qq, tt, mm, nn, ll, ee, M, B, tr, sh.cells,
+        sc, out);
+  }
+  static size_t allowed = 48 * 1024;
+  return (int)launch_cluster(pairhmm5_bwd_cluster_kernel<kClusterCells, false>,
+                             sh, P, 0, &allowed, st, f, l, z, qq, tt, mm, nn,
+                             ll, ee, M, B, tr, sh.cells, sc, out);
 }
 
 }  // extern "C"

@@ -22,10 +22,13 @@ Source: csrc/pairhmm5.cu (see its header for the design).
   ones in a global-memory scratch row per pair that the wrapper
   allocates (pairhmm5_scratch_floats).
 - A launch whose max_live passes PAIRHMM5_MAX_CELLS (65,536 cells, the
-  widest the live-window blocks take) runs the wide kernels
-  (`pairhmm5_route`): a block's threads loop over every row's whole band,
-  the state rows in per-pair global scratch; they count their launches
-  as "pairhmm5_fwd_wide" and "pairhmm5_bwd_wide".  So every band runs.
+  widest the live-window blocks take) runs the cluster kernels
+  (`pairhmm5_route`): one thread-block cluster of up to 16 CTAs a pair,
+  on the live windows only, the state rows in the CTAs' shared memory up
+  to 131,072 cells and in per-pair global scratch past that
+  (`cluster_shape`); they count their launches as "pairhmm5_fwd_wide"
+  and "pairhmm5_bwd_wide".  So every band runs.  A cluster the card
+  cannot schedule raises.
 
 Each wrapper checks its tensors, launches on the current CUDA stream and
 adds one to its count in cuda_build.LAUNCHES.  A CPU tensor gets the
@@ -61,10 +64,10 @@ _SIGNATURES = {
     "pairhmm5_scratch_floats": [_INT],
     "pairhmm5_threads": [_INT],
     "pairhmm5_cells_per_lane": [_INT],
-    "pairhmm5_wide_scratch_floats": [_INT],
-    "pairhmm5_fwd_wide_launch": [_VP] * 6 + [_INT] * 3 + [_F] * 9
+    "pairhmm5_cluster_shape": [_INT, _VP],
+    "pairhmm5_fwd_wide_launch": [_VP] * 6 + [_INT] * 4 + [_F] * 9
     + [_VP] * 5,
-    "pairhmm5_bwd_wide_launch": [_VP] * 9 + [_INT] * 3 + [_F] * 9
+    "pairhmm5_bwd_wide_launch": [_VP] * 9 + [_INT] * 4 + [_F] * 9
     + [_VP] * 3,
 }
 # the widest live row the live-window kernels take (csrc/pairhmm5.cu
@@ -74,8 +77,8 @@ PAIRHMM5_MAX_CELLS = 32 * 32 * 64
 
 def pairhmm5_route(max_live: int) -> str:
     """Which kernels a launch whose widest live row is max_live runs:
-    "narrow" (the live-window kernels) or "wide" (full-band rows, past
-    PAIRHMM5_MAX_CELLS)."""
+    "narrow" (the one-block live-window kernels) or "wide" (the cluster
+    kernels, past PAIRHMM5_MAX_CELLS)."""
     return "narrow" if max_live <= PAIRHMM5_MAX_CELLS else "wide"
 
 
@@ -97,11 +100,26 @@ def _check_inputs(q, t_shift, m_len, n_len, lo, em, band: int):
     return dev, P, M
 
 
-def _scratch(lib, P: int, max_live: int, band: int, dev):
+def cluster_shape(max_live: int) -> dict:
+    """The cluster a wide launch takes for this max_live (csrc/pairhmm5.cu
+    cluster_shape; needs the card): ctas, threads a CTA, cells a lane,
+    smem, whether the state rows live in the CTAs' shared memory, and
+    fwd_words / bwd_words, the float32 words of global scratch each pass
+    needs a pair (0 with smem)."""
+    out = (ctypes.c_longlong * 6)()
+    cuda_build.check(_lib(), _lib().pairhmm5_cluster_shape(max_live, out),
+                     "pairhmm5_cluster_shape")
+    return dict(ctas=out[0], threads=out[1], cells=out[2], smem=bool(out[3]),
+                fwd_words=out[4], bwd_words=out[5])
+
+
+def _scratch(lib, P: int, max_live: int, route: str, bwd: bool, dev):
     """Global scratch for the state rows of live windows too wide for
-    shared memory (None when they fit), or of the wide route's bands."""
-    if pairhmm5_route(max_live) == "wide":
-        words = int(lib.pairhmm5_wide_scratch_floats(band))
+    shared memory (None when they fit), as the C side sizes it: the
+    narrow kernels' five rows, or the cluster kernels' words for the
+    pass."""
+    if route == "wide":
+        words = cluster_shape(max_live)["bwd_words" if bwd else "fwd_words"]
     else:
         words = int(lib.pairhmm5_scratch_floats(max_live))
     if words == 0:
@@ -149,26 +167,35 @@ def launch_pairhmm5_fwd(q, t_shift, m_len, n_len, lo, em, band: int,
                         params: Hmm5Params, max_live: int):
     """The kernel launch of `pairhmm5_fwd` (which checks max_live first,
     a device sync where it is below the band): checks the CUDA tensors,
-    allocates the outputs, launches the route's kernel
-    (`pairhmm5_route`) on the current stream and counts the launch."""
+    allocates the outputs, launches `pairhmm5_route`'s kernel on the
+    current stream and counts the launch."""
+    return _launch_fwd(q, t_shift, m_len, n_len, lo, em, band, params,
+                       max_live, pairhmm5_route(max_live))
+
+
+def _launch_fwd(q, t_shift, m_len, n_len, lo, em, band: int,
+                params: Hmm5Params, max_live: int, route: str):
+    """launch_pairhmm5_fwd on the named route ("wide" runs the cluster
+    kernels at any max_live: the card tests and
+    tests/pairhmm5_cluster_report.py time them at narrow widths)."""
     dev, P, M = _check_inputs(q, t_shift, m_len, n_len, lo, em, band)
     fM = torch.empty((P, M, band), dtype=torch.float32, device=dev)
     lsF = torch.empty((P, M), dtype=torch.float32, device=dev)
     logZ = torch.empty((P,), dtype=torch.float32, device=dev)
     lib = _lib()
-    scratch = _scratch(lib, P, max_live, band, dev)
+    scratch = _scratch(lib, P, max_live, route, False, dev)
     ins = (q.data_ptr(), t_shift.data_ptr(), m_len.data_ptr(),
-           n_len.data_ptr(), lo.data_ptr(), em.data_ptr(), P, M, band)
+           n_len.data_ptr(), lo.data_ptr(), em.data_ptr(), P, M, band,
+           max_live)
     outs = (_ptr(scratch), fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(),
             cuda_build.stream(dev))
-    if pairhmm5_route(max_live) == "wide":
+    if route == "wide":
         name = "pairhmm5_fwd_wide"
         code = lib.pairhmm5_fwd_wide_launch(*ins, *_transitions(params),
                                             *outs)
     else:
         name = "pairhmm5_fwd"
-        code = lib.pairhmm5_fwd_launch(*ins, max_live, *_transitions(params),
-                                       *outs)
+        code = lib.pairhmm5_fwd_launch(*ins, *_transitions(params), *outs)
     cuda_build.check(lib, code, name)
     cuda_build.count_launch(name)
     return fM, lsF, logZ
@@ -192,6 +219,13 @@ def launch_pairhmm5_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em,
                         band: int, params: Hmm5Params, max_live: int):
     """The kernel launch of `pairhmm5_bwd` (after its max_live check), as
     launch_pairhmm5_fwd."""
+    return _launch_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em, band,
+                       params, max_live, pairhmm5_route(max_live))
+
+
+def _launch_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em, band: int,
+                params: Hmm5Params, max_live: int, route: str):
+    """launch_pairhmm5_bwd on the named route, as _launch_fwd."""
     dev, P, M = _check_inputs(q, t_shift, m_len, n_len, lo, em, band)
     check = cuda_build.check_tensor
     check(fM, "fM", torch.float32, (P, M, band), dev)
@@ -199,19 +233,18 @@ def launch_pairhmm5_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em,
     check(logZ, "logZ", torch.float32, (P,), dev)
     post = torch.empty((P, M, band), dtype=torch.float32, device=dev)
     lib = _lib()
-    scratch = _scratch(lib, P, max_live, band, dev)
+    scratch = _scratch(lib, P, max_live, route, True, dev)
     ins = (fM.data_ptr(), lsF.data_ptr(), logZ.data_ptr(), q.data_ptr(),
            t_shift.data_ptr(), m_len.data_ptr(), n_len.data_ptr(),
-           lo.data_ptr(), em.data_ptr(), P, M, band)
+           lo.data_ptr(), em.data_ptr(), P, M, band, max_live)
     outs = (_ptr(scratch), post.data_ptr(), cuda_build.stream(dev))
-    if pairhmm5_route(max_live) == "wide":
+    if route == "wide":
         name = "pairhmm5_bwd_wide"
         code = lib.pairhmm5_bwd_wide_launch(*ins, *_transitions(params),
                                             *outs)
     else:
         name = "pairhmm5_bwd"
-        code = lib.pairhmm5_bwd_launch(*ins, max_live, *_transitions(params),
-                                       *outs)
+        code = lib.pairhmm5_bwd_launch(*ins, *_transitions(params), *outs)
     cuda_build.check(lib, code, name)
     cuda_build.count_launch(name)
     return post

@@ -104,14 +104,19 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    windows over 65,536 cells) through the entry points a user calls,
    poa_align_affine and poa_align of a 20,000-base query,
    posterior_pairs_banded at band 32768 and posterior_pairs_banded5 at
-   max_live 70,001, with the launch counts set to 0 just before and read
-   just after; each must launch its wide kernels (poa_wide,
-   poa_linear_wide, pairhmm_fwd_wide / pairhmm_bwd_wide,
-   pairhmm5_fwd_wide / pairhmm5_bwd_wide), the POA alignments must equal
-   the CPU run's and the hits the plain posterior's.  Then it holds each
-   wide kernel against its plain version at those shapes (POA bit-equal
-   on the live cells, pair-HMMs by step 2's tolerances) and times it
-   beside the bound for the same work.
+   max_live 70,001 and at max_live 140,001 (band 262144, past the
+   131,072 cells the 5-state cluster kernels hold in shared memory),
+   with the launch counts set to 0 just before and read just after; each
+   must launch its wide kernels (poa_wide, poa_linear_wide,
+   pairhmm_fwd_wide / pairhmm_bwd_wide, pairhmm5_fwd_wide /
+   pairhmm5_bwd_wide: one thread-block cluster a pair), the POA
+   alignments must equal the CPU run's and the hits the plain
+   posterior's.  Then it holds each wide kernel against its plain
+   version at those shapes (POA bit-equal on the live cells, pair-HMMs
+   by step 2's tolerances) and times it beside the bound for the same
+   work; the 5-state lines also name each call's cluster, time the
+   global-scratch call and give a latency line (the longest pair's rows
+   x the dependent steps of a cluster row, `hmm5_cluster_row_steps`).
 9. Runs the pangenome builder (cactus_tpu_torch.pangenome) on 4
    haplotypes of PAN_NEWICK, seed 23, in process, each run with the
    launch counts set to 0 just before it and read just after:
@@ -1967,6 +1972,22 @@ WIDE_HMM_BAND = 32768
 WIDE_HMM_TARGET = 20000
 WIDE_HMM5_BAND = 131072
 WIDE_HMM5_TARGET = 70000
+# the 5-state copies start 10,000 bases into their targets
+WIDE_HMM5_AT = 10000
+# a 64-row query copied 10,000 bases into a 140,000-base target at band
+# 262144: past the 131,072 cells the 5-state cluster kernels hold in
+# shared memory
+WIDE_HMM5_GLOBAL_QUERY = 64
+WIDE_HMM5_GLOBAL_TARGET = 140000
+WIDE_HMM5_GLOBAL_BAND = 262144
+# the long 5-state pairs' gap regime (Hmm5Params fields): a long gap that
+# decays as 0.9999 a base, so that the copy's path stays in float32's
+# range in both passes and the long pairs' posteriors reach 1 (at the
+# default 0.9966 they are 0 in the plain version and the kernels alike
+# once the target passes ~60,000 bases, wherever the copy sits; at
+# 0.99995 float32 sums over the 140,000-base gap miss float64's logZ by
+# 1e-5 relative in either order, LOGZ_RTOL itself)
+WIDE_HMM5_GAPS = dict(extend_long=0.9999, switch_sl=1e-5, switch_ls=1e-5)
 WIDE_KERNELS = ("poa_wide", "poa_linear_wide", "pairhmm_fwd_wide",
                 "pairhmm_bwd_wide", "pairhmm5_fwd_wide", "pairhmm5_bwd_wide")
 
@@ -2002,6 +2023,47 @@ def hits_agree(got, ref, what):
     return share
 
 
+def cluster_line(max_live) -> str:
+    """The cluster a 5-state wide launch takes for max_live."""
+    from cactus_tpu_torch.ops import pairhmm5_cuda
+    sh = pairhmm5_cuda.cluster_shape(max_live)
+    return (f"cluster of {sh['ctas']} CTAs x {sh['threads']} threads x "
+            f"{sh['cells']} cells a lane, state rows in "
+            + ("shared memory" if sh["smem"] else "global scratch"))
+
+
+def hmm5_cluster_row_steps(max_live) -> int:
+    """The dependent steps of a 5-state row on the cluster kernels, one
+    warp-shuffle latency each: the lanes' affine scan (5 levels and the
+    exclusive shift), warp 0's scan of the warps' maps (6), its walk over
+    the CTAs before (after) it (ctas - 1), the row maximum over a warp
+    and over the CTAs (5 + 5), the neighbour lane's cell (1) and the two
+    block barriers and the cluster barrier (3)."""
+    from cactus_tpu_torch.ops import pairhmm5_cuda
+    return 25 + pairhmm5_cuda.cluster_shape(max_live)["ctas"]
+
+
+def wide_hmm5_global(call, timed):
+    """Times phase 8's 5-state call past the cluster's shared-memory cover
+    (held to the plain versions with the path's other calls) and logs it
+    beside its plain versions' times."""
+    if call is None:
+        raise AssertionError("phase 8: no 5-state call took the cluster "
+                             "kernels' global-scratch instance")
+    args, kw, plain_f, plain_b = call
+    P, M = args[0].shape
+    longest = int(args[2].max())
+    fM, lsF, logZ = timed[0](*args, **kw)
+    ms_f = time_ms(lambda: timed[0](*args, **kw), 3)
+    ms_b = time_ms(lambda: timed[1](fM, lsF, logZ, *args, **kw), 3)
+    log(f"pairhmm5 wide route past the shared-memory cover at "
+        f"{[P, M, kw['band']]}, max_live {kw['max_live']} "
+        f"({cluster_line(kw['max_live'])}): fwd {ms_f:.3f} ms, bwd "
+        f"{ms_b:.3f} ms ({ms_f * 1e3 / longest:.2f} / "
+        f"{ms_b * 1e3 / longest:.2f} us a row of {longest}); plain "
+        f"{plain_f:.1f} / {plain_b:.1f} ms")
+
+
 def phase_wide(dev, errs):
     """Phase 8, the wide routes (widths past each kernel's widest narrow
     launch).  The path: the entry points a user calls, at those widths,
@@ -2009,7 +2071,9 @@ def phase_wide(dev, errs):
     poa_align_affine of a 20,000-base query against a chain graph and a
     bubbled graph (poa_chain's and poa_affine's wide route, poa_wide),
     poa_align (poa_linear_wide), posterior_pairs_banded at band 32768 and
-    posterior_pairs_banded5 at band 131072 (max_live 70,001); each must
+    posterior_pairs_banded5 at band 131072 (max_live 70,001) and band
+    262144 (max_live 140,001, the cluster kernels' global-scratch
+    instance); each must
     launch its wide kernels, the POA traceback ops must equal the CPU
     run's, and the hits the plain posterior's (`hits_agree`).  Recorders
     keep every call the path makes of the kernels' wrappers; each
@@ -2042,9 +2106,13 @@ def phase_wide(dev, errs):
                             WIDE_HMM_TARGET // 2)]
     pairs3 += ragged_pairs(3, 1, 200, 260, WIDE_HMM_BAND)
     pairs5 = [embedded_pair(rng, WIDE_HMM_QUERY, WIDE_HMM5_TARGET,
-                            WIDE_HMM5_TARGET // 2)]
+                            WIDE_HMM5_AT)]
     pairs5 += ragged_pairs(5, 1, 100, 140, WIDE_HMM5_BAND)
-    hp, hp5 = tp.HmmParams(), tp5.Hmm5Params(p_match=0.8)
+    pairs5g = [embedded_pair(rng, WIDE_HMM5_GLOBAL_QUERY,
+                             WIDE_HMM5_GLOBAL_TARGET, WIDE_HMM5_AT)]
+    pairs5g += ragged_pairs(7, 1, 40, 64, WIDE_HMM5_GLOBAL_BAND)
+    hp = tp.HmmParams()
+    hp5 = tp5.Hmm5Params(p_match=0.8, **WIDE_HMM5_GAPS)
 
     def grid_cells(a, k):
         return a[0].shape[0] * a[0].shape[1] * k["band"]
@@ -2072,6 +2140,8 @@ def phase_wide(dev, errs):
                                           device=dev)
         hits5 = tp5.posterior_pairs_banded5(pairs5, hp5,
                                             band=WIDE_HMM5_BAND, device=dev)
+        hits5g = tp5.posterior_pairs_banded5(
+            pairs5g, hp5, band=WIDE_HMM5_GLOBAL_BAND, device=dev)
         torch.cuda.synchronize()
     finally:
         launches = cuda_build.launches()
@@ -2103,17 +2173,31 @@ def phase_wide(dev, errs):
         return tp.backward_posterior(*tp.forward_banded(*t, em, **kw), *t,
                                      em, **kw)
 
-    def plain5(t):
-        kw = dict(band=WIDE_HMM5_BAND, params=hp5)
-        em = torch.from_numpy(hp5.emissions()).to(dev)
-        return tp5.backward_posterior5(*tp5.forward_banded5(*t, em, **kw),
-                                       *t, em, **kw)
+    def plain5(band):
+        def run(t):
+            kw = dict(band=band, params=hp5)
+            em = torch.from_numpy(hp5.emissions()).to(dev)
+            return tp5.backward_posterior5(
+                *tp5.forward_banded5(*t, em, **kw), *t, em, **kw)
+        return run
 
     hits_agree(hits3, plain_hits(pairs3, WIDE_HMM_BAND, plain3,
                                  dict(min_batch=8, min_rows=256)),
                f"posterior_pairs_banded at band {WIDE_HMM_BAND}")
-    hits_agree(hits5, plain_hits(pairs5, WIDE_HMM5_BAND, plain5, {}),
-               f"posterior_pairs_banded5 at band {WIDE_HMM5_BAND}")
+    for hits, pairs, band in ((hits5, pairs5, WIDE_HMM5_BAND),
+                              (hits5g, pairs5g, WIDE_HMM5_GLOBAL_BAND)):
+        ref = plain_hits(pairs, band, plain5(band), {})
+        hits_agree(hits, ref, f"posterior_pairs_banded5 at band {band}")
+        # the check must see the long pair's posterior, not zeros
+        for k, (_q, t) in enumerate(pairs):
+            if len(t) > pairhmm5_cuda.PAIRHMM5_MAX_CELLS:
+                log(f"phase 8: the {len(t)}-base pair at band {band}: "
+                    f"{len(hits[k])} hits, the plain posterior "
+                    f"{len(ref[k])}")
+                if not (hits[k] and ref[k]):
+                    raise AssertionError(
+                        f"phase 8: the {len(t)}-base pair at band {band} "
+                        "has no hit")
 
     rows = []
     # poa_wide: the path's poa_chain and poa_affine calls (one problem of
@@ -2228,7 +2312,7 @@ def phase_wide(dev, errs):
              ("cactus_tpu/ops/pairhmm5_pallas.py:56",
               "cactus_tpu/ops/pairhmm5_pallas.py:143"))):
         fwd = recs[model].fn
-        best, gaps = None, [0.0, 0.0]
+        best, gaps, scratch_call = None, [0.0, 0.0], None
         for args, kw in recs[model].calls:
             pkw = {x: v for x, v in kw.items() if x != "max_live"}
             P, M = args[0].shape
@@ -2242,6 +2326,8 @@ def phase_wide(dev, errs):
                 b=pb(*plain["f"], *args, **pkw)), 1, warmup=False)
             what = f"band {kw['band']}" + (
                 f", max_live {kw['max_live']}" if "max_live" in kw else "")
+            if model == "pairhmm5" and route == "wide":
+                what += ", " + cluster_line(kw["max_live"])
             d_post, d_fwd = check_hmm(
                 fM, lsF, logZ, post, *plain["f"], plain["b"],
                 f"phase 8: {model} path call at {[P, M, kw['band']]} "
@@ -2251,7 +2337,12 @@ def phase_wide(dev, errs):
             if route == "wide":
                 gaps = [max(gaps[0], d_fwd), max(gaps[1], d_post)]
                 cells = P * M * kw["band"]
-                if best is None or cells > best[0]:
+                if model == "pairhmm5" and not pairhmm5_cuda.cluster_shape(
+                        kw["max_live"])["smem"]:
+                    # timed apart: the kernels line keeps the path's
+                    # largest call on the shared-memory rows
+                    scratch_call = (args, kw, plain_f, plain_b)
+                elif best is None or cells > best[0]:
                     best = (cells, args, kw, plain_f, plain_b)
         if best is None:
             raise AssertionError(f"phase 8: no {model} call on the wide "
@@ -2268,6 +2359,11 @@ def phase_wide(dev, errs):
         in_bytes = rows_ + rows_ + used * band + 12 * P + 144
         out_bytes = 4 * rows_ * band + 4 * rows_ + 4 * P
         longest = int(m.max())
+        if model == "pairhmm5":
+            wide_hmm5_global(scratch_call, timed)
+            step_ns, step_what = smem_step_ns()
+            steps_row = hmm5_cluster_row_steps(kw["max_live"])
+            latency_ms = longest * steps_row * step_ns / 1e6
         fM, lsF, logZ = fwd(*args, **kw)
         for k, (name, fn, plain_ms, bytes_) in enumerate((
                 (f"{model}_fwd_wide", lambda: timed[0](*args, **kw),
@@ -2280,9 +2376,15 @@ def phase_wide(dev, errs):
             rows.append(kernel_row(name, source, lines[k], launches, errs,
                                    ms, plain_ms, bytes_, flops[k] * live,
                                    FP32_OPS_PER_S, [P, M, band], None))
+            rows[-1].update(us_per_row=ms * 1e3 / longest)
             log(f"{name} at {[P, M, band]}: {ms * 1e3 / longest:.2f} us a "
                 f"row of the longest pair ({longest} rows); {live} live "
                 f"cells of {rows_ * band} band cells in rows 1..m")
+            if model == "pairhmm5":
+                log(f"{name}: {cluster_line(kw['max_live'])}; latency line "
+                    f"{longest} x {steps_row} steps x {step_ns:.2f} ns = "
+                    f"{latency_ms:.4f} ms ({step_what}), "
+                    f"{ms / latency_ms:.2f}x")
         del fM, lsF, logZ
     log("no single PyTorch call computes these DPs: library_ms is null")
     return rows

@@ -954,21 +954,67 @@ def test_pairhmm_wide_band_matches_plain(cuda):
     _check_pairhmm_vs_plain(pairs, 32768, cuda)
 
 
-def test_pairhmm5_wide_route_matches_plain(cuda):
-    """A 5-state pair at max_live 70,001 (a 300-base query inside a
-    70,000-base target, band 131072) beside a short pair: the wide
-    kernels, within chip_smoke's three tolerances of the plain versions,
-    zero outside the live windows."""
+def _wide5_pairs(case):
+    """The 5-state wide-route cases: (pairs, band, max_live, shared-memory
+    rows, params).  The first three take chip_smoke's WIDE_HMM5_GAPS, a
+    long gap that decays as 0.9999 a base: at the default 0.9966, a
+    short query's path in a target past 60,000 bases sits below float32's
+    range in the forward or the backward pass wherever it is copied, and
+    the long pairs' posteriors are 0 in the plain version and the kernels
+    alike.  "deep" keeps the default and copies the query 30,000 bases in,
+    where the path's forward seed is a few subnormal ulps, so each order
+    of the in-row sums gives another float32 logZ
+    (tests/pairhmm5_conditioning_report.py)."""
     rng = np.random.default_rng(70001)
-    pairs = [_embedded_pair(rng, 300, 70000, 30000),
-             _homologous(70002, [120], 131072)[0]]
-    band = 131072
+    gaps = tp5.Hmm5Params(p_match=0.8, **chip_smoke.WIDE_HMM5_GAPS)
+    if case == "dsmem":
+        # a 300-base query inside a 70,000-base target beside a short pair
+        return ([_embedded_pair(rng, 300, 70000, 10000),
+                 _homologous(70002, [120], 131072)[0]], 131072, 70001, True,
+                gaps)
+    if case == "global":
+        # a 64-row query inside a 140,000-base target: past the 131,072
+        # cells the cluster's shared memory holds; the backward pass
+        # carries the copy's path through the 15 CTAs after it
+        return ([_embedded_pair(rng, 64, 140000, 10000)], 262144, 140001,
+                False, gaps)
+    if case == "deep":
+        return ([_embedded_pair(rng, 300, 70000, 30000)], 131072, 70001,
+                True, tp5.Hmm5Params(p_match=0.8))
+    # two wide pairs in one launch: two clusters
+    return ([_embedded_pair(rng, 300, 70000, 10000),
+             _embedded_pair(rng, 200, 68000, 50000)], 131072, 70001, True,
+            gaps)
+
+
+# "deep": logZ of the cluster kernels (the card, and the numpy model of
+# their schedule to the last digit), of the plain version, and of the
+# model in float64 (tests/pairhmm5_conditioning_report.py); each float32
+# value is held to its own, and both lie within DEEP_LOGZ_GAP of float64
+DEEP_LOGZ = dict(kernel=448.1207580566406, plain=445.6746520996094,
+                 float64=479.8837652043527)
+DEEP_LOGZ_GAP = 35.0
+
+
+@pytest.mark.parametrize("case", ["dsmem", "global", "two_clusters",
+                                  "deep"])
+def test_pairhmm5_wide_route_matches_plain(cuda, case):
+    """5-state pairs past the narrow kernels' 65,536 cells (a short query
+    inside a long target) take the cluster kernels: the state rows in the
+    CTAs' shared memory at max_live 70,001, in global scratch at 140,001
+    (band 262144), and two pairs as two clusters; within chip_smoke's
+    three tolerances of the plain versions, every long pair's plain
+    posterior reaching 0.5, zero outside the live windows.  "deep" holds
+    logZ to its pinned float32 readings instead."""
+    pairs, band, want, smem, p = _wide5_pairs(case)
     packed = tb.pack_band_batch(pairs, band, min_batch=1)
     args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
     max_live = banded_cuda.live_width(args[3], band)
-    assert max_live == 70001
+    assert max_live == want
     assert pairhmm5_cuda.pairhmm5_route(max_live) == "wide"
-    p = tp5.Hmm5Params(p_match=0.8)
+    shape = pairhmm5_cuda.cluster_shape(max_live)
+    assert shape["smem"] == smem
+    assert shape["ctas"] * shape["threads"] * shape["cells"] >= max_live
     em = torch.from_numpy(p.emissions()).to(cuda)
     kw = dict(band=band, params=p)
     n0 = cuda_build.launches()
@@ -981,10 +1027,54 @@ def test_pairhmm5_wide_route_matches_plain(cuda):
     for name in ("pairhmm5_fwd_wide", "pairhmm5_bwd_wide"):
         assert n1[name] == n0[name] + 1
     assert n1["pairhmm5_fwd"] == n0["pairhmm5_fwd"]
+    assert n1["pairhmm5_bwd"] == n0["pairhmm5_bwd"]
+    fM_r, lsF_r, logZ_r = tp5.forward_banded5(*args, em, **kw)
+    live = banded_cuda.live_mask(args[2], args[3], args[4], fM.shape[1],
+                                 band)
+    assert not bool(fM[~live].any()) and not bool(post[~live].any())
+    if case == "deep":
+        for x in (fM, lsF, logZ, post):
+            assert bool(torch.isfinite(x).all())
+        for name, z in (("kernel", logZ), ("plain", logZ_r)):
+            z = float(z[0])
+            assert abs(z - DEEP_LOGZ[name]) <= \
+                chip_smoke.LOGZ_RTOL * DEEP_LOGZ[name], (name, z)
+            assert abs(z - DEEP_LOGZ["float64"]) <= DEEP_LOGZ_GAP
+        return
+    ref = tp5.backward_posterior5(fM_r, lsF_r, logZ_r, *args, em, **kw)
+    chip_smoke.check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, ref,
+                         f"pairhmm5 {case} max_live {max_live}", quiet=True)
+    for k, (q, t) in enumerate(pairs):
+        if len(t) > 65536:
+            assert float(ref[k].max()) > 0.5, (case, k)
+
+
+@pytest.mark.parametrize("max_live", [300, 16384])
+def test_pairhmm5_cluster_kernels_at_narrow_widths(cuda, max_live):
+    """The cluster kernels forced at widths the narrow kernels take (a
+    cluster of 2 CTAs of one warp, and 16 CTAs of 4 warps) agree with
+    the plain versions as the narrow kernels do."""
+    rng = np.random.default_rng(max_live)
+    band = 1 << (max_live - 1).bit_length()
+    pairs = [_embedded_pair(rng, 150, max_live - 1, (max_live - 150) // 2),
+             _homologous(max_live, [90], band)[0]]
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    assert banded_cuda.live_width(args[3], band) == max_live
+    p = tp5.Hmm5Params(p_match=0.8)
+    em = torch.from_numpy(p.emissions()).to(cuda)
+    kw = dict(band=band, params=p, max_live=max_live)
+    fM, lsF, logZ = pairhmm5_cuda._launch_fwd(*args, em, **kw,
+                                              route="wide")
+    post = pairhmm5_cuda._launch_bwd(fM, lsF, logZ, *args, em, **kw,
+                                     route="wide")
+    torch.cuda.synchronize()
+    kw.pop("max_live")
     fM_r, lsF_r, logZ_r = tp5.forward_banded5(*args, em, **kw)
     ref = tp5.backward_posterior5(fM_r, lsF_r, logZ_r, *args, em, **kw)
     chip_smoke.check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, ref,
-                         "pairhmm5 max_live 70001", quiet=True)
+                         f"pairhmm5 cluster at max_live {max_live}",
+                         quiet=True)
     live = banded_cuda.live_mask(args[2], args[3], args[4], fM.shape[1],
                                  band)
     assert not bool(fM[~live].any()) and not bool(post[~live].any())

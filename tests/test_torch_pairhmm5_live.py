@@ -14,8 +14,10 @@ max_live needs.  This file holds, with numpy inputs made from seeds:
     over lanes and warps, the every-row rescale, and with several warps
     the one-barrier form: a row is computed from the previous row before
     it is rescaled, which the next barrier brings; every rescale is a
-    multiply by the reciprocal of the row maximum, as the kernels do it)
-    against
+    multiply by the reciprocal of the row maximum, as the kernels do it;
+    with ncta, the wide route's cluster kernels: ncta CTAs of nw warps,
+    each CTA's warp 0 scanning its warps' maps and walking the maps the
+    CTAs before it pushed, the row maximum taken over every CTA) against
     the plain versions and the JAX package's posterior_banded_batch5, to
     POST_ULPS ulps of the largest log-scale sum (the tolerance of
     tests/test_torch_pairhmm5.py: the model sums the in-row chains in
@@ -125,31 +127,80 @@ def warp_scan(a, reverse):
     return x, ex
 
 
-def fwd_chain(c1, c2, A, C, nw):
+def cta_scan(maps, nw, reverse):
+    """Warp 0's scan over a CTA's warps, as csrc/pairhmm5.cu cta_publish
+    does it: lane w holds warp w's map (identity past nw), a shuffle scan
+    over the 32 lanes.  maps: six (ncta, nw) arrays; returns the inclusive
+    and exclusive maps, six (ncta, nw) arrays each."""
+    ncta = maps[0].shape[0]
+    lanes = [v.copy() for v in aff_identity((ncta, 32))]
+    for v, m in zip(lanes, maps):
+        v[:, :nw] = m
+    inc, ex = warp_scan(lanes, reverse)
+    return [v[:, :nw] for v in inc], [v[:, :nw] for v in ex]
+
+
+def cta_walk(agg, near, ncta, reverse):
+    """Warp 0's walk after the cluster barrier: for each CTA r, the chain
+    value entering it (the CTA maps `agg` of the CTAs before it, or after
+    it in reverse, applied to 0 one after the other) and the value that
+    the neighbour CTA's map `near` gives (the previous CTA's last cell;
+    reverse: the next CTA's second cell)."""
+    y = [np.zeros(ncta, F), np.zeros(ncta, F)]
+    nb = [np.zeros(ncta, F), np.zeros(ncta, F)]
+    for r in range(ncta):
+        y1, y2 = F(0), F(0)
+        order = range(ncta - 1, r, -1) if reverse else range(r)
+        for q in order:
+            if q == (r + 1 if reverse else r - 1):
+                nb[0][r], nb[1][r] = apply([v[q] for v in near], y1, y2)
+            y1, y2 = apply([v[q] for v in agg], y1, y2)
+        y[0][r], y[1][r] = y1, y2
+    return y, nb
+
+
+def fwd_chain(c1, c2, A, C, nw, ncta=None):
     """The forward in-row chain y[k] = A y[k-1] + c[k] (y[-1] = 0) over
     the cover's cells as the kernel schedules it.  With several warps a
     warp's first cell is pushed by the warp before it (its published map
-    T~ ends with that cell) and replays as the carry itself.  Returns y1,
-    y2 (unmasked) and, for each warp w >= 1, the chain value at the last
-    cell of warp w - 1, T_{w-1}(carry_{w-1}), which the kernel hands to
-    warp w for the next row."""
-    multi = nw > 1
-    g1, g2 = c1.reshape(nw, 32, C), c2.reshape(nw, 32, C)
+    T~ ends with that cell) and replays as the carry itself.  ncta: the
+    cluster kernels' schedule, ncta CTAs of nw warps (warp 0 of each CTA
+    scans its warps' maps, and walks the CTAs before it).  Returns y1, y2
+    (unmasked) and, for each warp w >= 1, the chain value at the last cell
+    of warp w - 1, T_{w-1}(carry_{w-1}), which the kernel hands to warp w
+    for the next row."""
+    cl = ncta is not None
+    nt = nw * (ncta or 1)              # warps in all
+    multi = nt > 1
+    g1, g2 = c1.reshape(nt, 32, C), c2.reshape(nt, 32, C)
     lane = np.arange(32)[None, :]
-    warp = np.arange(nw)[:, None]
+    warp = np.arange(nt)[:, None]
     skip = multi & (lane == 0) & (warp > 0)
-    a = aff_identity((nw, 32))
+    a = aff_identity((nt, 32))
     for c in range(C):
         pushed = push_cell(a, A, g1[:, :, c], g2[:, :, c])
         a = where(skip, a, pushed) if c == 0 else pushed
     x, ex = warp_scan(a, reverse=False)
     T = [v[:, 31] for v in x]
-    carry = [np.zeros(nw, F), np.zeros(nw, F)]
-    ylast = [np.zeros(nw, F), np.zeros(nw, F)]
-    if multi:
+    carry = [np.zeros(nt, F), np.zeros(nt, F)]
+    ylast = [np.zeros(nt, F), np.zeros(nt, F)]
+    if multi or cl:
         # T~_w: T_w, then warp w + 1's first cell
         Tt = push_cell(T, A, np.append(g1[1:, 0, 0], F(0)),
                        np.append(g2[1:, 0, 0], F(0)))
+    if cl:
+        inc, pre = cta_scan([v.reshape(ncta, nw) for v in Tt], nw, False)
+        near = compose([v.reshape(ncta, nw) for v in T], pre)
+        y, ylc = cta_walk([v[:, -1] for v in inc], [v[:, -1] for v in near],
+                          ncta, False)
+        for e in range(2):
+            carry[e] = apply(pre, y[0][:, None], y[1][:, None])[e].ravel()
+            yl = apply(near, y[0][:, None], y[1][:, None])[e]
+            # warp w's neighbour: warp w - 1's last cell; warp 0 of a CTA:
+            # the previous CTA's last cell
+            ylast[e] = np.concatenate([ylc[e][:, None], yl[:, :-1]],
+                                      axis=1).ravel().astype(F)
+    elif multi:
         y1, y2 = F(0), F(0)
         for w in range(1, nw):
             Tw = [v[w - 1] for v in T]
@@ -157,6 +208,7 @@ def fwd_chain(c1, c2, A, C, nw):
             ylast[0][w], ylast[1][w] = apply(Tw, y1, y2)
             y1, y2 = apply(Ttw, y1, y2)
             carry[0][w], carry[1][w] = y1, y2
+    nw = nt
     y1, y2 = apply(ex, carry[0][:, None], carry[1][:, None])
     o1, o2 = np.zeros((nw, 32, C), F), np.zeros((nw, 32, C), F)
     for c in range(C):
@@ -169,16 +221,17 @@ def fwd_chain(c1, c2, A, C, nw):
     return o1.ravel(), o2.ravel(), ylast
 
 
-def bwd_chain(c1, c2, At, C, nw):
+def bwd_chain(c1, c2, At, C, nw, ncta=None):
     """The backward chain y[k] = A^T y[k+1] + c[k] (0 past the cover),
-    lanes and warps from the right.  Returns y1, y2 (unmasked), yr1, yr2
-    (the chain at k + 1: the lane's carry at its last cell) and, for each
-    warp w < nw - 1, the chain at the second cell of warp w + 1,
-    T'_{w+1}(carry_{w+1}) (T' is the warp's map without its first
-    cell), from which warp w forms that warp's first bM for the next
-    row."""
-    g1, g2 = c1.reshape(nw, 32, C), c2.reshape(nw, 32, C)
-    a = aff_identity((nw, 32))
+    lanes and warps from the right (ncta: the cluster kernels' schedule,
+    as fwd_chain).  Returns y1, y2 (unmasked), yr1, yr2 (the chain at
+    k + 1: the lane's carry at its last cell) and, for each warp w < nw -
+    1, the chain at the second cell of warp w + 1, T'_{w+1}(carry_{w+1})
+    (T' is the warp's map without its first cell), from which warp w
+    forms that warp's first bM for the next row."""
+    nt = nw * (ncta or 1)
+    g1, g2 = c1.reshape(nt, 32, C), c2.reshape(nt, 32, C)
+    a = aff_identity((nt, 32))
     a_rest = a
     for c in range(C - 1, -1, -1):
         if c == 0:
@@ -187,13 +240,27 @@ def bwd_chain(c1, c2, At, C, nw):
     x, ex = warp_scan(a, reverse=True)
     T = [v[:, 0] for v in x]
     Tr = compose([v[:, 0] for v in a_rest], [v[:, 0] for v in ex])
-    carry = [np.zeros(nw, F), np.zeros(nw, F)]
-    ynext = [np.zeros(nw, F), np.zeros(nw, F)]
-    y1, y2 = F(0), F(0)
-    for w in range(nw - 2, -1, -1):
-        ynext[0][w], ynext[1][w] = apply([v[w + 1] for v in Tr], y1, y2)
-        y1, y2 = apply([v[w + 1] for v in T], y1, y2)
-        carry[0][w], carry[1][w] = y1, y2
+    carry = [np.zeros(nt, F), np.zeros(nt, F)]
+    ynext = [np.zeros(nt, F), np.zeros(nt, F)]
+    if ncta is not None:
+        inc, pre = cta_scan([v.reshape(ncta, nw) for v in T], nw, True)
+        near = compose([v.reshape(ncta, nw) for v in Tr], pre)
+        y, ync = cta_walk([v[:, 0] for v in inc], [v[:, 0] for v in near],
+                          ncta, True)
+        for e in range(2):
+            carry[e] = apply(pre, y[0][:, None], y[1][:, None])[e].ravel()
+            yn = apply(near, y[0][:, None], y[1][:, None])[e]
+            # warp w's neighbour: warp w + 1's second cell; a CTA's last
+            # warp: the next CTA's second cell
+            ynext[e] = np.concatenate([yn[:, 1:], ync[e][:, None]],
+                                      axis=1).ravel().astype(F)
+    else:
+        y1, y2 = F(0), F(0)
+        for w in range(nw - 2, -1, -1):
+            ynext[0][w], ynext[1][w] = apply([v[w + 1] for v in Tr], y1, y2)
+            y1, y2 = apply([v[w + 1] for v in T], y1, y2)
+            carry[0][w], carry[1][w] = y1, y2
+    nw = nt
     y1, y2 = apply(ex, carry[0][:, None], carry[1][:, None])
     o1, o2 = np.zeros((nw, 32, C), F), np.zeros((nw, 32, C), F)
     r1, r2 = np.zeros((nw, 32, C), F), np.zeros((nw, 32, C), F)
@@ -217,21 +284,23 @@ def _trans(params):
 
 # ------------------------------------------------------------ forward model
 
-def fwd_model(q, ts, m, n, lo, em, B, params, C, nw):
+def fwd_model(q, ts, m, n, lo, em, B, params, C, nw, ncta=None):
     """One pair's forward pass as csrc/pairhmm5.cu schedules it: (fM (M,
     B), lsF (M,), logZ).  One warp: each row divided by its own maximum
-    before the next row reads it (the contract's order).  Several warps:
-    row i is computed from row i - 1 as it stood before its rescale, and
-    divided by row i - 1's scale after the row's one barrier; row i - 1
-    is stored then."""
+    before the next row reads it (the contract's order).  Several warps,
+    or a cluster of ncta CTAs of nw warps: row i is computed from row
+    i - 1 as it stood before its rescale, and divided by row i - 1's scale
+    (its maximum over every warp and CTA) after the row's exchange; row
+    i - 1 is stored then."""
     mc, os_, ol, es, el, wsl, wls, ms, ml = _trans(params)
     A = (es, wls, wsl, el)
     M = len(q)
     m = min(m, M)
-    multi = nw > 1
-    cover = 32 * C * nw
+    nt = nw * (ncta or 1)
+    multi = nt > 1 or ncta is not None
+    cover = 32 * C * nt
     k = np.arange(cover)
-    k0w = 32 * C * np.arange(nw)
+    k0w = 32 * C * np.arange(nt)
     fM = np.zeros((M, B), F)
     lsF = np.zeros(M, F)
     logZ = None
@@ -246,11 +315,18 @@ def fwd_model(q, ts, m, n, lo, em, B, params, C, nw):
     left = gather(sM, k - 1)
     y1, y2, ylast = fwd_chain(np.where(ok, os_ * left, F(0)).astype(F),
                               np.where(ok, ol * left, F(0)).astype(F),
-                              A, C, nw)
+                              A, C, nw, ncta)
     S = [sM, np.zeros(cover, F), np.zeros(cover, F),
          np.where(ok, y1, F(0)).astype(F), np.where(ok, y2, F(0)).astype(F)]
-    # row 1 reads row 0's cells across warps as stored (after a barrier)
-    nbl = [gather(S[3], k0w - 1), gather(S[4], k0w - 1)]
+    if ncta is None:
+        # row 1 reads row 0's cells across warps as stored (after a
+        # barrier)
+        nbl = [gather(S[3], k0w - 1), gather(S[4], k0w - 1)]
+    else:
+        # the cluster kernels run row 0 as any row: the cells across a
+        # warp edge come from the exchange
+        nbl = [np.where(gather(ok.astype(F), k0w - 1) > 0, v, F(0))
+               .astype(F) for v in ylast]
     s_prev = F(1)          # several warps: the scale row i - 1 awaits
 
     def store(i, vals, s, jl_, wd_):
@@ -297,7 +373,7 @@ def fwd_model(q, ts, m, n, lo, em, B, params, C, nw):
         left = gather(mM, k - 1)
         y1, y2, ylast = fwd_chain(np.where(ok, os_ * left, F(0)).astype(F),
                                   np.where(ok, ol * left, F(0)).astype(F),
-                                  A, C, nw)
+                                  A, C, nw, ncta)
         V = [mM, mSX, mLX, np.where(ok, y1, F(0)).astype(F),
              np.where(ok, y2, F(0)).astype(F)]
         nbl = [np.where(gather(ok.astype(F), k0w - 1) > 0, v, F(0))
@@ -327,18 +403,21 @@ def fwd_model(q, ts, m, n, lo, em, B, params, C, nw):
 
 # ----------------------------------------------------------- backward model
 
-def bwd_model(fM, lsF, logZ, q, ts, m, n, lo, em, B, params, C, nw):
+def bwd_model(fM, lsF, logZ, q, ts, m, n, lo, em, B, params, C, nw,
+              ncta=None):
     """One pair's backward pass fused with the posterior, as
-    csrc/pairhmm5.cu schedules it: post (M, B).  Several warps: row i - 1
-    is computed from row i before its rescale, divided by row i's scale
-    after the barrier, and row i's posterior is formed then."""
+    csrc/pairhmm5.cu schedules it: post (M, B).  Several warps, or a
+    cluster of ncta CTAs: row i - 1 is computed from row i before its
+    rescale, divided by row i's scale after the exchange, and row i's
+    posterior is formed then."""
     mc, os_, ol, es, el, wsl, wls, ms, ml = _trans(params)
     At = (es, wsl, wls, el)
     M = len(q)
-    multi = nw > 1
-    cover = 32 * C * nw
+    nt = nw * (ncta or 1)
+    multi = nt > 1 or ncta is not None
+    cover = 32 * C * nt
     k = np.arange(cover)
-    k0w = 32 * C * np.arange(nw)
+    k0w = 32 * C * np.arange(nt)
     post = np.zeros((M, B), F)
     if m < 1 or m > M:
         return post
@@ -350,13 +429,23 @@ def bwd_model(fM, lsF, logZ, q, ts, m, n, lo, em, B, params, C, nw):
     okc = k < wd
     at_end = okc & (jl + k == n)
     c = np.where(at_end, F(1), F(0)).astype(F)
-    _y1, _y2, r1, r2, _ynext = bwd_chain(c, c, At, C, nw)
+    _y1, _y2, r1, r2, ynext = bwd_chain(c, c, At, C, nw, ncta)
     okr = gather(okc.astype(F), k + 1) > 0
     bM = np.where(at_end, F(1), np.where(
         okc & okr, os_ * r1 + ol * r2, F(0))).astype(F)
     S = [bM, c, c.copy()]
-    # row m - 1 reads the next warp's first bM as stored (after a barrier)
-    nbr = gather(bM, k0w + 32 * C)
+    x = k0w + 32 * C
+    if ncta is None:
+        # row m - 1 reads the next warp's first bM as stored (after a
+        # barrier)
+        nbr = gather(bM, x)
+    else:
+        # the cluster kernels form it as any row's, from the next warp's
+        # first cell and the chain at its second cell
+        okx = (gather(okc.astype(F), x) > 0) & \
+            (gather(okc.astype(F), x + 1) > 0)
+        nbr = np.where(gather(c, x) != 0, F(1), np.where(
+            okx, os_ * ynext[0] + ol * ynext[1], F(0))).astype(F)
 
     def posterior(i, bm, g_ls, jl_, wd_):
         g = F(np.exp(np.clip(F(F(lsF[i - 1] + g_ls) - lz), -60, 60)))
@@ -386,7 +475,7 @@ def bwd_model(fM, lsF, logZ, q, ts, m, n, lo, em, B, params, C, nw):
         nSX = (ms * mm + es * sx) + wsl * lx
         nLX = (ml * mm + el * lx) + wls * sx
         c1, c2 = (ms * mm).astype(F), (ml * mm).astype(F)
-        y1, y2, r1, r2, ynext = bwd_chain(c1, c2, At, C, nw)
+        y1, y2, r1, r2, ynext = bwd_chain(c1, c2, At, C, nw, ncta)
         nM = (mc * mm + os_ * (sx + r1)) + ol * (lx + r2)
         V = [np.where(okp, v, F(0)).astype(F)
              for v in (nM, nSX, nLX, y1, y2)]
@@ -421,7 +510,7 @@ def bwd_model(fM, lsF, logZ, q, ts, m, n, lo, em, B, params, C, nw):
     return post
 
 
-def model_batch(packed, band, params, C, nw):
+def model_batch(packed, band, params, C, nw, ncta=None):
     """fwd_model and bwd_model over a packed batch: (fM, lsF, logZ,
     post) as numpy arrays of the plain versions' shapes."""
     em = params.emissions().astype(F)
@@ -434,8 +523,8 @@ def model_batch(packed, band, params, C, nw):
         a = (packed["q"][p], packed["t_shift"][p], int(packed["m_len"][p]),
              int(packed["n_len"][p]), int(packed["lo"][p]), em, band,
              params, C, nw)
-        fM[p], lsF[p], logZ[p] = fwd_model(*a)
-        post[p] = bwd_model(fM[p], lsF[p], logZ[p], *a)
+        fM[p], lsF[p], logZ[p] = fwd_model(*a, ncta=ncta)
+        post[p] = bwd_model(fM[p], lsF[p], logZ[p], *a, ncta=ncta)
     return fM, lsF, logZ, post
 
 
@@ -499,21 +588,34 @@ def test_plain_is_zero_outside_the_live_window(band, shift):
 
 # --------------------------------------------------------------------- (b)
 
-@pytest.mark.parametrize("band,C,nw,max_len", [
-    (64, 4, 1, 90),        # one warp, 128 cells: window <= 64
-    (128, 8, 1, 200),      # one warp, 256 cells
-    (256, 4, 2, 300),      # two warps of 4 cells a lane
-    (256, 4, 3, 300),      # three warps, the middle one's carries
-    (512, 4, 4, 300),      # four warps, short pairs in a wide band
+def _case(band, C, nw, max_len, ncta=None):
+    name = f"{band}-{C}-{nw}-{max_len}"
+    return pytest.param(band, C, nw, max_len, ncta,
+                        id=name if ncta is None else f"{name}-cta{ncta}")
+
+
+@pytest.mark.parametrize("band,C,nw,max_len,ncta", [
+    _case(64, 4, 1, 90),       # one warp, 128 cells: window <= 64
+    _case(128, 8, 1, 200),     # one warp, 256 cells
+    _case(256, 4, 2, 300),     # two warps of 4 cells a lane
+    _case(256, 4, 3, 300),     # three warps, the middle one's carries
+    _case(512, 4, 4, 300),     # four warps, short pairs in a wide band
+    # the cluster kernels: ncta CTAs of nw warps
+    _case(256, 4, 1, 300, 2),   # 2 CTAs of one warp, windows past CTA 0
+    _case(512, 4, 2, 300, 2),   # 2 CTAs of two warps
+    _case(512, 8, 1, 300, 2),   # 8 cells a lane, as the kernels take
+    _case(384, 4, 1, 300, 3),   # 3 CTAs: the last one idle
+    _case(768, 4, 2, 300, 3),   # 3 CTAs of two warps, the last idle
+    _case(1024, 4, 2, 250, 3),  # every window inside CTA 0
 ])
-def test_schedule_model_matches_plain_and_jax(band, C, nw, max_len):
+def test_schedule_model_matches_plain_and_jax(band, C, nw, max_len, ncta):
     pairs = _pairs(band + C + nw, 4, 1, max_len, band)
     packed = jb.pack_band_batch(pairs, band, min_batch=1)
     widest = max(min(band, len(t) + 1) for _q, t in pairs)
-    assert widest <= 32 * C * nw
+    assert widest <= 32 * C * nw * (ncta or 1)
     jparams, params = _params()
     fM_r, lsF_r, logZ_r, post_r = _plain(packed, band, params)
-    fM, lsF, logZ, post = model_batch(packed, band, params, C, nw)
+    fM, lsF, logZ, post = model_batch(packed, band, params, C, nw, ncta)
     tol = POST_ULPS * log_scale_ulp(lsF_r, logZ_r, packed)
     assert float(np.abs(post - post_r).max()) <= tol
     assert float(np.abs(lsF - lsF_r).max()) <= tol
@@ -558,6 +660,37 @@ def test_schedule_model_several_warps_see_the_whole_window():
         assert float(np.abs(got[2] - ref[2]).max()) <= tol
 
 
+@pytest.mark.parametrize("C,nw,ncta", [(4, 1, 3), (4, 2, 2), (2, 3, 2)])
+def test_schedule_model_clusters_see_the_whole_window(C, nw, ncta):
+    """The cluster schedule on pairs whose windows cross every CTA edge
+    (and, with 3 CTAs of one warp, every warp edge is one): the carries,
+    the neighbour cells across a CTA edge and the row maximum taken over
+    the CTAs.  Rows whose largest match value lies past CTA 0 are there,
+    so the deferred maximum comes from another CTA."""
+    band = 512
+    rng = np.random.default_rng(5)
+    q = rng.integers(0, 4, 330).astype(np.uint8)
+    pairs = [(q, _mutate(rng, q)), (q[:200], q[:190])]
+    packed = jb.pack_band_batch(pairs, band, min_batch=1)
+    per_cta = 32 * C * nw
+    assert per_cta * (ncta - 1) < len(pairs[0][1]) + 1 <= per_cta * ncta
+    _j, params = _params()
+    got = model_batch(packed, band, params, C, nw, ncta)
+    ref = _plain(packed, band, params)
+    m, lo = int(packed["m_len"][0]), int(packed["lo"][0])
+    rows = np.arange(1, m + 1)
+    cta_of_max = (ref[0][0, :m].argmax(1) + rows + lo
+                  - np.maximum(0, rows + lo)) // per_cta
+    assert (cta_of_max > 0).sum() > 10
+    tol = POST_ULPS * log_scale_ulp(ref[1], ref[2], packed)
+    assert float(np.abs(got[3] - ref[3]).max()) <= tol
+    assert float(np.abs(got[2] - ref[2]).max()) <= tol
+    used = np.arange(1, got[1].shape[1] + 1)[None, :] <= \
+        packed["m_len"][:, None]
+    assert float(np.abs(got[1] - ref[1])[used].max()) <= tol
+    assert got[3].max() > 0.9
+
+
 def test_schedule_model_rows_past_m_and_empty_windows():
     """m = 0 (every row past m, logZ from TINY), n = 0, a band left of
     j = 0 for the first 39 rows (empty windows, rescaled by TINY), and a
@@ -586,6 +719,38 @@ def test_schedule_model_rows_past_m_and_empty_windows():
             np.testing.assert_allclose(logZ, ref[2][0], rtol=0, atol=tol)
             np.testing.assert_allclose(fM, ref[0][0], rtol=1e-5, atol=1e-30)
             np.testing.assert_allclose(post, ref[3][0], atol=1e-5)
+
+
+@pytest.mark.parametrize("C,nw,ncta", [(1, 1, 2), (1, 1, 3), (1, 2, 2)])
+def test_schedule_model_cluster_rows_past_m_and_empty_windows(C, nw, ncta):
+    """The cases of test_schedule_model_rows_past_m_and_empty_windows at
+    band 64 (m = 0, n = 0, windows empty for the first rows, a window that
+    grows from j = 0), and a pair whose windows cross a CTA edge, through
+    the cluster schedule of CTAs of 32 or 64 cells: every CTA takes part
+    in each row's exchange, idle or not."""
+    band = 64
+    _j, params = _params()
+    em = params.emissions().astype(F)
+    for m, n, lo in ((0, 5, -3), (6, 0, -6), (40, 0, -71), (12, 10, -31),
+                     (50, 60, -30)):
+        M = 64
+        rng = np.random.default_rng(m + n)
+        q = rng.integers(0, 4, M).astype(np.uint8)
+        ts = rng.integers(0, 4, M + band).astype(np.uint8)
+        packed = dict(q=q[None], t_shift=ts[None],
+                      m_len=np.array([m], np.int32),
+                      n_len=np.array([n], np.int32),
+                      lo=np.array([lo], np.int32))
+        ref = _plain(packed, band, params)
+        fM, lsF, logZ = fwd_model(q, ts, m, n, lo, em, band, params, C, nw,
+                                  ncta)
+        post = bwd_model(fM, lsF, logZ, q, ts, m, n, lo, em, band, params,
+                         C, nw, ncta)
+        tol = POST_ULPS * log_scale_ulp(ref[1], ref[2], packed)
+        np.testing.assert_allclose(lsF, ref[1][0], rtol=0, atol=tol)
+        np.testing.assert_allclose(logZ, ref[2][0], rtol=0, atol=tol)
+        np.testing.assert_allclose(fM, ref[0][0], rtol=1e-5, atol=1e-30)
+        np.testing.assert_allclose(post, ref[3][0], atol=1e-5)
 
 
 # --------------------------------------------------------------------- (c)

@@ -105,6 +105,30 @@ def test_caps_are_the_ones_csrc_compiles():
     assert "if (32 * kMaxWarps * c < B) c = 32;" in p3
 
 
+def test_pairhmm5_cluster_constants_cover_the_wide_route():
+    """csrc/pairhmm5.cu's cluster kernels: 16 CTAs of up to 1024 threads
+    of 8 cells a lane hold twice the narrow kernels' widest row in shared
+    memory, within the 227 KB a CTA may take (five state rows forward),
+    and past that cover every width takes the global-scratch instance,
+    with no cap in the source, its size stated once."""
+    p5 = (CSRC / "pairhmm5.cu").read_text()
+    ctas = int(_constant(p5, "kClusterMax"))
+    threads = int(_constant(p5, "kClusterThreads"))
+    cells = int(_constant(p5, "kClusterCells"))
+    assert (ctas, threads, cells) == (16, 1024, 8)
+    assert ctas * threads * cells == 2 * pairhmm5_cuda.PAIRHMM5_MAX_CELLS
+    n = threads * cells
+    assert 5 * (n + n // 32 + 1) * 4 <= 227 * 1024 - 16 * 1024
+    launch = p5[p5.index("int pairhmm5_fwd_wide_launch"):]
+    assert "kMaxCells" not in launch[:launch.index("int pairhmm5_bwd")]
+    # one source sizes the global scratch: the kernels' pair offsets and
+    # pairhmm5_cluster_shape's words (which the wrapper allocates) take
+    # the same row counts
+    for rows in ("kClusterFwdRows", "kClusterBwdRows"):
+        assert p5.count(f"(size_t)p * {rows} * RW") == 1
+        assert f"= {rows} * words;" in p5
+
+
 def test_wrappers_take_every_width():
     """The argument checks the CUDA routes run before a launch accept
     widths past the caps (only argument errors remain)."""
