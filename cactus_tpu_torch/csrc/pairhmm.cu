@@ -62,20 +62,78 @@
 //    loads the next row's fM cells while the current row runs.
 //  - The row loop is not unrolled: eight copies of a row overflow the
 //    instruction cache (2.5x slower at 16 cells a lane).
-//  - Bands past 16384 cells (16 warps of 32 cells a lane) take the wide
-//    kernels below, which loop a block over tiles of the band with the
-//    state rows in global scratch (the wrapper routes by band,
+//  - Bands past 16384 cells (16 warps of 32 cells a lane) take the
+//    cluster kernels below (the wrapper routes by band,
 //    ops/pairhmm_cuda.py::pairhmm_route).
+// The cluster kernels (pairhmm_fwd_cluster_kernel, pairhmm_bwd_cluster_kernel)
+// are the same two Pallas kernels' counterparts for wide bands, where a
+// pair's band outgrows one SM.  What bounds them is the same chain of rows.
+// The design shortens a row by computing only its live cells and spreading
+// them over a thread-block cluster:
+//  - Only the live window.  Row i has live columns j = jlo(i) .. jhi(i),
+//    jlo = max(0, i + lo), jhi = min(n, i + lo + B - 1); every other cell
+//    of the contract is exactly 0 (tests/test_torch_pairhmm_schedule.py).
+//    A row is indexed by its window cell k = j - jlo(i).  From row i - 1 to
+//    row i the window moves by delta = jlo(i) - jlo(i - 1) in {0, 1}: M at
+//    k reads the row before at k - 1 + delta, X at k + delta (backward, mm
+//    reads bM at k + 1 - delta and x reads bX at k - delta).  The pair's
+//    (M, B) output outside the windows and past m is zeroed once, over the
+//    cluster's lanes; each row then stores its window.
+//  - One cluster a pair, sized by the launch's widest live row max_live
+//    (cluster_shape): 8 cells a lane in the fewest warps that cover it,
+//    over up to 16 CTAs (non-portable past 8).  The card must schedule the
+//    cluster (cudaOccupancyMaxActiveClusters, csrc/cluster.cuh), or the
+//    launch returns an error.
+//  - Each CTA keeps its window cells of the row before (M, X, Y forward;
+//    bM, bX backward) and the step's up to 8 rows of M (fM x bM backward)
+//    in its shared memory, one pad word in 33, up to 21 warps a CTA
+//    (86,016 cells a cluster); past that the same kernel (kSmem false)
+//    keeps them, and the lanes' own cells, in the pair's global scratch.
+//    A step's rows are stored when it ends, each divided by its own
+//    maximum (backward: its posterior), a warp's 32 neighbouring cells a
+//    store.  A lane's target codes (and backward its fM cells) are loaded
+//    a row ahead, so that no load sits on a row's chain (the backward
+//    pass's fM loads at the step's end took a third of its time on an
+//    H100 80GB HBM3 at 700 W, tests/pairhmm_sweep_report.py).  CTAs of up
+//    to 8 warps take an instance bounded at 256 threads: at the 672-thread
+//    bound a thread has 80 registers, and its cells spill.
+//  - The in-row chain Y[k] = d M[k - 1] + e Y[k - 1] has the constant
+//    multiplier e, so what the cells before a CTA add to its first cell is
+//    one float, Horner's rule in e^(cells a CTA) over the CTAs' totals.
+//    Each warp folds and scans its lanes as the narrow kernels do and
+//    publishes its total, its near value (its chain at its last cell, from
+//    its own cells; backward at its second cell) and its edge cells (M and
+//    X of its first and last cells from pass 1; backward mm and x of its
+//    first cell and bX of its last).  After the block barrier warp 0 folds
+//    them into the CTA's and pushes these into the rings of the CTAs that
+//    read them (DSMEM stores, double-buffered by row parity; nothing is
+//    loaded remotely); after the row's one cluster barrier every thread
+//    forms the carry entering its warp from the totals before it (after
+//    it, backward) and replays its cells.  The cells across a warp or CTA
+//    edge that the next row reads come from the pushed pass-1 values; the
+//    Y (backward: the chain in bM) they need from the near value and the
+//    carry entering that warp or CTA.
+//  - The step's row maxima are needed only when it ends: each CTA pushes
+//    its 8 maxima once a step, in the exchange of the next step's first
+//    row (or one last exchange), no extra barrier.  That row is computed
+//    from the unscaled row before it and rescaled by the step's last
+//    maximum after the barrier, so its values are the narrow kernels' to
+//    rounding.
 // Float results follow the plain PyTorch version to rounding: the in-row
 // chains are summed in another order than its Kogge-Stone scan, multiplies
 // and adds may contract into FMAs, the rows of a step are not renormalised
 // one by one, and expf/logf/powf differ from the host's by an ulp.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
+
+#include "cluster.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -804,219 +862,537 @@ pairhmm_bwd_kernel(const float* __restrict__ fM,
   cp_async_wait_all();
 }
 
-// ------------------------------------------------------------ wide bands
+// ---------------------------------------------------------- cluster rows
 
 // Bands wider than the narrow kernels' kMaxWarps warps of 32 cells (16384)
-// take the wide kernels.  One block of kWideThreads threads a pair walks
-// each row's band in tiles of kWideTile cells (lane t owns the kWideC
-// cells t kWideC .. of each tile, so a warp's loads and stores are
-// contiguous runs), with the state rows in a per-pair global scratch row
-// (pairhmm_wide_scratch_floats) that L2 keeps.  A row's Y chain is the
-// narrow kernels' scan (the lane's fold, the warp's Kogge-Stone scan,
-// the warps' totals through shared memory at one barrier a tile) with
-// the chain's value at the tile's first cell carried from tile to tile.
-// Rescaling and the row-maximum bookkeeping are the narrow kernels':
-// the state is scaled once per kStepRows rows by the reciprocal of the
-// step's last row maximum (applied as the next step's first row reads
-// the state), each row's maximum is reduced when its step ends, and each
-// row is stored divided by its own maximum (forward; the backward pass
-// scales its posterior alike) with the plain version's running
-// log-scale.  A step's rows wait in the output, unscaled, until the step
-// ends; each thread then rescales its own cells in place.  Every row
-// ends at a barrier, so the next row reads the state whole.
-constexpr int kWideC = 8;
-constexpr int kWideThreads = kMaxThreads;
-constexpr int kWideTile = kWideC * kWideThreads;
+// take the cluster kernels (the header sets out the design): one
+// thread-block cluster a pair of up to kClusterMax CTAs on the pair's live
+// windows, kClusterCells cells a lane.
+constexpr int kClusterMax = 16;            // CTAs a cluster (non-portable past 8)
+constexpr int kClusterCells = 8;           // cells a lane, rows in shared memory
+constexpr int kClusterSmemWarps = 21;      // warps a CTA, rows in shared memory
+constexpr int kClusterSmemThreads = 32 * kClusterSmemWarps;
+// CTAs of up to 8 warps (windows up to 32,768 cells) take an instance
+// bounded at 256 threads, whose lanes keep their cells in registers; the
+// 672-thread bound leaves 80 registers a thread, and they spill
+constexpr int kClusterSmallThreads = 256;
+constexpr int kClusterThreads = 1024;      // threads a CTA, rows in global scratch
+constexpr int kClusterWarps = kClusterThreads / 32;
+// state rows a pair keeps: forward the step's kStepRows M rows, X and Y;
+// backward the step's kStepRows rows of fM x bM, bM and bX; in global
+// scratch two more rows hold the lanes' own cells of the row being
+// computed (forward M and X, backward mm and x)
+constexpr int kClusterFwdSmemRows = kStepRows + 2;
+constexpr int kClusterBwdSmemRows = kStepRows + 2;
+constexpr int kClusterFwdRows = kClusterFwdSmemRows + 2;
+constexpr int kClusterBwdRows = kClusterBwdSmemRows + 2;
 
-__host__ __device__ inline int wide_cover(int B) {
-  return (B + kWideTile - 1) / kWideTile * kWideTile;
+// What the other CTAs of a pair's cluster push into this CTA's shared
+// memory for a row, double-buffered by row parity.
+struct Ring {
+  float tot[2][kClusterMax];   // each earlier (fwd) or later (bwd) CTA's
+                               // chain total: the chain entering the CTA
+                               // after (before) it from its own cells
+  float near[2];               // fwd: the previous CTA's chain at its last
+                               // cell; bwd: the next CTA's chain at its
+                               // second cell (from its own cells)
+  float lo[2][2];              // the next CTA's first cell: fwd M, X; bwd
+                               // mm, x
+  float hi[2][2];              // the previous CTA's last cell: fwd M, X;
+                               // bwd bX
+  float max[2][kStepRows][kClusterMax];  // every CTA's maxima of a step
+};
+
+struct ClusterSmem {
+  float tot[2][kClusterWarps];       // each warp's chain total (as Ring)
+  float near[2][kClusterWarps];      // and its near value (as Ring)
+  float edge[2][kClusterWarps][4];   // fwd: first M, X, last M, X; bwd:
+                                     // first mm, x, last bX
+  float smax[kClusterWarps][kStepRows];   // each warp's step maxima
+  Ring ring;
+  float em[36];
+  float end[3];                      // the end cell's M, X, Y (forward)
+};
+
+// The chain's constants for lanes of nc cells, warps of 32 lanes and CTAs
+// of nw warps, by repeated products: e^(nc 2^l) (the warp scan), the
+// lane's multiplier e^(nc lane_pos), e^(nc - 1), a warp's and a CTA's
+// multipliers e^(32 nc) and e^(32 nc nw), and e^(32 nc - 1),
+// e^(32 nc nw - 1) (a warp's and a CTA's cells but one).
+struct Chain {
+  float lev[6], lane_mult, enc1, E32, Ecta, e32m1, ectam1;
+};
+
+__device__ __forceinline__ float power(float x, int k) {
+  float a = 1.f;
+  for (int i = 0; i < k; ++i) a = a * x;
+  return a;
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-pairhmm_fwd_wide_kernel(const uint8_t* __restrict__ q,
-                        const uint8_t* __restrict__ t_shift,
-                        const int* __restrict__ m_len,
-                        const int* __restrict__ n_len,
-                        const int* __restrict__ lo,
-                        const float* __restrict__ em, int M, int B, float d,
-                        float e, float tMM, float omE,
-                        float* __restrict__ scratch,
-                        float* __restrict__ fM_out,
-                        float* __restrict__ lsF_out,
-                        float* __restrict__ logZ_out) {
-  constexpr int C = kWideC;
+__device__ Chain chain(float e, int nc, int nw, int lane_pos) {
+  Chain K;
+  K.enc1 = power(e, nc - 1);
+  K.lev[0] = K.enc1 * e;
+#pragma unroll
+  for (int l = 1; l < 6; ++l) K.lev[l] = K.lev[l - 1] * K.lev[l - 1];
+  K.E32 = K.lev[5];
+  K.lane_mult = power(K.lev[0], lane_pos);
+  K.e32m1 = power(K.lev[0], 31) * K.enc1;
+  K.Ecta = power(K.E32, nw);
+  K.ectam1 = K.e32m1 * power(K.E32, nw - 1);
+  return K;
+}
+
+// Zeros the pair's (M, B) output outside the live windows of rows
+// 1..live and over every row past it, coalesced over the cluster's lanes
+// (thread `first` of `step`); the rows then store their windows.
+__device__ void zero_outside(float* base, int M, int B, int live, int n,
+                             int lo, int first, int step) {
+  const int rows = max(0, min(live, M));
+  for (int i = 1; i <= rows; ++i) {
+    float* row = base + (size_t)(i - 1) * B;
+    const Window w = window(i, n, lo, B);
+    const int a = w.wd > 0 ? w.jlo - i - lo : B;
+    const int b = w.wd > 0 ? a + w.wd : B;
+    for (int x = first; x < a; x += step) row[x] = 0.f;
+    for (int x = b + first; x < B; x += step) row[x] = 0.f;
+  }
+  float* rest = base + (size_t)rows * B;
+  const size_t cells = (size_t)(M - rows) * B;
+  if ((cells & 3) == 0 && (reinterpret_cast<uintptr_t>(rest) & 15) == 0) {
+    float4* r4 = reinterpret_cast<float4*>(rest);
+    for (size_t k = first; k < cells / 4; k += step)
+      r4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (size_t k = first; k < cells; k += step) rest[k] = 0.f;
+  }
+}
+
+// Warp 0, after the block barrier: the CTA's chain total (Horner's rule in
+// e^(32 nc) over its warps' totals, from the first warp forward and from
+// the last backward) and near value, pushed with the CTA's edge cells into
+// the rings of the CTAs that read them.
+template <bool kBwd>
+__device__ void cta_push(ClusterSmem& s, int par, int nw, const Chain& K) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  const int rank = (int)cl.block_rank();
+  const int ctas = (int)cl.num_blocks();
+  float T = 0.f, Tb = 0.f;
+  for (int k = 0; k < nw; ++k) {
+    const int v = kBwd ? nw - 1 - k : k;
+    if (k == nw - 1) Tb = T;
+    T = K.E32 * T + s.tot[par][v];
+  }
+  const int edge_w = kBwd ? 0 : nw - 1;
+  const float nearC = s.near[par][edge_w] + K.e32m1 * Tb;
+  if (lane < ctas) {
+    Ring* r = cl.map_shared_rank(&s.ring, lane);
+    if (kBwd ? lane < rank : lane > rank) r->tot[par][rank] = T;
+    if (lane == (kBwd ? rank - 1 : rank + 1)) r->near[par] = nearC;
+    if (lane == rank - 1) {
+      r->lo[par][0] = s.edge[par][0][0];
+      r->lo[par][1] = s.edge[par][0][1];
+    }
+    if (lane == rank + 1) {
+      r->hi[par][0] = s.edge[par][nw - 1][2];
+      r->hi[par][1] = s.edge[par][nw - 1][3];
+    }
+  }
+}
+
+// Warp 0: the CTA's maxima of the step's rows (lane l: row l % 8), pushed
+// into every CTA's ring.max[par][row][rank].
+__device__ void cta_push_max(ClusterSmem& s, int par, int nw) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int lane = threadIdx.x & 31;
+  const int r = lane & (kStepRows - 1);
+  float v = 0.f;
+  for (int w = 0; w < nw; ++w) v = fmaxf(v, s.smax[w][r]);
+  const int rank = (int)cl.block_rank();
+  for (int dst = lane / kStepRows; dst < (int)cl.num_blocks();
+       dst += 32 / kStepRows)
+    cl.map_shared_rank(&s.ring, dst)->max[par][r][rank] = v;
+}
+
+// Every warp, after the cluster barrier: the cluster's maxima of the
+// step's rows from the ring, into every lane's mx.
+__device__ __forceinline__ void step_maxima(const ClusterSmem& s, int par,
+                                            int ctas, float (&mx)[kStepRows]) {
+  const int lane = threadIdx.x & 31;
+  float v = 0.f;
+  for (int src = lane / kStepRows; src < ctas; src += 32 / kStepRows)
+    v = fmaxf(v, s.ring.max[par][lane & (kStepRows - 1)][src]);
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 8));
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 16));
+#pragma unroll
+  for (int r = 0; r < kStepRows; ++r) mx[r] = __shfl_sync(kFull, v, r);
+}
+
+// The lanes' step maxima, a butterfly per row, into s.smax[warp]; resets
+// them.
+__device__ __forceinline__ void warp_step_max(ClusterSmem& s,
+                                              float (&pmax)[kStepRows]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < kStepRows; ++r) {
+    float v = pmax[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+    if (lane == 0) s.smax[threadIdx.x >> 5][r] = v;
+    pmax[r] = 0.f;
+  }
+}
+
+// The carry entering this thread's CTA and warp: Horner's rule over the
+// chain totals of the CTAs before it (kBwd: after it) in its ring and of
+// the warps before (after) it in its CTA.  *nb_cta and *nb_warp get the
+// carry entering the neighbouring CTA and warp before (after) it.
+template <bool kBwd>
+__device__ __forceinline__ float carry_in(const ClusterSmem& s, int par,
+                                          int rank, int ctas, int warp,
+                                          int nw, const Chain& K,
+                                          float* nb_cta, float* nb_warp) {
+  float c = 0.f, cn = 0.f;
+  const int cs = kBwd ? ctas - 1 - rank : rank;
+  for (int k = 0; k < cs; ++k) {
+    if (k == cs - 1) cn = c;
+    c = K.Ecta * c + s.ring.tot[par][kBwd ? ctas - 1 - k : k];
+  }
+  float wn = 0.f;
+  const int ws = kBwd ? nw - 1 - warp : warp;
+  for (int k = 0; k < ws; ++k) {
+    if (k == ws - 1) wn = c;
+    c = K.E32 * c + s.tot[par][kBwd ? nw - 1 - k : k];
+  }
+  *nb_cta = cn;
+  *nb_warp = wn;
+  return c;
+}
+
+// A row's exchange, by every thread of the cluster: the block barrier,
+// warp 0 pushes the CTA's total, near value and edge cells (when `chain`)
+// and the step's maxima (when `maxima`), and the cluster barrier.
+template <bool kBwd>
+__device__ __forceinline__ void exchange(ClusterSmem& s, int par, int nw,
+                                         const Chain& K, bool chain,
+                                         bool maxima) {
+  __syncthreads();
+  if ((threadIdx.x >> 5) == 0) {
+    if (chain) cta_push<kBwd>(s, par, nw, K);
+    if (maxima) cta_push_max(s, par, nw);
+  }
+  cg::this_cluster().sync();
+}
+
+template <int C, bool kSmem, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+pairhmm_fwd_cluster_kernel(const uint8_t* __restrict__ q,
+                           const uint8_t* __restrict__ t_shift,
+                           const int* __restrict__ m_len,
+                           const int* __restrict__ n_len,
+                           const int* __restrict__ lo,
+                           const float* __restrict__ em, int M, int B,
+                           float d, float e, float tMM, float omE, int cells,
+                           float* scratch, float* __restrict__ fM_out,
+                           float* __restrict__ lsF_out,
+                           float* __restrict__ logZ_out) {
   constexpr int R = kStepRows;
-  __shared__ Shared sh;
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float4 smem_f4[];
+  __shared__ ClusterSmem s;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int Bp = wide_cover(B);
-  const int ntiles = Bp / kWideTile;
+  const int T = blockDim.x;
+  const int nw = T >> 5;
+  const int rank = (int)cl.block_rank();
+  const int ctas = (int)cl.num_blocks();
+  const int nc = kSmem ? C : cells;   // window cells a lane
+  const int lanes = ctas * T;
+  const int L = rank * T + t;         // the lane's place in the cluster
+  const int k0 = L * nc;              // the lane's first window cell
+  const int kw0 = (L - lane) * nc;    // its warp's first
+  // the state rows: the CTA's window cells in order in shared memory
+  // (one pad word in 33), or cell c of the cluster's lane L at c lanes + L
+  // in the pair's global scratch; word(dl, c): cell c of the lane dl lanes
+  // on
+  const size_t RW = kSmem ? (size_t)row_words(T * nc) : (size_t)lanes * nc;
+  const int p = blockIdx.x / ctas;
+  float* rows = kSmem ? reinterpret_cast<float*>(smem_f4)
+                      : scratch + (size_t)p * kClusterFwdRows * RW;
+  auto word = [&](int dl, int c) -> size_t {
+    return kSmem ? (size_t)pix((t + dl) * nc + c)
+                 : (size_t)c * lanes + (L + dl);
+  };
+  // the step's M rows (row i in rows + (i % R) RW), then X and Y of the
+  // row before
+  float* const sX = rows + R * RW;
+  float* const sY = sX + RW;
+  Cells<C, kSmem> rM, rX;
+  rM.bind(sY + RW + L, lanes);
+  rX.bind(sY + 2 * RW + L, lanes);
 
-  const int p = blockIdx.x;
   const int lo_p = lo[p];
   const int m = min(m_len[p], M);
   const int n = n_len[p];
-  const int b_end = n - m - lo_p;
   const int end_row = m > 1 ? m : 1;
   const uint8_t* qp = q + (size_t)p * M;
   const uint8_t* tp = t_shift + (size_t)p * (M + B);
   float* fp = fM_out + (size_t)p * M * B;
   float* lp = lsF_out + (size_t)p * M;
-  float* sM = scratch + (size_t)p * 3 * Bp;
-  float* sX = sM + Bp;
-  float* sY = sX + Bp;
 
-  for (int k = t; k < 36; k += blockDim.x) sh.em[k] = em[k];
-  if (t < 3) sh.end[t] = 0.f;
-  float lev[6], lane_mult;
-  chain_constants<C>(e, lane, lev, &lane_mult);
-  const float warp_mult = lev[5];      // e^(32 C)
-  float epow[C], wgt[C];
-  epow[0] = 1.f;
+  for (int k = t; k < 36; k += T) s.em[k] = em[k];
+  if (t < 3) s.end[t] = 0.f;
+  const Chain K = chain(e, nc, nw, lane);
+  zero_outside(fp, M, B, m, n, lo_p, L, lanes);
+
+  // row 0: M at j == 0, the Y chain it seeds; the cells across the lane's
+  // warp edge by the same closed form
+  Window win = window(0, n, lo_p, B);
+  auto row0 = [&](int k, float* v) {
+    const int j = win.jlo + k;
+    const bool ok = k >= 0 && k < win.wd;
+    v[0] = ok && j == 0 ? 1.f : 0.f;
+    v[1] = 0.f;
+    v[2] = ok && j >= 1 ? d * powf(e, (float)(j - 1)) : 0.f;
+  };
 #pragma unroll
-  for (int c = 1; c < C; ++c) epow[c] = epow[c - 1] * e;
-#pragma unroll
-  for (int c = 0; c < C; ++c) wgt[c] = d * epow[C - 1 - c];
-  // row 0: M at j == 0, Y from that cell; zero past the band
-  for (int b = t; b < Bp; b += blockDim.x) {
-    const int j0 = lo_p + b;
-    sM[b] = (j0 == 0 && b < B) ? 1.f : 0.f;
-    sX[b] = 0.f;
-    sY[b] = (j0 >= 1 && j0 <= n && b < B)
-                ? d * powf(e, (float)(j0 - 1 > 0 ? j0 - 1 : 0))
-                : 0.f;
+  for (int c = 0; c < nc; ++c) {
+    float v[3];
+    row0(k0 + c, v);
+    const size_t o = word(0, c);
+    rows[o] = v[0];
+    sX[o] = v[1];
+    sY[o] = v[2];
   }
-  __syncthreads();
+  // the previous warp's last (M, X, Y) and the next warp's first (M, X)
+  float nbL[3] = {0.f, 0.f, 0.f}, nbR[3] = {0.f, 0.f, 0.f};
+  if (lane == 0 && L > 0) row0(k0 - 1, nbL);
+  if (lane == 31 && L + 1 < lanes) row0(k0 + nc, nbR);
+  float S = 0.f;   // the plain version's running log-scale (lane L == 0)
+  float pmax[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) pmax[r] = 0.f;
+  // row i's query code and its target codes at the lane's cells, loaded a
+  // row ahead (the global-scratch instance loads the target codes when it
+  // uses them)
+  int qcode = m >= 1 ? qp[0] : 0;
+  int tcode[kSmem ? C : 1];
+  if constexpr (kSmem) {
+    const Window w = window(1, n, lo_p, B);
+    const uint8_t* trow = tp + (w.jlo - 1 - lo_p);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      tcode[c] = m >= 1 && k0 + c < w.wd ? trow[k0 + c] : 5;
+  }
 
-  float S = 0.f;    // the plain version's running log-scale, row by row
-  float rs = 1.f;   // the scale the state waits for (a step's last row)
-  int step = 0;
-  for (int i0 = 1; i0 <= m; i0 += R, ++step) {
-    const int rows = min(R, m - i0 + 1);
-    float pmax[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) pmax[r] = 0.f;
-#pragma unroll 1
-    for (int r = 0; r < rows; ++r) {
-      const int i = i0 + r;
-      const float k_in = r == 0 ? rs : 1.f;
-      const float* erow = sh.em + 6 * qp[i - 1];
-      float* frow = fp + (size_t)(i - 1) * B;
-      float Y = 0.f;      // the chain at the tile's first cell
-      float lmax = 0.f;
-#pragma unroll 1
-      for (int tile = 0; tile < ntiles; ++tile) {
-        const int b0 = tile * kWideTile + t * C;
-        // the previous row's cells b0 .. b0 + C (mX reads b + 1)
-        float fm[C + 1], fx[C + 1], fy[C], emit[C];
-#pragma unroll
-        for (int c = 0; c <= C; ++c) {
-          const int b = b0 + c;
-          fm[c] = b < B ? sM[b] * k_in : 0.f;
-          fx[c] = b < B ? sX[b] * k_in : 0.f;
-          if (c < C) {
-            fy[c] = b < B ? sY[b] * k_in : 0.f;
-            emit[c] = b < B ? erow[tp[i - 1 + b]] : 0.f;
-          }
-        }
-        const int jb = i + lo_p + b0;   // j of cell c is jb + c
-        const int okM1 = min(n + 1 - jb, B - b0);
-        const int okM0 = 1 - jb;
-        float mM[C], mX[C], fold[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float vM = emit[c] * (tMM * fm[c] + omE * (fx[c] + fy[c]));
-          mM[c] = c >= okM0 && c < okM1 ? vM : 0.f;
-          const float vX = d * fm[c + 1] + e * fx[c + 1];
-          mX[c] = c >= okM0 - 1 && c < okM1 ? vX : 0.f;
-          fold[c] = wgt[c] * mM[c];
-        }
-#pragma unroll
-        for (int st = 1; st < C; st *= 2) {
-#pragma unroll
-          for (int c = 0; c + st < C; c += 2 * st)
-            fold[c] = fold[c] + fold[c + st];
-        }
-        const float inc = warp_chain_scan<false>(fold[0], lev, lane);
-        float y0[C];
-        y0[0] = 0.f;
-#pragma unroll
-        for (int c = 1; c < C; ++c) y0[c] = d * mM[c - 1] + e * y0[c - 1];
-        float w = __shfl_up_sync(kFull, inc, 1);
-        if (lane == 0) w = 0.f;
-        if (lane == 31) sh.tot[tile & 1][warp] = inc;
-        __syncthreads();
-        // the chain at the warp's first cell, from the tile's carry and
-        // the warps before; the next tile's carry from all of them
-        float cw = Y;
-        for (int v = 0; v < nwarps; ++v) {
-          if (v == warp) w = w + lane_mult * cw;
-          cw = warp_mult * cw + sh.tot[tile & 1][v];
-        }
-        Y = cw;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int b = b0 + c;
-          const float vY = y0[c] + epow[c] * w;
-          const float mY = c >= okM0 && c < okM1 ? vY : 0.f;
-          lmax = fmaxf(lmax, (mM[c] + mX[c]) + mY);
-          sM[b] = mM[c];
-          sX[b] = mX[c];
-          sY[b] = mY;
-          if (b < B) frow[b] = mM[c];
-          if (i == end_row && b == b_end) {
-            sh.end[0] = mM[c];
-            sh.end[1] = mX[c];
-            sh.end[2] = mY;
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < R; ++k)
-        if (k == r) pmax[k] = lmax;
-      __syncthreads();   // the row is whole before the next one reads it
-    }
-    block_step_max<R>(pmax, sh.max[step & 1], lane, warp, nwarps);
-    // the plain version's per-row scales: each row maximum over the one
-    // before it (the step's carry has maximum 1)
+  // the step's rows first .. first + nrows - 1 (their M rows as computed,
+  // mx their maxima) divided by their maxima into fM; lane L == 0 keeps
+  // the plain version's log-scale (and logZ at the end row)
+  auto store_step = [&](int first, int nrows, const float(&mx)[R]) {
     float prev = 1.f;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (r >= rows) continue;
-      const float mk = pmax[r];
-      const float s = prev > 0.f ? fmaxf(mk / prev, kTiny) : kTiny;
-      S = S + logf(s);
-      if (t == r) lp[i0 + r - 1] = S;
-      if (t == 0 && i0 + r == end_row) {
-        const float mc = fmaxf(mk, kTiny);
-        const float tot = sh.end[0] / mc + (sh.end[1] / mc + sh.end[2] / mc);
-        logZ_out[p] = logf(fmaxf(tot, kTiny)) + S;
-      }
-      prev = mk;
-    }
-    // each row divided by its own maximum, as the plain version stores it
+      if (r >= nrows) continue;
+      const int row = first + r;
+      const Window wr = window(row, n, lo_p, B);
+      const float inv = 1.f / fmaxf(mx[r], kTiny);
+      const float* src = rows + (row % R) * RW;
+      float* dst = fp + (size_t)(row - 1) * B + (wr.jlo - row - lo_p);
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r >= rows) continue;
-      const float k = 1.f / fmaxf(pmax[r], kTiny);
-      float* frow = fp + (size_t)(i0 + r - 1) * B;
-      for (int tile = 0; tile < ntiles; ++tile) {
-        const int b0 = tile * kWideTile + t * C;
+      for (int j = 0; j < nc; ++j) {
+        const int kl = 32 * j + lane;
+        if (kw0 + kl < wr.wd)
+          dst[kw0 + kl] = src[word(kl / nc - lane, kl % nc)] * inv;
+      }
+      if (L == 0) {
+        const float mk = mx[r];
+        const float sc = prev > 0.f ? fmaxf(mk / prev, kTiny) : kTiny;
+        S = S + logf(sc);
+        lp[row - 1] = S;
+        if (row == end_row) {
+          const float mc = fmaxf(mk, kTiny);
+          const float tot = s.end[0] / mc + (s.end[1] / mc + s.end[2] / mc);
+          logZ_out[p] = logf(fmaxf(tot, kTiny)) + S;
+        }
+        prev = mk;
+      }
+    }
+    __syncwarp();   // the warp's cells are read before they are stored
+  };
+
+  __syncwarp();
+  for (int i = 1; i <= m; ++i) {
+    const Window prev = win;
+    win = window(i, n, lo_p, B);
+    const int dl = win.jlo - prev.jlo;
+    const int par = i & 1;
+    const int bb = win.jlo - i - lo_p;
+    const int r = (i - 1) % R;
+    const float* pM = rows + ((i - 1) % R) * RW;
+    const float* erow = s.em + 6 * qcode;
+    // pass 1: M from the row before at k - 1 + dl, X at k + dl (own
+    // cells, the neighbour lane's, or across the warp edge)
+#pragma unroll
+    for (int c = 0; c < nc; ++c) {
+      const int k = k0 + c;
+      float fm, fx, fy;
+      if (dl == 1 || c > 0) {
+        const size_t o = word(0, c - 1 + dl);
+        fm = pM[o];
+        fx = sX[o];
+        fy = sY[o];
+      } else if (k0 == 0) {
+        fm = fx = fy = 0.f;
+      } else if (lane == 0) {
+        fm = nbL[0];
+        fx = nbL[1];
+        fy = nbL[2];
+      } else {
+        const size_t o = word(-1, nc - 1);
+        fm = pM[o];
+        fx = sX[o];
+        fy = sY[o];
+      }
+      float fmu, fxu;
+      if (dl == 0 || c + 1 < nc) {
+        const size_t o = word(0, c + dl);
+        fmu = pM[o];
+        fxu = sX[o];
+      } else if (L + 1 == lanes) {
+        fmu = fxu = 0.f;
+      } else if (lane == 31) {
+        fmu = nbR[0];
+        fxu = nbR[1];
+      } else {
+        const size_t o = word(1, 0);
+        fmu = pM[o];
+        fxu = sX[o];
+      }
+      const bool okx = k < win.wd;
+      const bool ok = okx && win.jlo + k >= 1;
+      int code;
+      if constexpr (kSmem) {
+        code = tcode[c];
+      } else {
+        code = okx ? tp[i - 1 + bb + k] : 5;
+      }
+      const float emit = okx ? erow[code] : 0.f;
+      rM[c] = ok ? emit * (tMM * fm + omE * (fx + fy)) : 0.f;
+      rX[c] = okx ? d * fmu + e * fxu : 0.f;
+    }
+    if (i < m) {   // the next row's codes
+      const Window w = window(i + 1, n, lo_p, B);
+      const uint8_t* trow = tp + (w.jlo - 1 - lo_p);
+      qcode = qp[i];
+      if constexpr (kSmem) {
 #pragma unroll
         for (int c = 0; c < C; ++c)
-          if (b0 + c < B) frow[b0 + c] = frow[b0 + c] * k;
+          tcode[c] = k0 + c < w.wd ? trow[k0 + c] : 5;
       }
     }
-    rs = 1.f / fmaxf(pmax[rows - 1], kTiny);
-  }
+    // the lane's map w -> e^nc w + sum_c d e^(nc-1-c) M[c] of the chain
+    // Y[k] = d M[k - 1] + e Y[k - 1], the warp's scan, the warp's total
+    // and near value (its chain at its last cell from its own cells)
+    float fold = 0.f;
+#pragma unroll
+    for (int c = 0; c < nc; ++c) fold = e * fold + d * rM[c];
+    const float inc = warp_chain_scan<false>(fold, K.lev, lane);
+    float w = __shfl_up_sync(kFull, inc, 1);
+    if (lane == 0) w = 0.f;
+    if (lane == 31) {
+      float y0 = 0.f;
+#pragma unroll
+      for (int c = 1; c < nc; ++c) y0 = d * rM[c - 1] + e * y0;
+      s.tot[par][warp] = inc;
+      s.near[par][warp] = y0 + K.enc1 * w;
+      s.edge[par][warp][2] = rM[nc - 1];
+      s.edge[par][warp][3] = rX[nc - 1];
+    }
+    if (lane == 0) {
+      s.edge[par][warp][0] = rM[0];
+      s.edge[par][warp][1] = rX[0];
+    }
+    // the step before ends here: its maxima travel in this exchange
+    const bool scaled = r == 0 && i > 1;
+    exchange<false>(s, par, nw, K, true, scaled);
 
-  // past the pair's end every state is masked to exactly 0 and the row
-  // scale is TINY
-  const size_t done = (size_t)(m > 0 ? m : 0) * B;
-  for (size_t k = done + t; k < (size_t)M * B; k += blockDim.x) fp[k] = 0.f;
-  if (t == 0) {
+    // pass 2: the carry, the step before stored, the chain from the exact
+    // carry, the row rescaled by the step before's last maximum
+    float c_nb, w_nb;
+    const float cw =
+        carry_in<false>(s, par, rank, ctas, warp, nw, K, &c_nb, &w_nb);
+    w = w + K.lane_mult * cw;
+    float g = 1.f;
+    if (scaled) {
+      float mx[R];
+      step_maxima(s, par, ctas, mx);
+      g = 1.f / fmaxf(mx[R - 1], kTiny);
+      store_step(i - R, R, mx);
+    }
+    float* const cM = rows + (i % R) * RW;
+    float pm = 0.f, y0 = 0.f, ep = 1.f;
+#pragma unroll
+    for (int c = 0; c < nc; ++c) {
+      const int k = k0 + c;
+      const bool ok = k < win.wd && win.jlo + k >= 1;
+      const float vY = (ok ? y0 + ep * w : 0.f) * g;
+      const float vM = rM[c] * g;
+      const float vX = rX[c] * g;
+      y0 = d * rM[c] + e * y0;
+      ep = ep * e;
+      pm = fmaxf(pm, (vM + vX) + vY);
+      const size_t o = word(0, c);
+      cM[o] = vM;
+      sX[o] = vX;
+      sY[o] = vY;
+      if (i == end_row && k < win.wd && win.jlo + k == n) {
+        float* en = cl.map_shared_rank(s.end, 0);
+        en[0] = vM;
+        en[1] = vX;
+        en[2] = vY;
+      }
+    }
+#pragma unroll
+    for (int q2 = 0; q2 < R; ++q2)
+      if (q2 == r) pmax[q2] = pm;
+    // the cells across the warp edges for the next row: the pass-1 M and
+    // X of the next warp's first cell, and of the previous warp's last
+    // cell with its Y from its near value and the carry entering it
+    if (lane == 31 && L + 1 < lanes) {
+      const float* ed = warp + 1 < nw ? s.edge[par][warp + 1]
+                                      : s.ring.lo[par];
+      nbR[0] = ed[0] * g;
+      nbR[1] = ed[1] * g;
+    }
+    if (lane == 0 && L > 0) {
+      const float* ed = warp > 0 ? &s.edge[par][warp - 1][2]
+                                 : s.ring.hi[par];
+      const int kl = k0 - 1;
+      const bool okl = kl < win.wd && win.jlo + kl >= 1;
+      const float yl = warp > 0 ? s.near[par][warp - 1] + K.e32m1 * w_nb
+                                : s.ring.near[par] + K.ectam1 * c_nb;
+      nbL[0] = ed[0] * g;
+      nbL[1] = ed[1] * g;
+      nbL[2] = (okl ? yl : 0.f) * g;
+    }
+    if (r == R - 1 || i == m) warp_step_max(s, pmax);
+    __syncwarp();
+  }
+  if (m >= 1) {
+    // the last step's maxima, then its rows (the end cell's sum has
+    // reached CTA 0 with them)
+    const int par = (m + 1) & 1;
+    exchange<false>(s, par, nw, K, false, true);
+    float mx[R];
+    step_maxima(s, par, ctas, mx);
+    const int first = (m - 1) / R * R + 1;
+    store_step(first, m - first + 1, mx);
+  }
+  if (L == 0) {
+    // rows past m: every state masked to 0, the row scale TINY
     const float ltiny = logf(kTiny);
     for (int i = (m > 0 ? m : 0) + 1; i <= M; ++i) {
       S = S + ltiny;
@@ -1027,30 +1403,51 @@ pairhmm_fwd_wide_kernel(const uint8_t* __restrict__ q,
   }
 }
 
-__global__ void __launch_bounds__(kWideThreads)
-pairhmm_bwd_wide_kernel(const float* __restrict__ fM,
-                        const float* __restrict__ lsF,
-                        const float* __restrict__ logZ,
-                        const uint8_t* __restrict__ q,
-                        const uint8_t* __restrict__ t_shift,
-                        const int* __restrict__ m_len,
-                        const int* __restrict__ n_len,
-                        const int* __restrict__ lo,
-                        const float* __restrict__ em, int M, int B, float d,
-                        float e, float tMM, float omE,
-                        float* __restrict__ scratch,
-                        float* __restrict__ post) {
-  constexpr int C = kWideC;
+template <int C, bool kSmem, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+pairhmm_bwd_cluster_kernel(const float* __restrict__ fM,
+                           const float* __restrict__ lsF,
+                           const float* __restrict__ logZ,
+                           const uint8_t* __restrict__ q,
+                           const uint8_t* __restrict__ t_shift,
+                           const int* __restrict__ m_len,
+                           const int* __restrict__ n_len,
+                           const int* __restrict__ lo,
+                           const float* __restrict__ em, int M, int B,
+                           float d, float e, float tMM, float omE, int cells,
+                           float* scratch, float* __restrict__ post) {
   constexpr int R = kStepRows;
-  __shared__ Shared sh;
+  cg::cluster_group cl = cg::this_cluster();
+  extern __shared__ float4 smem_f4[];
+  __shared__ ClusterSmem s;
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int Bp = wide_cover(B);
-  const int ntiles = Bp / kWideTile;
+  const int T = blockDim.x;
+  const int nw = T >> 5;
+  const int rank = (int)cl.block_rank();
+  const int ctas = (int)cl.num_blocks();
+  const int nc = kSmem ? C : cells;
+  const int lanes = ctas * T;
+  const int L = rank * T + t;
+  const int k0 = L * nc;
+  const int kw0 = (L - lane) * nc;
+  const size_t RW = kSmem ? (size_t)row_words(T * nc) : (size_t)lanes * nc;
+  const int p = blockIdx.x / ctas;
+  float* rows = kSmem ? reinterpret_cast<float*>(smem_f4)
+                      : scratch + (size_t)p * kClusterBwdRows * RW;
+  auto word = [&](int dl, int c) -> size_t {
+    return kSmem ? (size_t)pix((t + dl) * nc + c)
+                 : (size_t)c * lanes + (L + dl);
+  };
+  // the step's rows of fM x bM (row i in rows + (i % R) RW), then bM and
+  // bX of the row after (bY of a row feeds only its maximum)
+  float* const sM = rows + R * RW;
+  float* const sX = sM + RW;
+  Cells<C, kSmem> rMM, rX;
+  rMM.bind(sX + RW + L, lanes);
+  rX.bind(sX + 2 * RW + L, lanes);
 
-  const int p = blockIdx.x;
   const int lo_p = lo[p];
   const int m = m_len[p];
   const int n = n_len[p];
@@ -1059,169 +1456,285 @@ pairhmm_bwd_wide_kernel(const float* __restrict__ fM,
   const float* fp = fM + (size_t)p * M * B;
   const float* lsp = lsF + (size_t)p * M;
   float* pp = post + (size_t)p * M * B;
-  const float lz = logZ[p];
-  // bM and bX of the carried row (bY of a row feeds only its maximum)
-  float* sM = scratch + (size_t)p * 3 * Bp;
-  float* sX = sM + Bp;
 
-  for (int k = t; k < 36; k += blockDim.x) sh.em[k] = em[k];
+  for (int k = t; k < 36; k += T) s.em[k] = em[k];
   // rows past the pair's end have zero posterior (every row when m_len
   // is 0, or beyond the padded row count, where no terminal row exists)
   const bool live = m >= 1 && m <= M;
-  for (size_t k = (size_t)(live ? m : 0) * B + t; k < (size_t)M * B;
-       k += blockDim.x)
-    pp[k] = 0.f;
-  if (!live) return;
-  float lev[6], lane_mult;
-  chain_constants<C>(e, 31 - lane, lev, &lane_mult);
-  const float warp_mult = lev[5];
-  float epow[C], wgt[C];
-  epow[0] = 1.f;
-#pragma unroll
-  for (int c = 1; c < C; ++c) epow[c] = epow[c - 1] * e;
-#pragma unroll
-  for (int c = 0; c < C; ++c) wgt[c] = omE * epow[c];
+  zero_outside(pp, M, B, live ? m : 0, n, lo_p, L, lanes);
+  if (!live) return;   // the whole cluster: no shared memory is read
+  const float lz = logZ[p];
+  const Chain K = chain(e, nc, nw, 31 - lane);
 
-  // terminal row i = m (the backward closed form at the pair's end) and
-  // its posterior
+  // terminal row i = m (the backward closed form at the pair's end); the
+  // cells across the lane's warp edge by the same closed form
+  Window win = window(m, n, lo_p, B);
+  auto term = [&](int k, float* v) {
+    const int jn = n - (win.jlo + k);
+    const bool ok = k >= 0 && k < win.wd;
+    v[0] = !ok ? 0.f : jn == 0 ? 1.f : d * powf(e, (float)(jn - 1));
+    v[1] = ok && jn == 0 ? 1.f : 0.f;
+  };
+#pragma unroll
+  for (int c = 0; c < nc; ++c) {
+    float v[2];
+    term(k0 + c, v);
+    const size_t o = word(0, c);
+    sM[o] = v[0];
+    sX[o] = v[1];
+  }
+  // the next warp's first bM and the previous warp's last bX
+  float nbR = 0.f, nbL = 0.f;
+  if (lane == 31 && L + 1 < lanes) {
+    float v[2];
+    term(k0 + nc, v);
+    nbR = v[0];
+  }
+  if (lane == 0 && L > 0) {
+    float v[2];
+    term(k0 - 1, v);
+    nbL = v[1];
+  }
+  __syncwarp();
+  // the terminal row's posterior (its log-scale is 0)
   {
     const float g = expf(fminf(fmaxf(lsp[m - 1] - lz, -60.f), 60.f));
-    const float* frow = fp + (size_t)(m - 1) * B;
-    float* prow = pp + (size_t)(m - 1) * B;
-    for (int b = t; b < Bp; b += blockDim.x) {
-      const int jn = n - (m + lo_p + b);
-      const float bm = b >= B ? 0.f
-                       : jn == 0
-                           ? 1.f
-                           : (jn > 0 ? d * powf(e, (float)(jn - 1 > 0 ? jn - 1
-                                                                     : 0))
-                                     : 0.f);
-      sM[b] = bm;
-      sX[b] = (b < B && jn == 0) ? 1.f : 0.f;
-      if (b < B) prow[b] = fminf(fmaxf((frow[b] * bm) * g, 0.f), 1.5f);
+    const int bb = win.jlo - m - lo_p;
+    const float* src = sM;
+    const float* frow = fp + (size_t)(m - 1) * B + bb;
+    float* prow = pp + (size_t)(m - 1) * B + bb;
+#pragma unroll
+    for (int j = 0; j < nc; ++j) {
+      const int kl = 32 * j + lane;
+      if (kw0 + kl < win.wd)
+        prow[kw0 + kl] = fminf(
+            fmaxf((frow[kw0 + kl] * src[word(kl / nc - lane, kl % nc)]) * g,
+                  0.f),
+            1.5f);
     }
   }
-  __syncthreads();
-
-  float S = 0.f;    // the plain version's running log-scale lsB
-  float rs = 1.f;   // the scale the state waits for (a step's last row)
-  int step = 0;
-  for (int r0 = m - 1; r0 >= 1; r0 -= R, ++step) {
-    const int rows = min(R, r0);
-    float lsf_r[R], pmax[R];
+  float S = 0.f;   // the plain version's running log-scale lsB
+  float pmax[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      lsf_r[r] = r < rows ? lsp[r0 - r - 1] : 0.f;
-      pmax[r] = 0.f;
+  for (int r = 0; r < R; ++r) pmax[r] = 0.f;
+  // the new row's query code and target codes, and fM, at the lane's
+  // cells, loaded a row ahead (the global-scratch instance loads the
+  // target codes and fM when it uses them)
+  int qcode = m >= 2 ? qp[m - 1] : 0;
+  int tcode[kSmem ? C : 1];
+  float fcur[kSmem ? C : 1];
+  if constexpr (kSmem) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      tcode[c] = 5;
+      fcur[c] = 0.f;
     }
-#pragma unroll 1
-    for (int r = 0; r < rows; ++r) {
-      const int i = r0 - r;        // the new row, from the carry row i + 1
-      const float k_in = r == 0 ? rs : 1.f;
-      const float* erow = sh.em + 6 * qp[i];
-      const float* frow = fp + (size_t)(i - 1) * B;
-      float* prow = pp + (size_t)(i - 1) * B;
-      float Y = 0.f;      // the chain past the tile's last cell
-      float lmax = 0.f;
-#pragma unroll 1
-      for (int tile = ntiles - 1; tile >= 0; --tile) {
-        const int b0 = tile * kWideTile + t * C;
-        // the carry row's bM at b0 .. b0 + C - 1, bX at b0 - 1 .. (x
-        // reads b - 1)
-        float bm[C], bx[C + 1], emit[C];
+    if (m >= 2) {
+      const Window w = window(m - 1, n, lo_p, B);
+      const int bbr = w.jlo - (m - 1) - lo_p;
+      const uint8_t* trow = tp + (m - 1) + bbr;
+      const float* frow = fp + (size_t)(m - 2) * B + bbr;
 #pragma unroll
-        for (int c = 0; c <= C; ++c) {
-          const int b = b0 - 1 + c;
-          bx[c] = b >= 0 && b < B ? sX[b] * k_in : 0.f;
-          if (c < C) {
-            const int bc = b0 + c;
-            bm[c] = bc < B ? sM[bc] * k_in : 0.f;
-            emit[c] = bc < B ? erow[tp[i + bc]] : 0.f;
-          }
-        }
-        const int jb = i + lo_p + b0;   // jprev of cell c is jb + c
-        const int nb = B - b0;
-        const int mm1 = min(n - jb, nb);
-        const int ok0 = -jb;
-        const int x1 = n + 1 - jb;
-        const int ok1 = min(x1, nb);
-        float mm[C], xs[C], fold[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          mm[c] = c < mm1 ? emit[c] * bm[c] : 0.f;
-          xs[c] = c >= ok0 && c < x1 ? bx[c] : 0.f;
-          fold[c] = wgt[c] * mm[c];
-        }
-#pragma unroll
-        for (int st = 1; st < C; st *= 2) {
-#pragma unroll
-          for (int c = 0; c + st < C; c += 2 * st)
-            fold[c] = fold[c] + fold[c + st];
-        }
-        const float inc = warp_chain_scan<true>(fold[0], lev, lane);
-        float y0[C];
-        y0[C - 1] = 0.f;
-#pragma unroll
-        for (int c = C - 2; c >= 0; --c)
-          y0[c] = omE * mm[c + 1] + e * y0[c + 1];
-        float yn = __shfl_down_sync(kFull, inc, 1);
-        if (lane == 31) yn = 0.f;
-        if (lane == 0) sh.tot[tile & 1][warp] = inc;
-        __syncthreads();
-        // the chain past the warp's last cell, from the tile's carry and
-        // the warps after; the next (lower) tile's carry from all of them
-        float cw = Y;
-        for (int v = nwarps - 1; v >= 0; --v) {
-          if (v == warp) yn = yn + lane_mult * cw;
-          cw = warp_mult * cw + sh.tot[tile & 1][v];
-        }
-        Y = cw;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int b = b0 + c;
-          const float ync = y0[c] + epow[C - 1 - c] * yn;  // y at cell c + 1
-          const float y = omE * mm[c] + e * ync;
-          const float nM = (tMM * mm[c] + d * xs[c]) + d * ync;
-          const float nX = omE * mm[c] + e * xs[c];
-          const bool ok = c >= ok0 && c < ok1;
-          const float vm = ok ? nM : 0.f;
-          const float vx = ok ? nX : 0.f;
-          lmax = fmaxf(lmax, (vm + vx) + (ok ? y : 0.f));
-          sM[b] = vm;
-          sX[b] = vx;
-          // fM x bM of the row, before its scale
-          if (b < B) prow[b] = frow[b] * vm;
+      for (int c = 0; c < C; ++c) {
+        if (k0 + c < w.wd) {
+          tcode[c] = trow[k0 + c];
+          fcur[c] = frow[k0 + c];
         }
       }
-#pragma unroll
-      for (int k = 0; k < R; ++k)
-        if (k == r) pmax[k] = lmax;
-      __syncthreads();   // the row is whole before the next one reads it
     }
-    block_step_max<R>(pmax, sh.max[step & 1], lane, warp, nwarps);
-    // each row's posterior: fM x (bM over the row's maximum, as the plain
-    // version scales it) x exp(clip(lsF + lsB - logZ)) with lsB the plain
-    // version's running log-scale, so that the clip sees its exponent
+  }
+
+  // the step's rows r0, r0 - 1, .. (nrows of them; their fM x bM rows as
+  // computed, mx their maxima): each row's posterior fM x (bM over the
+  // row's maximum) x exp(clip(lsF + lsB - logZ)) with lsB the plain
+  // version's running log-scale, so that the clip sees its exponent
+  auto store_step = [&](int r0, int nrows, const float(&mx)[R]) {
+    float lsf[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) lsf[r] = r < nrows ? lsp[r0 - r - 1] : 0.f;
     float prev = 1.f;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (r >= rows) continue;
-      const float mk = pmax[r];
-      const float s = prev > 0.f ? fmaxf(mk / prev, kTiny) : kTiny;
-      S = S + logf(s);
-      const float g = expf(fminf(fmaxf((lsf_r[r] + S) - lz, -60.f), 60.f));
-      const float k = 1.f / fmaxf(mk, kTiny);
+      if (r >= nrows) continue;
+      const int row = r0 - r;
+      const float mk = mx[r];
+      const float sc = prev > 0.f ? fmaxf(mk / prev, kTiny) : kTiny;
+      S = S + logf(sc);
       prev = mk;
-      float* prow = pp + (size_t)(r0 - r - 1) * B;
-      for (int tile = 0; tile < ntiles; ++tile) {
-        const int b0 = tile * kWideTile + t * C;
+      const float g = expf(fminf(fmaxf((lsf[r] + S) - lz, -60.f), 60.f));
+      const float inv = 1.f / fmaxf(mk, kTiny);
+      const Window wr = window(row, n, lo_p, B);
+      const int bb = wr.jlo - row - lo_p;
+      const float* src = rows + (row % R) * RW;
+      float* prow = pp + (size_t)(row - 1) * B + bb;
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          if (b0 + c < B)
-            prow[b0 + c] = fminf(fmaxf((prow[b0 + c] * k) * g, 0.f), 1.5f);
+      for (int j = 0; j < nc; ++j) {
+        const int kl = 32 * j + lane;
+        if (kw0 + kl < wr.wd)
+          prow[kw0 + kl] = fminf(
+              fmaxf((src[word(kl / nc - lane, kl % nc)] * inv) * g, 0.f),
+              1.5f);
       }
     }
-    rs = 1.f / fmaxf(pmax[rows - 1], kTiny);
+    __syncwarp();   // the warp's cells are read before they are stored
+  };
+
+  for (int i = m - 1; i >= 1; --i) {   // row i from the carry row i + 1
+    const Window cur = win;
+    win = window(i, n, lo_p, B);
+    const int dl = cur.jlo - win.jlo;
+    const int par = i & 1;
+    const int bb = win.jlo - i - lo_p;
+    const int r = (m - 1 - i) % R;
+    const float* erow = s.em + 6 * qcode;
+    // pass 1: mm from bM at k + 1 - dl, x from bX at k - dl of row i + 1
+#pragma unroll
+    for (int c = 0; c < nc; ++c) {
+      const int k = k0 + c;
+      float bmv;
+      if (dl == 1 || c + 1 < nc) {
+        bmv = sM[word(0, c + 1 - dl)];
+      } else if (L + 1 == lanes) {
+        bmv = 0.f;
+      } else if (lane == 31) {
+        bmv = nbR;
+      } else {
+        bmv = sM[word(1, 0)];
+      }
+      float xv;
+      if (dl == 0 || c > 0) {
+        xv = sX[word(0, c - dl)];
+      } else if (k0 == 0) {
+        xv = 0.f;
+      } else if (lane == 0) {
+        xv = nbL;
+      } else {
+        xv = sX[word(-1, nc - 1)];
+      }
+      const bool okp = k < win.wd;
+      const bool okm = okp && win.jlo + k + 1 <= n;
+      int code;
+      if constexpr (kSmem) {
+        code = tcode[c];
+      } else {
+        code = okp ? tp[i + bb + k] : 5;
+      }
+      rMM[c] = okm ? erow[code] * bmv : 0.f;
+      rX[c] = okp ? xv : 0.f;
+    }
+    if (i > 1) {   // the next row's codes
+      const Window w = window(i - 1, n, lo_p, B);
+      const uint8_t* trow = tp + (w.jlo - lo_p);
+      qcode = qp[i - 1];
+      if constexpr (kSmem) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          tcode[c] = k0 + c < w.wd ? trow[k0 + c] : 5;
+      }
+    }
+    // the lane's map y -> e^nc y + sum_c (1 - e) e^c mm[c] (from the
+    // right) of the chain y[k] = (1 - e) mm[k] + e y[k + 1], the warp's
+    // reverse scan, the warp's total and near value (its chain at its
+    // second cell from its own cells)
+    float fold = 0.f;
+#pragma unroll
+    for (int c = nc - 1; c >= 0; --c) fold = e * fold + omE * rMM[c];
+    const float inc = warp_chain_scan<true>(fold, K.lev, lane);
+    float yn = __shfl_down_sync(kFull, inc, 1);
+    if (lane == 31) yn = 0.f;
+    if (lane == 0) {
+      float y0 = 0.f;
+#pragma unroll
+      for (int c = nc - 2; c >= 0; --c) y0 = omE * rMM[c + 1] + e * y0;
+      s.tot[par][warp] = inc;
+      s.near[par][warp] = y0 + K.enc1 * yn;
+      s.edge[par][warp][0] = rMM[0];
+      s.edge[par][warp][1] = rX[0];
+    }
+    if (lane == 31)
+      s.edge[par][warp][2] =
+          k0 + nc - 1 < win.wd ? omE * rMM[nc - 1] + e * rX[nc - 1] : 0.f;
+    const bool scaled = r == 0 && i < m - 1;
+    exchange<true>(s, par, nw, K, true, scaled);
+
+    // pass 2 (descending): the carry, the step before stored, the chain
+    // from the exact carry, the row rescaled by the step before's last
+    // maximum
+    float c_nb, w_nb;
+    const float cw =
+        carry_in<true>(s, par, rank, ctas, warp, nw, K, &c_nb, &w_nb);
+    yn = yn + K.lane_mult * cw;
+    float g = 1.f;
+    if (scaled) {
+      float mx[R];
+      step_maxima(s, par, ctas, mx);
+      g = 1.f / fmaxf(mx[R - 1], kTiny);
+      store_step(i + R, R, mx);
+    }
+    float* const cB = rows + (i % R) * RW;
+    const float* frow = fp + (size_t)(i - 1) * B + bb;
+    float pm = 0.f, y0 = 0.f, ep = 1.f;
+#pragma unroll
+    for (int c = nc - 1; c >= 0; --c) {
+      const int k = k0 + c;
+      const float mm = rMM[c], xs = rX[c];
+      float f;
+      if constexpr (kSmem) {
+        f = fcur[c];
+      } else {
+        f = k < win.wd ? frow[k] : 0.f;
+      }
+      const float ync = y0 + ep * yn;   // the chain at cell c + 1
+      const float y = omE * mm + e * ync;
+      const bool ok = k < win.wd;
+      const float vM = (ok ? (tMM * mm + d * xs) + d * ync : 0.f) * g;
+      const float vX = (ok ? omE * mm + e * xs : 0.f) * g;
+      const float vY = (ok ? y : 0.f) * g;
+      y0 = omE * mm + e * y0;
+      ep = ep * e;
+      pm = fmaxf(pm, (vM + vX) + vY);
+      const size_t o = word(0, c);
+      cB[o] = f * vM;
+      sM[o] = vM;
+      sX[o] = vX;
+    }
+    if constexpr (kSmem) {   // the next row's fM
+      if (i > 1) {
+        const Window w = window(i - 1, n, lo_p, B);
+        const float* frow =
+            fp + (size_t)(i - 2) * B + (w.jlo - (i - 1) - lo_p);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          fcur[c] = k0 + c < w.wd ? frow[k0 + c] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int q2 = 0; q2 < R; ++q2)
+      if (q2 == r) pmax[q2] = pm;
+    // the cells across the warp edges for the next row: the next warp's
+    // first bM from its pass-1 mm and x and its chain at its second cell
+    // (its near value and the carry entering it), the previous warp's
+    // last bX
+    if (lane == 31 && L + 1 < lanes) {
+      const bool in_cta = warp + 1 < nw;
+      const float* ed = in_cta ? s.edge[par][warp + 1] : s.ring.lo[par];
+      const float y2 = in_cta ? s.near[par][warp + 1] + K.e32m1 * w_nb
+                              : s.ring.near[par] + K.ectam1 * c_nb;
+      nbR = k0 + nc < win.wd ? ((tMM * ed[0] + d * ed[1]) + d * y2) * g
+                             : 0.f;
+    }
+    if (lane == 0 && L > 0)
+      nbL = (warp > 0 ? s.edge[par][warp - 1][2] : s.ring.hi[par][0]) * g;
+    if (r == R - 1 || i == 1) warp_step_max(s, pmax);
+    __syncwarp();
+  }
+  if (m >= 2) {
+    // the last step's maxima, then its rows
+    exchange<true>(s, 0, nw, K, false, true);
+    float mx[R];
+    step_maxima(s, 0, ctas, mx);
+    const int r0 = (m - 2) % R + 1;
+    store_step(r0, r0, mx);
   }
 }
 
@@ -1244,17 +1757,6 @@ size_t smem_bytes(int C, int threads) {
 size_t step_smem_bytes(int C, int threads) {
   const int Bp = C * threads;
   return smem_bytes(C, threads) + (size_t)step_rows(Bp) * Bp * 4;
-}
-
-// Above 48 KB a kernel's dynamic shared memory must be allowed first: once
-// per kernel and size, not every launch.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem, size_t* allowed) {
-  if (smem <= *allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) *allowed = smem;
-  return err;
 }
 
 struct Args {
@@ -1321,6 +1823,28 @@ cudaError_t bwd_launch(const Args& a, int threads, const float* fM,
     return (int)cudaErrorInvalidValue;                                    \
   } while (0)
 
+// The cluster a wide launch takes for max_live W: kClusterCells cells a
+// lane in the fewest warps that cover W, spread over as many CTAs as there
+// are warps, up to kClusterMax (or max_ctas, when it is set); the state
+// rows in each CTA's shared memory up to kClusterSmemWarps warps a CTA
+// (kClusterMax x 21 warps of 8 cells: 86,016); past that kClusterMax
+// (max_ctas) CTAs of kClusterThreads threads with as many cells a lane as
+// W needs, the rows in global scratch.
+ClusterShape cluster_shape(int W, int max_ctas) {
+  const int cap = max_ctas > 0 && max_ctas < kClusterMax ? max_ctas
+                                                          : kClusterMax;
+  const long long per_warp = 32 * kClusterCells;
+  const long long warps = (W + per_warp - 1) / per_warp;
+  if (warps <= (long long)cap * kClusterSmemWarps) {
+    const int ctas = (int)(warps < cap ? warps : cap);
+    return ClusterShape{ctas, 32 * (int)((warps + ctas - 1) / ctas),
+                        kClusterCells, 1};
+  }
+  const long long lanes = (long long)cap * kClusterThreads;
+  return ClusterShape{cap, kClusterThreads, (int)((W + lanes - 1) / lanes),
+                      0};
+}
+
 }  // namespace
 
 extern "C" {
@@ -1361,46 +1885,123 @@ int pairhmm_bwd_launch(const void* fM, const void* lsF, const void* logZ,
                    static_cast<float*>(post));
 }
 
-// The wide route (bands past kMaxWarps warps of 32 cells): float32 words
-// of global scratch a pair, and the two launches.
-int pairhmm_wide_scratch_floats(int B) { return 3 * wide_cover(B); }
+// The cluster a wide launch takes for max_live W (cluster_shape, at most
+// max_ctas CTAs when it is above 0): out[0..5] = CTAs, threads a CTA,
+// cells a lane, 1 where the state rows live in the CTAs' shared memory,
+// and the float32 words of global scratch a pair needs forward and
+// backward (0 with shared-memory rows).
+int pairhmm_cluster_shape(int W, int max_ctas, void* out) {
+  if (W < 1) return (int)cudaErrorInvalidValue;
+  const ClusterShape sh = cluster_shape(W, max_ctas);
+  const long long words =
+      sh.smem ? 0 : (long long)sh.ctas * sh.threads * sh.cells;
+  long long* o = static_cast<long long*>(out);
+  o[0] = sh.ctas;
+  o[1] = sh.threads;
+  o[2] = sh.cells;
+  o[3] = sh.smem;
+  o[4] = kClusterFwdRows * words;
+  o[5] = kClusterBwdRows * words;
+  return 0;
+}
 
+// The wide route (bands past kMaxWarps warps of 32 cells, or any band a
+// caller forces): one cluster a pair on the live windows, whose widest is
+// W = max_live.  `scratch` is needed where cluster_shape puts the rows in
+// global scratch.
 int pairhmm_fwd_wide_launch(const void* q, const void* t_shift,
                             const void* m_len, const void* n_len,
                             const void* lo, const void* em, int P, int M,
-                            int B, float d, float e, float tMM, float omE,
-                            void* scratch, void* fM, void* lsF, void* logZ,
-                            void* stream) {
+                            int B, int W, int max_ctas, float d, float e,
+                            float tMM, float omE, void* scratch, void* fM,
+                            void* lsF, void* logZ, void* stream) {
   if (P <= 0) return 0;
-  if (B < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
-  pairhmm_fwd_wide_kernel<<<P, kWideThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t_shift),
-      static_cast<const int*>(m_len), static_cast<const int*>(n_len),
-      static_cast<const int*>(lo), static_cast<const float*>(em), M, B, d, e,
-      tMM, omE, static_cast<float*>(scratch), static_cast<float*>(fM),
-      static_cast<float*>(lsF), static_cast<float*>(logZ));
-  return (int)cudaGetLastError();
+  if (W < 1 || W > B) return (int)cudaErrorInvalidValue;
+  const ClusterShape sh = cluster_shape(W, max_ctas);
+  if (!sh.smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qq = static_cast<const uint8_t*>(q);
+  const auto* tt = static_cast<const uint8_t*>(t_shift);
+  const auto* mm = static_cast<const int*>(m_len);
+  const auto* nn = static_cast<const int*>(n_len);
+  const auto* ll = static_cast<const int*>(lo);
+  const auto* ee = static_cast<const float*>(em);
+  auto* sc = static_cast<float*>(scratch);
+  auto* f = static_cast<float*>(fM);
+  auto* l = static_cast<float*>(lsF);
+  auto* z = static_cast<float*>(logZ);
+  if (sh.smem) {
+    // the dynamic rows and the static ClusterSmem pass 48 KB together
+    // before the rows alone do: allow every size
+    const size_t smem = (size_t)kClusterFwdSmemRows *
+                        row_words(sh.threads * sh.cells) * 4;
+    if (sh.threads <= kClusterSmallThreads) {
+      static size_t allowed = 0;
+      return (int)launch_cluster(
+          pairhmm_fwd_cluster_kernel<kClusterCells, true,
+                                     kClusterSmallThreads>,
+          sh, P, smem, &allowed, st, qq, tt, mm, nn, ll, ee, M, B, d, e, tMM,
+          omE, sh.cells, sc, f, l, z);
+    }
+    static size_t allowed = 0;
+    return (int)launch_cluster(
+        pairhmm_fwd_cluster_kernel<kClusterCells, true, kClusterSmemThreads>,
+        sh, P, smem, &allowed, st, qq, tt, mm, nn, ll, ee, M, B, d, e, tMM,
+        omE, sh.cells, sc, f, l, z);
+  }
+  static size_t allowed = 48 * 1024;
+  return (int)launch_cluster(
+      pairhmm_fwd_cluster_kernel<kClusterCells, false, kClusterThreads>, sh,
+      P, 0, &allowed, st, qq, tt, mm, nn, ll, ee, M, B, d, e, tMM, omE,
+      sh.cells, sc, f, l, z);
 }
 
 int pairhmm_bwd_wide_launch(const void* fM, const void* lsF,
                             const void* logZ, const void* q,
                             const void* t_shift, const void* m_len,
                             const void* n_len, const void* lo,
-                            const void* em, int P, int M, int B, float d,
-                            float e, float tMM, float omE, void* scratch,
-                            void* post, void* stream) {
+                            const void* em, int P, int M, int B, int W,
+                            int max_ctas, float d, float e, float tMM,
+                            float omE, void* scratch, void* post,
+                            void* stream) {
   if (P <= 0) return 0;
-  if (B < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
-  pairhmm_bwd_wide_kernel<<<P, kWideThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(fM), static_cast<const float*>(lsF),
-      static_cast<const float*>(logZ), static_cast<const uint8_t*>(q),
-      static_cast<const uint8_t*>(t_shift), static_cast<const int*>(m_len),
-      static_cast<const int*>(n_len), static_cast<const int*>(lo),
-      static_cast<const float*>(em), M, B, d, e, tMM, omE,
-      static_cast<float*>(scratch), static_cast<float*>(post));
-  return (int)cudaGetLastError();
+  if (W < 1 || W > B) return (int)cudaErrorInvalidValue;
+  const ClusterShape sh = cluster_shape(W, max_ctas);
+  if (!sh.smem && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const float*>(fM);
+  const auto* l = static_cast<const float*>(lsF);
+  const auto* z = static_cast<const float*>(logZ);
+  const auto* qq = static_cast<const uint8_t*>(q);
+  const auto* tt = static_cast<const uint8_t*>(t_shift);
+  const auto* mm = static_cast<const int*>(m_len);
+  const auto* nn = static_cast<const int*>(n_len);
+  const auto* ll = static_cast<const int*>(lo);
+  const auto* ee = static_cast<const float*>(em);
+  auto* sc = static_cast<float*>(scratch);
+  auto* out = static_cast<float*>(post);
+  if (sh.smem) {
+    const size_t smem = (size_t)kClusterBwdSmemRows *
+                        row_words(sh.threads * sh.cells) * 4;
+    if (sh.threads <= kClusterSmallThreads) {
+      static size_t allowed = 0;
+      return (int)launch_cluster(
+          pairhmm_bwd_cluster_kernel<kClusterCells, true,
+                                     kClusterSmallThreads>,
+          sh, P, smem, &allowed, st, f, l, z, qq, tt, mm, nn, ll, ee, M, B,
+          d, e, tMM, omE, sh.cells, sc, out);
+    }
+    static size_t allowed = 0;
+    return (int)launch_cluster(
+        pairhmm_bwd_cluster_kernel<kClusterCells, true, kClusterSmemThreads>,
+        sh, P, smem, &allowed, st, f, l, z, qq, tt, mm, nn, ll, ee, M, B, d,
+        e, tMM, omE, sh.cells, sc, out);
+  }
+  static size_t allowed = 48 * 1024;
+  return (int)launch_cluster(
+      pairhmm_bwd_cluster_kernel<kClusterCells, false, kClusterThreads>, sh,
+      P, 0, &allowed, st, f, l, z, qq, tt, mm, nn, ll, ee, M, B, d, e, tMM,
+      omE, sh.cells, sc, out);
 }
 
 }  // extern "C"

@@ -129,7 +129,8 @@
 
 #include <cmath>
 #include <cstdint>
-#include <mutex>
+
+#include "cluster.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -272,24 +273,6 @@ struct Slots {
   float max[2][kW];    // each warp's row maximum
   float edge[2][kW][6];
 };
-
-// window cell k -> word of a state row: one pad word every 32 cells
-__device__ __forceinline__ int pix(int k) { return k + (k >> 5); }
-
-__host__ __device__ inline int row_words(int cells) {
-  return cells + (cells >> 5) + 1;
-}
-
-// the live window of row i: first column jlo and width (0: none)
-struct Window {
-  int jlo, wd;
-};
-
-__device__ __forceinline__ Window window(int i, int n, int lo, int B) {
-  const int jlo = max(0, i + lo);
-  const int jhi = min(n, i + lo + B - 1);
-  return Window{jlo, max(0, jhi - jlo + 1)};
-}
 
 // Zeros over `cells` floats from base, coalesced: thread `first` of
 // `step` threads.
@@ -1114,29 +1097,6 @@ struct ClusterSmem {
   float end;
 };
 
-// A lane's window cells of the row being computed: in registers (C of
-// them), or, for the global-scratch instance, in the pair's scratch at
-// cell c of lane L -> c * lanes + L.
-template <int C, bool kReg>
-struct Cells {
-  float v[C];
-  __device__ __forceinline__ float& operator[](int c) { return v[c]; }
-  __device__ __forceinline__ void bind(float*, int) {}
-};
-
-template <int C>
-struct Cells<C, false> {
-  float* p;
-  int stride;
-  __device__ __forceinline__ float& operator[](int c) {
-    return p[(size_t)c * stride];
-  }
-  __device__ __forceinline__ void bind(float* base, int s) {
-    p = base;
-    stride = s;
-  }
-};
-
 // Warp 0, after the block barrier: composes the CTA's warps' maps (fwd:
 // each warp's tot2 from the left; bwd: each warp's tot from the right)
 // into each warp's exclusive map s.pre[w] and its near map s.near[w], and
@@ -1853,17 +1813,6 @@ bool state_in_smem(int W) {
   return threads * C <= kSmemMaxCells;
 }
 
-// Above 48 KB a kernel's dynamic shared memory must be allowed first: once
-// per kernel and size, not every launch.
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem, size_t* allowed) {
-  if (smem <= *allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) *allowed = smem;
-  return err;
-}
-
 struct Args {
   const uint8_t* q;
   const uint8_t* t;
@@ -1915,10 +1864,6 @@ cudaError_t bwd_launch(const Args& a, int threads, const float* fM,
 // cover (kClusterMax x kMaxWarps warps of kClusterCells cells, 131,072)
 // kClusterMax CTAs of kClusterThreads threads with ceil(W / 16384) cells a
 // lane, the rows in global scratch.
-struct ClusterShape {
-  int ctas, threads, cells, smem;
-};
-
 ClusterShape cluster_shape(int W) {
   const long long per_warp = 32 * kClusterCells;
   const long long warps = (W + per_warp - 1) / per_warp;
@@ -1930,68 +1875,6 @@ ClusterShape cluster_shape(int W) {
   const long long lanes = (long long)kClusterMax * kClusterThreads;
   return ClusterShape{kClusterMax, kClusterThreads,
                       (int)((W + lanes - 1) / lanes), 0};
-}
-
-// Whether the card schedules a cluster of this shape, asked once per
-// kernel and shape (cudaOccupancyMaxActiveClusters).
-cudaError_t cluster_fits(const void* kernel, const cudaLaunchConfig_t& cfg) {
-  struct Seen {
-    const void* kernel;
-    unsigned ctas, threads;
-    size_t smem;
-    int clusters;
-  };
-  static std::mutex mu;
-  static Seen seen[64];
-  static int n_seen = 0;
-  const unsigned ctas = cfg.attrs[0].val.clusterDim.x;
-  std::lock_guard<std::mutex> lock(mu);
-  for (int k = 0; k < n_seen; ++k) {
-    const Seen& s = seen[k];
-    if (s.kernel == kernel && s.ctas == ctas && s.threads == cfg.blockDim.x &&
-        s.smem == cfg.dynamicSmemBytes)
-      return s.clusters > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
-  }
-  int clusters = 0;
-  const cudaError_t err =
-      cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-  if (err != cudaSuccess) return err;
-  if (n_seen < 64)
-    seen[n_seen++] = Seen{kernel, ctas, cfg.blockDim.x, cfg.dynamicSmemBytes,
-                          clusters};
-  return clusters > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
-}
-
-// P clusters of sh.ctas CTAs (one a pair) on `stream`; an error where the
-// card cannot schedule the cluster.
-template <typename... Params, typename... Actual>
-cudaError_t launch_cluster(void (*kernel)(Params...), const ClusterShape& sh,
-                           int P, size_t smem, size_t* allowed,
-                           cudaStream_t stream, Actual... args) {
-  cudaError_t err = allow_smem(kernel, smem, allowed);
-  if (err != cudaSuccess) return err;
-  if (sh.ctas > 8) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = sh.ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)P * sh.ctas);
-  cfg.blockDim = dim3(sh.threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cluster_fits(reinterpret_cast<const void*>(kernel), cfg);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 // The instance of FN<C, bound, smem> for max_live W: one warp of 4 cells

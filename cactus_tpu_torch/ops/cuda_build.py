@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with nvcc for sm_90a into its own
 shared library with a plain C interface,
-``_build/lib<name>_<hash>.so`` (the hash covers the source and the
-flags, so an edited source rebuilds), and is loaded with ctypes.  Nothing
+``_build/lib<name>_<hash>.so`` (the hash covers the source, the
+csrc/*.cuh headers and the flags, so an edited source or header
+rebuilds), and is loaded with ctypes.  Nothing
 here runs at import: the CPU tests import every module, and a CPU-only
 host has no nvcc.  `build()` starts one nvcc per source, all at once, so
 a cold build costs the slowest file, not the sum.
@@ -12,6 +13,7 @@ a cold build costs the slowest file, not the sum.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -60,10 +62,17 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str, list[str]]:
+    """The source, the library it builds into and nvcc's flags.  The
+    library's name hashes the source, every csrc/*.cuh header (which a
+    source may include) and the flags, so editing any of them rebuilds."""
     src = os.path.join(CSRC, f"{name}.cu")
     flags = [*NVCC_FLAGS, *EXTRA_FLAGS.get(name, ())]
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(flags).encode())
+    digest = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as fh:
+            digest.update(os.path.basename(path).encode() + b"\0"
+                          + fh.read())
+    digest.update(" ".join(flags).encode())
     so = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
     return src, so, flags
 

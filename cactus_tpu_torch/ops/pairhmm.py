@@ -254,15 +254,20 @@ def backward_posterior(fM_rows, lsF_rows, logZ, q, t_shift, m_len, n_len,
 
 
 def posterior_banded_batch(q, t_shift, m_len, n_len, lo, em, band: int,
-                           delta: float, epsilon: float):
+                           delta: float, epsilon: float,
+                           max_live: int | None = None):
     """Match posteriors over the band for a batch of pairs, post (P, Mmax,
     B) float32: posterior that q[i-1] aligns to t[j-1] (band cell (i, b),
     j = i + lo + b); rows beyond each pair's m_len are zero.
 
     Runs the CUDA kernels for CUDA tensors and the plain PyTorch versions
-    for CPU tensors (ops/pairhmm_cuda.py)."""
+    for CPU tensors (ops/pairhmm_cuda.py).  max_live bounds every row's
+    live width min(band, n + 1) (default: the band); the wide route sizes
+    its clusters by it, and a value below a pair's width raises."""
     from .pairhmm_cuda import pairhmm_bwd, pairhmm_fwd
     kw = dict(band=band, delta=delta, epsilon=epsilon)
+    if max_live is not None:
+        kw["max_live"] = max_live
     fM, lsF, logZ = pairhmm_fwd(q, t_shift, m_len, n_len, lo, em, **kw)
     return pairhmm_bwd(fM, lsF, logZ, q, t_shift, m_len, n_len, lo, em, **kw)
 
@@ -345,15 +350,20 @@ def posterior_pairs_banded(pairs, params: HmmParams, band: int = 128,
     depend on the rest of its batch."""
     if not pairs:
         return []
+    from .pairhmm_cuda import pairhmm_route
     dev = resolve_device(device)
     em = torch.from_numpy(params.emissions()).to(dev)
 
     def run(chunk):
         packed, t = pack_to_device(chunk, band, dev, min_batch=min_batch,
                                    min_rows=min_rows_bin)
+        # the wide route's widest live row, from the host lengths (the
+        # narrow kernels take the band whole and need none)
+        live = (max(min(band, len(tt) + 1) for _q, tt in chunk)
+                if pairhmm_route(band) == "wide" else None)
         return banded_hits(
             posterior_banded_batch(*t, em, band=band, delta=params.delta,
-                                   epsilon=params.epsilon),
+                                   epsilon=params.epsilon, max_live=live),
             chunk, packed["lo"], gamma)
 
     return dispatch_by_length(pairs, band, run, min_rows=min_rows_bin,

@@ -6,6 +6,12 @@
 
 Run from the root of a checkout on a machine with one CUDA GPU and the
 CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
+The build (1) and the phases whose readings the kernels line times (3,
+4, 7 and 8) run first, one after the other, with the card to
+themselves; then the others (2, 5, 6, 9, 10 and 11) run in child processes of this script
+(`--phases`, CHILD_GROUPS), all at once, each group in order, and their
+logs follow in that order.  The kernels line's max_abs_err also takes
+the children's gaps.
 
 1. Prints the card's name and power limit (nvidia-smi), builds every
    CUDA kernel of the port from cactus_tpu_torch/csrc/ (one nvcc per
@@ -111,12 +117,18 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    pairhmm_fwd_wide / pairhmm_bwd_wide, pairhmm5_fwd_wide /
    pairhmm5_bwd_wide: one thread-block cluster a pair), the POA
    alignments must equal the CPU run's and the hits the plain
-   posterior's.  Then it holds each wide kernel against its plain
-   version at those shapes (POA bit-equal on the live cells, pair-HMMs
-   by step 2's tolerances) and times it beside the bound for the same
-   work; the 5-state lines also name each call's cluster, time the
-   global-scratch call and give a latency line (the longest pair's rows
-   x the dependent steps of a cluster row, `hmm5_cluster_row_steps`).
+   posterior's.  The pair-HMMs' long pairs run under gaps that keep
+   their paths in float32's range (WIDE_HMM_GAPS, WIDE_HMM5_GAPS), and
+   each must have hits in both runs (the 3-state one also a plain
+   posterior above 0.5 and plain forward values above 1e-30 at 90% of
+   its live window's positions or more, `window_span_share`), so that
+   the checks see them and not zeros.  Then it holds each wide kernel
+   against its plain version at those shapes (POA bit-equal on the live
+   cells, pair-HMMs by step 2's tolerances) and times it beside the
+   bound for the same work; the pair-HMM lines also name each call's
+   cluster and give a latency line (the longest pair's rows x the
+   dependent steps of a cluster row, `hmm_cluster_row_steps`), and the
+   5-state ones time the global-scratch call.
 9. Runs the pangenome builder (cactus_tpu_torch.pangenome) on 4
    haplotypes of PAN_NEWICK, seed 23, in process, each run with the
    launch counts set to 0 just before it and read just after:
@@ -190,7 +202,8 @@ CUDA toolkit.  It imports nothing of JAX or of the cactus_tpu package.
    UPD_REF; phylo_p's LRT, --subtree LRT, SCORE and ratio scores on the
    card held to the CPU's within PHAST_TOL (every
    CONSERVATION_CPU_STRIDE-th block); it logs the Felsenstein pass's time
-   on the LRT grid by CUDA events and its device peak.  Then two ranks
+   on the LRT grid by CUDA events and its device peak.  In a child of
+   its own, on inputs of its own: two ranks
    sharing cuda:0 in a gloo group (`RANK_WORKER` subprocesses) run
    ProgressiveAligner(n_devices=2) on the five genomes at blast.chunk_size
    UPD_CHUNK (every ancestor at least 8 chunk pairs) beside the
@@ -300,6 +313,14 @@ INT32_OPS_PER_S = 16.7e12
 # assumption, not measured here) before the next address is known; the
 # pair-HMM's latency line counts a warp shuffle at the same latency
 SMEM_STEP_CYCLES = 30
+# the untimed phases (child_phases()), a child process a group, all
+# groups at once once the timed ones are done: run one after the other
+# they took 659 s of a 951 s script on an H100 80GB HBM3 at 700 W, most
+# of it host work on one core each; the children must end within
+# CHILD_DEADLINE_S of the build's start (the script's limit is 1200 s)
+CHILD_GROUPS = (("store",), ("kernels", "poa_kernels", "cli"),
+                ("pangenome", "pipeline"), ("parallel",))
+CHILD_DEADLINE_S = 1140.0
 
 
 def log(msg: str) -> None:
@@ -602,38 +623,50 @@ def check_banded(pairs, band, sub_d, dev, errs, what):
 
 
 def check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, post_r, what,
-              quiet=False, hold_forward=True):
+              quiet=False, hold_forward=True, logZ_64=None):
     """A pair-HMM's kernels' outputs against the plain versions': every
     value finite, the posterior within HMM_ATOL, logZ within
     LOGZ_RTOL x max(1, |logZ|), and the forward values in log space,
     log(fM) + lsF, within FWD_LOG_ATOL on the cells where the plain fM is
     above 1e-30 (the value fM * exp(lsF) that both representations hold,
     whichever way a row's scale is rounded; hold_forward=False reads
-    that gap without holding it).  Returns (posterior gap, forward log
-    gap); raises on a failed check."""
+    that gap without holding it).  With logZ_64, the plain steps' logZ in
+    float64, logZ is held to it instead: no farther from it than the
+    plain float32 logZ, LOGZ_RTOL aside (past a gap of tens of thousands
+    of bases float32 sums in any order miss float64's logZ by more than
+    LOGZ_RTOL).  Returns (posterior gap, forward log gap); raises on a
+    failed check."""
     import torch
     for name, x in (("fM", fM), ("lsF", lsF), ("logZ", logZ),
                     ("posterior", post)):
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"{what}: non-finite {name}")
     d_post = float((post - post_r).abs().max())
-    d_z = float(((logZ - logZ_r).abs()
-                 / logZ_r.abs().clamp_min(1.0)).max())
+    if logZ_64 is None:
+        d_z = float(((logZ - logZ_r).abs()
+                     / logZ_r.abs().clamp_min(1.0)).max())
+        z_what = "logZ max rel diff"
+    else:
+        z64 = logZ_64.double()
+        d_z = float((((logZ.double() - z64).abs()
+                      - (logZ_r.double() - z64).abs())
+                     / z64.abs().clamp_min(1.0)).max())
+        z_what = ("logZ's distance to float64 past the plain version's, "
+                  "relative")
     live = fM_r > 1e-30
     d_fwd = float(((torch.log(fM) + lsF[..., None])
                    - (torch.log(fM_r) + lsF_r[..., None]))[live].abs()
                   .max()) if bool(live.any()) else 0.0
     if not quiet:
         log(f"{what}: posterior max|diff| {d_post:.3g} (tolerance "
-            f"{HMM_ATOL}), logZ max rel diff {d_z:.3g} (tolerance "
-            f"{LOGZ_RTOL}), log(fM) + lsF max|diff| {d_fwd:.3g} (tolerance "
+            f"{HMM_ATOL}), {z_what} {d_z:.3g} (tolerance {LOGZ_RTOL}), "
+            f"log(fM) + lsF max|diff| {d_fwd:.3g} (tolerance "
             f"{FWD_LOG_ATOL}, on plain fM > 1e-30)")
     if d_post > HMM_ATOL:
         raise AssertionError(f"{what}: posterior differs by {d_post} > "
                              f"{HMM_ATOL}")
     if d_z > LOGZ_RTOL:
-        raise AssertionError(f"{what}: logZ differs by {d_z} relative > "
-                             f"{LOGZ_RTOL}")
+        raise AssertionError(f"{what}: {z_what} {d_z} > {LOGZ_RTOL}")
     if hold_forward and d_fwd > FWD_LOG_ATOL:
         raise AssertionError(f"{what}: log(fM) + lsF differs by {d_fwd} > "
                              f"{FWD_LOG_ATOL}")
@@ -1988,6 +2021,14 @@ WIDE_HMM5_GLOBAL_BAND = 262144
 # 0.99995 float32 sums over the 140,000-base gap miss float64's logZ by
 # 1e-5 relative in either order, LOGZ_RTOL itself)
 WIDE_HMM5_GAPS = dict(extend_long=0.9999, switch_sl=1e-5, switch_ls=1e-5)
+# the long 3-state pair's gap regime (HmmParams fields): a gap that extends
+# at 0.999 a base, so that the copy's path through the 20,000-base target
+# stays in float32's normal range in both passes and the long pair's
+# posterior reaches 1; at the default 0.79 a 10,000-base gap costs
+# 0.79^10000, the long pair's posterior is 0 in the plain version and the
+# kernels alike, and its plain fM passes 1e-30 on about 1,000 of a row's
+# 32,768 band cells only, so the checks would compare zeros past them
+WIDE_HMM_GAPS = dict(epsilon=0.999)
 WIDE_KERNELS = ("poa_wide", "poa_linear_wide", "pairhmm_fwd_wide",
                 "pairhmm_bwd_wide", "pairhmm5_fwd_wide", "pairhmm5_bwd_wide")
 
@@ -2023,24 +2064,71 @@ def hits_agree(got, ref, what):
     return share
 
 
-def cluster_line(max_live) -> str:
-    """The cluster a 5-state wide launch takes for max_live."""
-    from cactus_tpu_torch.ops import pairhmm5_cuda
-    sh = pairhmm5_cuda.cluster_shape(max_live)
+def cluster_shape_of(model, max_live) -> dict:
+    """The cluster a wide pair-HMM launch ("pairhmm" or "pairhmm5") takes
+    for max_live."""
+    from cactus_tpu_torch.ops import pairhmm5_cuda, pairhmm_cuda
+    wrapper = pairhmm5_cuda if model == "pairhmm5" else pairhmm_cuda
+    return wrapper.cluster_shape(max_live)
+
+
+def cluster_line(max_live, model="pairhmm5") -> str:
+    """The cluster a wide pair-HMM launch takes for max_live."""
+    sh = cluster_shape_of(model, max_live)
     return (f"cluster of {sh['ctas']} CTAs x {sh['threads']} threads x "
             f"{sh['cells']} cells a lane, state rows in "
             + ("shared memory" if sh["smem"] else "global scratch"))
 
 
-def hmm5_cluster_row_steps(max_live) -> int:
-    """The dependent steps of a 5-state row on the cluster kernels, one
-    warp-shuffle latency each: the lanes' affine scan (5 levels and the
-    exclusive shift), warp 0's scan of the warps' maps (6), its walk over
-    the CTAs before (after) it (ctas - 1), the row maximum over a warp
-    and over the CTAs (5 + 5), the neighbour lane's cell (1) and the two
-    block barriers and the cluster barrier (3)."""
-    from cactus_tpu_torch.ops import pairhmm5_cuda
-    return 25 + pairhmm5_cuda.cluster_shape(max_live)["ctas"]
+def hmm_cluster_row_steps(model, max_live) -> int:
+    """The dependent steps of a row on a pair-HMM's cluster kernels, one
+    warp-shuffle latency each.  5-state: the lanes' affine scan (5
+    levels and the exclusive shift), warp 0's scan of the warps' maps
+    (6), its walk over the CTAs before (after) it (ctas - 1), the row
+    maximum over a warp and over the CTAs (5 + 5), the neighbour lane's
+    cell (1) and the two block barriers and the cluster barrier (3).
+    3-state: the lanes' chain scan (5 and the shift), warp 0's fold of
+    the CTA's nw warp totals (nw), each thread's fold of the totals of
+    the CTAs and warps before (after) it (ctas - 1 + nw - 1), and the
+    block barrier and the cluster barrier (2); its row maxima wait for
+    the step's end, off the chain."""
+    sh = cluster_shape_of(model, max_live)
+    if model == "pairhmm5":
+        return 25 + sh["ctas"]
+    return 6 + 2 * (sh["threads"] // 32) + sh["ctas"]
+
+
+def window_span_share(fM_r, live) -> float:
+    """The share of a pair's window positions (cell k = j - jlo(i) of a
+    row's live window, `live` the pair's (M, B) mask) at which its plain
+    fM passes 1e-30 in some row: how much of the window, and so of the
+    cluster's CTAs, a forward check on those cells reaches."""
+    import torch
+    on = (fM_r > 1e-30) & live
+    b = torch.arange(live.shape[1], device=live.device)
+    first = torch.where(live, b, live.shape[1]).amin(1, keepdim=True)
+    k = (b[None, :] - first)[on]
+    width = int(live.sum(1).max())
+    return torch.unique(k).numel() / max(1, width)
+
+
+def long_pair_seen(what, hits, ref_hits, post_r, fM_r, live) -> float:
+    """A wide-route check must see its long pair, not zeros: hits in the
+    kernels' run and in the plain one, the plain posterior's maximum
+    above 0.5 and plain fM above 1e-30 at 90% of the positions of the
+    pair's live window or more (`window_span_share`).  Logs and returns
+    that share."""
+    share = window_span_share(fM_r, live)
+    top = float(post_r.max())
+    log(f"{what}: {len(hits)} hits, the plain posterior {len(ref_hits)} "
+        f"(its maximum {top:.4f}); plain fM above 1e-30 at "
+        f"{share:.4f} of the live window's positions")
+    if not (hits and ref_hits) or top <= 0.5 or share < 0.9:
+        raise AssertionError(f"{what}: the check does not see the long pair "
+                             f"({len(hits)} / {len(ref_hits)} hits, plain "
+                             f"posterior maximum {top}, window share "
+                             f"{share:.4f})")
+    return share
 
 
 def wide_hmm5_global(call, timed):
@@ -2111,7 +2199,7 @@ def phase_wide(dev, errs):
     pairs5g = [embedded_pair(rng, WIDE_HMM5_GLOBAL_QUERY,
                              WIDE_HMM5_GLOBAL_TARGET, WIDE_HMM5_AT)]
     pairs5g += ragged_pairs(7, 1, 40, 64, WIDE_HMM5_GLOBAL_BAND)
-    hp = tp.HmmParams()
+    hp = tp.HmmParams(**WIDE_HMM_GAPS)
     hp5 = tp5.Hmm5Params(p_match=0.8, **WIDE_HMM5_GAPS)
 
     def grid_cells(a, k):
@@ -2167,12 +2255,6 @@ def phase_wide(dev, errs):
         packed, t = tp.pack_to_device(pairs, band, dev, **pack_kw)
         return tp.banded_hits(plain(t), pairs, packed["lo"], 0.5)
 
-    def plain3(t):
-        kw = dict(band=WIDE_HMM_BAND, delta=hp.delta, epsilon=hp.epsilon)
-        em = torch.from_numpy(hp.emissions()).to(dev)
-        return tp.backward_posterior(*tp.forward_banded(*t, em, **kw), *t,
-                                     em, **kw)
-
     def plain5(band):
         def run(t):
             kw = dict(band=band, params=hp5)
@@ -2181,9 +2263,20 @@ def phase_wide(dev, errs):
                 *tp5.forward_banded5(*t, em, **kw), *t, em, **kw)
         return run
 
-    hits_agree(hits3, plain_hits(pairs3, WIDE_HMM_BAND, plain3,
-                                 dict(min_batch=8, min_rows=256)),
-               f"posterior_pairs_banded at band {WIDE_HMM_BAND}")
+    # the 3-state pairs' plain versions, batched as the path batches them
+    packed3, t3 = tp.pack_to_device(pairs3, WIDE_HMM_BAND, dev, min_batch=8,
+                                    min_rows=256)
+    kw3 = dict(band=WIDE_HMM_BAND, delta=hp.delta, epsilon=hp.epsilon)
+    em3 = torch.from_numpy(hp.emissions()).to(dev)
+    fwd3 = tp.forward_banded(*t3, em3, **kw3)
+    post3 = tp.backward_posterior(*fwd3, *t3, em3, **kw3)
+    ref3 = tp.banded_hits(post3, pairs3, packed3["lo"], 0.5)
+    hits_agree(hits3, ref3, f"posterior_pairs_banded at band {WIDE_HMM_BAND}")
+    live3 = banded_cuda.live_mask(*t3[2:5], t3[0].shape[1], WIDE_HMM_BAND)
+    long_pair_seen(f"phase 8: the {WIDE_HMM_TARGET}-base 3-state pair at "
+                   f"band {WIDE_HMM_BAND}", hits3[0], ref3[0], post3[0],
+                   fwd3[0][0], live3[0])
+    del fwd3, post3, live3
     for hits, pairs, band in ((hits5, pairs5, WIDE_HMM5_BAND),
                               (hits5g, pairs5g, WIDE_HMM5_GLOBAL_BAND)):
         ref = plain_hits(pairs, band, plain5(band), {})
@@ -2293,7 +2386,8 @@ def phase_wide(dev, errs):
     for model, route_of, bwd, timed, pf, pb, flops, lines in (
             ("pairhmm", lambda k: pairhmm_cuda.pairhmm_route(k["band"]),
              pairhmm_cuda.pairhmm_bwd,
-             (pairhmm_cuda.pairhmm_fwd, pairhmm_cuda.pairhmm_bwd),
+             (pairhmm_cuda.launch_pairhmm_fwd,
+              pairhmm_cuda.launch_pairhmm_bwd),
              tp.forward_banded,
              tp.backward_posterior,
              (pairhmm_cuda.PAIRHMM_FWD_FLOPS_PER_CELL,
@@ -2326,8 +2420,8 @@ def phase_wide(dev, errs):
                 b=pb(*plain["f"], *args, **pkw)), 1, warmup=False)
             what = f"band {kw['band']}" + (
                 f", max_live {kw['max_live']}" if "max_live" in kw else "")
-            if model == "pairhmm5" and route == "wide":
-                what += ", " + cluster_line(kw["max_live"])
+            if route == "wide":
+                what += ", " + cluster_line(kw["max_live"], model)
             d_post, d_fwd = check_hmm(
                 fM, lsF, logZ, post, *plain["f"], plain["b"],
                 f"phase 8: {model} path call at {[P, M, kw['band']]} "
@@ -2361,9 +2455,9 @@ def phase_wide(dev, errs):
         longest = int(m.max())
         if model == "pairhmm5":
             wide_hmm5_global(scratch_call, timed)
-            step_ns, step_what = smem_step_ns()
-            steps_row = hmm5_cluster_row_steps(kw["max_live"])
-            latency_ms = longest * steps_row * step_ns / 1e6
+        step_ns, step_what = smem_step_ns()
+        steps_row = hmm_cluster_row_steps(model, kw["max_live"])
+        latency_ms = longest * steps_row * step_ns / 1e6
         fM, lsF, logZ = fwd(*args, **kw)
         for k, (name, fn, plain_ms, bytes_) in enumerate((
                 (f"{model}_fwd_wide", lambda: timed[0](*args, **kw),
@@ -2380,11 +2474,10 @@ def phase_wide(dev, errs):
             log(f"{name} at {[P, M, band]}: {ms * 1e3 / longest:.2f} us a "
                 f"row of the longest pair ({longest} rows); {live} live "
                 f"cells of {rows_ * band} band cells in rows 1..m")
-            if model == "pairhmm5":
-                log(f"{name}: {cluster_line(kw['max_live'])}; latency line "
-                    f"{longest} x {steps_row} steps x {step_ns:.2f} ns = "
-                    f"{latency_ms:.4f} ms ({step_what}), "
-                    f"{ms / latency_ms:.2f}x")
+            log(f"{name}: {cluster_line(kw['max_live'], model)}; latency "
+                f"line {longest} x {steps_row} steps x {step_ns:.2f} ns = "
+                f"{latency_ms:.4f} ms ({step_what}), "
+                f"{ms / latency_ms:.2f}x")
         del fM, lsF, logZ
     log("no single PyTorch call computes these DPs: library_ms is null")
     return rows
@@ -3969,35 +4062,52 @@ def phase_parallel(dev, inputs, work):
     return bad
 
 
-def phase_store(dev):
-    """The store, its updates, conservation and the multi-device runtime
-    through the port on the card (the module docstring's phase 11)."""
+def store_work(dev, what, steps):
+    """Runs `steps(inputs, work)` on phase 11's inputs in a work directory
+    of their own (removed after) and raises with what it returned."""
     from cactus_tpu_torch.testutil import evolver
     from cactus_tpu_torch.utils.trees import parse_newick
     work = tempfile.mkdtemp(prefix="smoke_store_",
                             dir=os.path.join(HERE, "cactus_tpu_torch",
                                              "_build"))
     try:
-        inputs = update_inputs(work, evolver, parse_newick)
+        bad = steps(update_inputs(work, evolver, parse_newick), work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"phase 11 ({what}): launches missing or "
+                             "outputs different from the JAX package's "
+                             "pinned CPU output or the port's CPU run:\n  "
+                             + "\n  ".join(bad))
+
+
+def phase_store(dev):
+    """The store, its updates and conservation through the port on the
+    card (the module docstring's phase 11, steps 1 and 2)."""
+    def steps(inputs, work):
         t0 = time.time()
         bad = phase_update(dev, inputs)
         t1 = time.time()
         if not any("exited" in b for b in bad):
             bad += phase_conservation(dev, inputs["store"], work)
-        t2 = time.time()
-        bad += phase_parallel(dev, inputs, work)
         log(f"phase 11 walls: store and updates {t1 - t0:.1f} s, "
-            f"conservation {t2 - t1:.1f} s, parallel {time.time() - t2:.1f} s")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    if bad:
-        raise AssertionError("phase 11: launches missing or outputs "
-                             "different from the JAX package's pinned CPU "
-                             "output or the port's CPU run:\n  "
-                             + "\n  ".join(bad))
+            f"conservation {time.time() - t1:.1f} s")
+        return bad
+
+    store_work(dev, "store", steps)
     log("phase 11: the store and every update equal the JAX package's CPU "
         "output (store, MAF, HAL); conservation within the CPU run's "
-        "tolerances; both ranks' MAFs equal the one-process MAF")
+        "tolerances")
+
+
+def phase_store_parallel(dev):
+    """The multi-device runtime through the port on the card (the module
+    docstring's phase 11, step 3), on inputs of its own."""
+    t0 = time.time()
+    store_work(dev, "parallel", lambda inputs, work:
+               phase_parallel(dev, inputs, work))
+    log(f"phase 11 parallel: both ranks' MAFs equal the one-process MAF, "
+        f"{time.time() - t0:.1f} s")
 
 
 def dump_banded(recorder, path):
@@ -4111,6 +4221,93 @@ def phase_cli():
         shutil.rmtree(work, ignore_errors=True)
 
 
+def child_phases() -> dict:
+    """{name: (label, fn(dev, errs))} of the phases whose numbers the
+    kernels line does not time: they run in child processes (`--phases`)
+    once the timed phases are done."""
+    return {
+        "kernels": ("phase 2 (kernels vs plain versions)",
+                    phase_kernels_vs_plain),
+        "cli": ("phase 5 (CLI)", lambda dev, errs: phase_cli()),
+        "poa_kernels": ("phase 6 (POA kernels vs plain versions)",
+                        phase_poa_kernels_vs_plain),
+        "pangenome": ("phase 9 (the pangenome builder)",
+                      lambda dev, errs: phase_pangenome(dev)),
+        "pipeline": ("phase 10 (the step-by-step pipeline)",
+                     lambda dev, errs: phase_pipeline(dev)),
+        "store": ("phase 11 (update, conservation)",
+                  lambda dev, errs: phase_store(dev)),
+        "parallel": ("phase 11 (parallel)",
+                     lambda dev, errs: phase_store_parallel(dev))}
+
+
+def run_phases(names, errs_out, dev) -> int:
+    """A child's work: the named phases in order, on the kernels the
+    parent built; writes the largest kernel-vs-plain gaps to errs_out."""
+    phase_build()
+    phases = child_phases()
+    errs: dict[str, float] = {}
+    for name in names:
+        label, fn = phases[name]
+        t0 = time.time()
+        fn(dev, errs)
+        log(f"{label} {time.time() - t0:.1f} s")
+    if errs_out:
+        with open(errs_out, "w") as fh:
+            json.dump(errs, fh)
+    return 0
+
+
+def run_children(groups, timeout) -> dict:
+    """One `chip_smoke.py --phases` child a group, all started at once;
+    waits for them, kills every child still running when one fails or
+    `timeout` seconds pass, and relays each child's output in order (its
+    standard output to ours, its errors to ours).  Returns the largest
+    kernel-vs-plain gaps the children saw; raises if one failed."""
+    work = tempfile.mkdtemp(prefix="smoke_children_",
+                            dir=os.path.join(HERE, "cactus_tpu_torch",
+                                             "_build"))
+    kids, failed, errs = [], [], {}
+    try:
+        for i, group in enumerate(groups):
+            out = os.path.join(work, f"{i}")
+            with open(out + ".out", "w") as so, open(out + ".err", "w") as se:
+                kids.append((group, out, subprocess.Popen(
+                    [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                     "--phases", ",".join(group), "--errs-out",
+                     out + ".json"], cwd=HERE, stdout=so, stderr=se)))
+        end = time.time() + timeout
+        running = list(kids)
+        while running and not failed:
+            time.sleep(1)
+            for kid in list(running):
+                if kid[2].poll() is not None:
+                    running.remove(kid)
+                    if kid[2].returncode:
+                        failed.append(f"{','.join(kid[0])} exited "
+                                      f"{kid[2].returncode}")
+            if running and time.time() > end:
+                failed += [f"{','.join(k[0])} outlasted {timeout:.0f} s"
+                           for k in running]
+    finally:
+        for group, out, proc in kids:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            for ext, stream in ((".out", sys.stdout), (".err", sys.stderr)):
+                with open(out + ext) as fh:
+                    stream.write(fh.read())
+                stream.flush()
+            if os.path.exists(out + ".json"):
+                with open(out + ".json") as fh:
+                    for k, v in json.load(fh).items():
+                        errs[k] = max(errs.get(k, 0.0), v)
+        shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise AssertionError("child phases failed: " + "; ".join(failed))
+    return errs
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive cactus_tpu_torch on one "
@@ -4129,6 +4326,13 @@ def main() -> int:
                     help="also save both poa paths' poa_chain and poa_affine "
                     "inputs and poa_msa's poa_linear inputs there "
                     "(tests/poa_sweep_report.py --replay)")
+    ap.add_argument("--phases", help="run only these untimed phases "
+                    "(comma-separated names of child_phases()), on "
+                    "kernels already built: how the script runs them "
+                    "in child processes")
+    ap.add_argument("--errs-out", metavar="PATH",
+                    help="with --phases: write the kernel-vs-plain gaps "
+                    "there")
     opts = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "cactus_tpu_torch")):
         return fail("run from a checkout: cactus_tpu_torch/ is missing")
@@ -4137,6 +4341,8 @@ def main() -> int:
         return fail("no CUDA device (torch.cuda.is_available() is False)")
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
+    if opts.phases:
+        return run_phases(opts.phases.split(","), opts.errs_out, dev)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -4149,9 +4355,6 @@ def main() -> int:
     t_all = time.time()
     phase_build()
     errs: dict[str, float] = {}
-    t0 = time.time()
-    phase_kernels_vs_plain(dev, errs)
-    log(f"phase 2 (kernels vs plain versions) {time.time() - t0:.1f} s")
     t0 = time.time()
     launches, recorders = phase_main_path(dev)
     log(f"phase 3 (default path) {time.time() - t0:.1f} s")
@@ -4171,12 +4374,6 @@ def main() -> int:
     rows += measure_pecan(p_recorders, p_launches, errs, dev)
     log(f"5-state kernel timing {time.time() - t0:.1f} s")
     t0 = time.time()
-    phase_cli()
-    log(f"phase 5 (CLI) {time.time() - t0:.1f} s")
-    t0 = time.time()
-    phase_poa_kernels_vs_plain(dev, errs)
-    log(f"phase 6 (POA kernels vs plain versions) {time.time() - t0:.1f} s")
-    t0 = time.time()
     poa_launches, poa_recorders = phase_poa(dev)
     lin_launches, lin_recorders = phase_poa_linear(dev)
     if opts.dump_poa:
@@ -4189,16 +4386,16 @@ def main() -> int:
     t0 = time.time()
     rows += phase_wide(dev, errs)
     log(f"phase 8 (the wide routes) {time.time() - t0:.1f} s")
+    log(f"timed phases {time.time() - t_all:.1f} s")
     t0 = time.time()
-    phase_pangenome(dev)
-    log(f"phase 9 (the pangenome builder) {time.time() - t0:.1f} s")
-    t0 = time.time()
-    phase_pipeline(dev)
-    log(f"phase 10 (the step-by-step pipeline) {time.time() - t0:.1f} s")
-    t0 = time.time()
-    phase_store(dev)
-    log(f"phase 11 (update, conservation, parallel) {time.time() - t0:.1f} "
-        f"s; total {time.time() - t_all:.1f} s")
+    child_errs = run_children(CHILD_GROUPS, CHILD_DEADLINE_S
+                              - (time.time() - t_all))
+    for row in rows:
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 child_errs.get(row["name"], 0.0))
+    log(f"untimed phases (2, 5, 6, 9, 10, 11) in {len(CHILD_GROUPS)} "
+        f"child processes at once {time.time() - t0:.1f} s; total "
+        f"{time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,6 +26,22 @@ chip_smoke.py --dump-pairhmm FILE` saved, one at a time, and pairhmm_bwd
 on each call's forward outputs, summed by band.  Prints the card's
 name and power limit first.  Needs a CUDA device.
 
+In 3-state mode it also times the wide route (bands past 16384, the
+cluster kernels in a tree that has them), case names starting "wide" or
+"cluster": phase 8's `[1, 512, 32768]` (a 300-base query in the middle
+of a 20,000-base target, max_live 20,001) under chip_smoke's
+WIDE_HMM_GAPS, the same at the default gaps, the same in clusters of at
+most 8 CTAs (`_launch_fwd(max_ctas=8)`, a tree with it), a 64-row query
+in a 100,000-base target at band 131072 (max_live 100,001: global
+scratch), and 300-row queries at max_live 4,096, 8,192 and 16,384 on the
+narrow kernels and on the cluster kernels forced there.  Each of those
+is first held to the plain versions on the card (chip_smoke.check_hmm,
+logZ against the plain steps in float64 for the global case; under the
+gaps also chip_smoke.long_pair_seen; at the default gaps the posterior
+0 wherever the plain one is), so parent and change pass the
+same checks in one call, and each line names the route, the cluster
+(CTAs, threads, cells a lane, shared memory or not) and us_per_row.
+
 With --model 5 it times pairhmm5_fwd and pairhmm5_bwd instead, with
 max_live as posterior_pairs_banded5 passes it where the tree's wrappers
 take one: at four ragged checks (bands 1024, 2048, 4096 and 16384;
@@ -75,6 +91,10 @@ def main() -> int:
                     "--dump-pairhmm (--dump-pairhmm5 with --model 5)")
     ap.add_argument("--model", type=int, choices=(3, 5), default=3,
                     help="3: pairhmm_fwd/bwd, 5: pairhmm5_fwd/bwd")
+    ap.add_argument("--no-check", action="store_true",
+                    help="time the 3-state wide cases without holding them "
+                    "to the plain versions (a copy with a part of a kernel "
+                    "taken out, whose outputs are wrong by construction)")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -137,10 +157,123 @@ def main() -> int:
                 us_per_row=(dev_ms if dev_ms is not None else ms) * 1e3
                 / rows, post_gap=gap)), flush=True)
         del fM, lsF, logZ, post, ref
+    wide3(args, smoke, banded_sweep, dev, rel)
     if args.replay:
         replay(args.replay, pairhmm_cuda, smoke, banded_sweep, dev, rel,
                args.reps)
     return 0
+
+
+# the 3-state wide cases: name, query rows, target bases, copy position,
+# band, gaps ("wide": chip_smoke.WIDE_HMM_GAPS; "default": HmmParams()),
+# routes to time ("wide", "narrow"), the cluster's CTA cap (0: none)
+WIDE3 = (("wide 20001", 300, 20000, 10000, 32768, "wide", ("wide",), 0),
+         ("wide 20001 default gaps", 300, 20000, 10000, 32768, "default",
+          ("wide",), 0),
+         ("wide 20001 ctas 8", 300, 20000, 10000, 32768, "wide", ("wide",),
+          8),
+         ("wide 100001 global", 64, 100000, 50000, 131072, "wide",
+          ("wide",), 0),
+         ("cluster 4096", 300, 4095, 1900, 4096, "wide", ("narrow", "wide"),
+          0),
+         ("cluster 8192", 300, 8191, 4000, 8192, "wide", ("narrow", "wide"),
+          0),
+         ("cluster 16384", 300, 16383, 8000, 16384, "wide",
+          ("narrow", "wide"), 0))
+
+
+def wide3(args, smoke, banded_sweep, dev, rel):
+    """The 3-state wide cases (WIDE3), each held to the plain versions on
+    the card (unless --no-check) and timed on its routes: one JSON line
+    per kernel, case and route."""
+    import numpy as np
+    import torch
+    from cactus_tpu_torch.ops import banded as tb
+    from cactus_tpu_torch.ops import banded_cuda, pairhmm_cuda
+    from cactus_tpu_torch.ops import pairhmm as tp
+    has_cluster = hasattr(pairhmm_cuda, "cluster_shape")
+    for (name, m, n, at, band, gaps, routes, ctas) in WIDE3:
+        if args.only not in name:
+            continue
+        if not has_cluster and (ctas or name.startswith("cluster")):
+            routes = tuple(r for r in routes if r == "narrow")
+            if not routes:
+                continue
+        rng = np.random.default_rng(band + n)
+        pairs = [smoke.embedded_pair(rng, m, n, at)]
+        packed = tb.pack_band_batch(pairs, band, min_batch=1, min_rows=256)
+        dargs = [torch.from_numpy(packed[k]).to(dev) for k in KEYS]
+        p = tp.HmmParams(**(smoke.WIDE_HMM_GAPS if gaps == "wide" else {}))
+        em = torch.from_numpy(p.emissions()).to(dev)
+        kw = dict(band=band, delta=p.delta, epsilon=p.epsilon)
+        max_live = banded_cuda.live_width(dargs[3], band)
+        fM_r, lsF_r, logZ_r = tp.forward_banded(*dargs, em, **kw)
+        ref = tp.backward_posterior(fM_r, lsF_r, logZ_r, *dargs, em, **kw)
+        live = banded_cuda.live_mask(*dargs[2:5], dargs[0].shape[1], band)
+        # past float32's conditioning (50,000-base gaps) logZ is held to
+        # the plain steps in float64 (chip_smoke.check_hmm)
+        z64 = (tp.forward_banded(*dargs, em, **kw, dtype=torch.float64)[2]
+               if "global" in name else None)
+        rows = int(dargs[2].max())
+        P, M = dargs[0].shape
+        for route in routes:
+            if has_cluster:
+                launch = dict(max_live=max_live, route=route, max_ctas=ctas)
+                fwd = lambda: pairhmm_cuda._launch_fwd(*dargs, em, **kw,
+                                                       **launch)
+                bwd = lambda: pairhmm_cuda._launch_bwd(
+                    fM, lsF, logZ, *dargs, em, **kw, **launch)
+                shape = (pairhmm_cuda.cluster_shape(max_live, ctas)
+                         if route == "wide" else None)
+            else:
+                fwd = lambda: pairhmm_cuda.pairhmm_fwd(*dargs, em, **kw)
+                bwd = lambda: pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ,
+                                                       *dargs, em, **kw)
+                shape = None
+            fM, lsF, logZ = fwd()
+            post = bwd()
+            what = f"{rel}: {name}, {route} route"
+            if not args.no_check:
+                check_wide3(smoke, tp, what, pairs, packed, gaps, fM, lsF,
+                            logZ, post, (fM_r, lsF_r, logZ_r, ref), live,
+                            z64)
+            gap = float((post - ref).abs().max())
+            kernel_names = (("pairhmm_fwd", "pairhmm_bwd") if route ==
+                            "narrow" else ("pairhmm_fwd_cluster_kernel",
+                                           "pairhmm_bwd_cluster_kernel")
+                            if has_cluster else ("pairhmm_fwd_wide_kernel",
+                                                 "pairhmm_bwd_wide_kernel"))
+            for kernel, prof_name, fn in (
+                    ("pairhmm_fwd", kernel_names[0], fwd),
+                    ("pairhmm_bwd", kernel_names[1], bwd)):
+                ms = smoke.time_ms(fn, args.reps)
+                dev_ms = banded_sweep.kernel_device_ms(fn, args.reps,
+                                                       prof_name)
+                print(json.dumps(dict(
+                    root=rel, case=name, kernel=kernel, route=route,
+                    shape=[P, M, band], max_live=max_live, cluster=shape,
+                    ms=ms, device_ms=dev_ms, longest_rows=rows,
+                    us_per_row=(dev_ms if dev_ms is not None else ms) * 1e3
+                    / rows, post_gap=gap)), flush=True)
+            del fM, lsF, logZ, post
+        del fM_r, lsF_r, logZ_r, ref, live
+
+
+def check_wide3(smoke, tp, what, pairs, packed, gaps, fM, lsF, logZ, post,
+                plain, live, z64):
+    """A wide case's kernel outputs held to the plain versions `plain`
+    (fM, lsF, logZ, posterior), as the module docstring says."""
+    smoke.check_hmm(fM, lsF, logZ, post, *plain, what, logZ_64=z64)
+    ref = plain[3]
+    if gaps == "default":
+        if bool(post[ref == 0].any()):
+            raise AssertionError(f"{what}: a posterior cell is not 0 where "
+                                 "the plain one is")
+        return
+    hits = tp.banded_hits(post, pairs, packed["lo"], 0.5)
+    ref_hits = tp.banded_hits(ref, pairs, packed["lo"], 0.5)
+    smoke.long_pair_seen(what, hits[0], ref_hits[0], ref[0], plain[0][0],
+                         live[0])
 
 
 def model5(args, smoke, banded_sweep, dev, root):

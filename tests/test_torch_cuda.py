@@ -943,15 +943,134 @@ def test_poa_linear_every_team_shape(cuda, cover):
         assert torch.equal(g, r)
 
 
-def test_pairhmm_wide_band_matches_plain(cuda):
-    """A 3-state pair at band 32768 (a 300-base query inside a 20,000-base
-    target) and two shorter pairs, a few hundred rows: the wide kernels,
-    within chip_smoke's three tolerances of the plain versions."""
+def _wide3_pairs(case):
+    """The 3-state wide-route cases: (pairs, band, max_live, shared-memory
+    rows, params).  All but "default" take chip_smoke's WIDE_HMM_GAPS, a
+    gap that extends at 0.999 a base: at the default 0.79 a query inside
+    a long target has a float32 posterior of 0 in the plain version and
+    the kernels alike, and its forward values pass 1e-30 on a few
+    thousand band cells of a row only, so the checks would compare zeros.
+    "default" keeps the path's HmmParams(): the underflow regime."""
     rng = np.random.default_rng(32768)
-    pairs = [_embedded_pair(rng, 300, 20000, 9000)]
-    pairs += _homologous(32769, [250, 40], 32768)
-    assert pairhmm_cuda.pairhmm_route(32768) == "wide"
-    _check_pairhmm_vs_plain(pairs, 32768, cuda)
+    gaps = tp.HmmParams(**chip_smoke.WIDE_HMM_GAPS)
+    if case in ("smem", "default"):
+        # phase 8's pair, a 300-base query in the middle of a 20,000-base
+        # target, beside short pairs
+        pairs = [_embedded_pair(rng, 300, 20000, 10000)]
+        pairs += _homologous(32769, [250, 40], 32768)
+        return (pairs, 32768, 20001, True,
+                tp.HmmParams() if case == "default" else gaps)
+    if case == "global":
+        # a 64-row query in the middle of a 100,000-base target: past the
+        # 86,016 cells the cluster's shared memory holds
+        return ([_embedded_pair(rng, 64, 100000, 50000)], 131072, 100001,
+                False, gaps)
+    # two wide pairs in one launch: two clusters
+    return ([_embedded_pair(rng, 300, 20000, 10000),
+             _embedded_pair(rng, 200, 19000, 5000)], 32768, 20001, True,
+            gaps)
+
+
+def _hold_wide3(what, pairs, packed, args, em, kw, fM, lsF, logZ, post,
+                long_pairs, logz_64=False):
+    """The wide route's outputs against the plain versions: zeros outside
+    the live windows, chip_smoke.check_hmm's three tolerances, and each
+    pair of long_pairs seen (`chip_smoke.long_pair_seen`: hits in both
+    runs, the plain posterior above 0.5, plain fM above 1e-30 at 90% of
+    its window's positions); with no long_pairs (the default gaps), the
+    kernels' posterior 0 wherever the plain one is instead.  logz_64:
+    logZ held to the plain steps in float64 (check_hmm's logZ_64)."""
+    fM_r, lsF_r, logZ_r = tp.forward_banded(*args, em, **kw)
+    ref = tp.backward_posterior(fM_r, lsF_r, logZ_r, *args, em, **kw)
+    live = banded_cuda.live_mask(args[2], args[3], args[4], fM.shape[1],
+                                 kw["band"])
+    assert not bool(fM[~live].any()) and not bool(post[~live].any())
+    z64 = (tp.forward_banded(*args, em, **kw, dtype=torch.float64)[2]
+           if logz_64 else None)
+    chip_smoke.check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, ref,
+                         what, quiet=True, logZ_64=z64)
+    if not long_pairs:
+        assert not bool(post[ref == 0].any())
+        return
+    hits = tp.banded_hits(post, pairs, packed["lo"], 0.5)
+    ref_hits = tp.banded_hits(ref, pairs, packed["lo"], 0.5)
+    for k in long_pairs:
+        chip_smoke.long_pair_seen(f"{what}, pair {k}", hits[k], ref_hits[k],
+                                  ref[k], fM_r[k], live[k])
+
+
+@pytest.mark.parametrize("case", ["smem", "global", "two_clusters",
+                                  "default"])
+def test_pairhmm_wide_band_matches_plain(cuda, case):
+    """3-state bands past the narrow kernels' 16384 take the cluster
+    kernels through the wrappers: a 300-base query inside a 20,000-base
+    target beside short pairs (max_live 20,001, the state rows in the
+    CTAs' shared memory), a window past the shared-memory cover (max_live
+    100,001, global scratch), two wide pairs as two clusters, and
+    phase 8's pair at the default gaps (the underflow regime: zeros where
+    the plain posterior is 0, logZ within LOGZ_RTOL)."""
+    pairs, band, want, smem, p = _wide3_pairs(case)
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    max_live = banded_cuda.live_width(args[3], band)
+    assert max_live == want
+    assert pairhmm_cuda.pairhmm_route(band) == "wide"
+    shape = pairhmm_cuda.cluster_shape(max_live)
+    assert shape["smem"] == smem
+    assert shape["ctas"] * shape["threads"] * shape["cells"] >= max_live
+    em = torch.from_numpy(p.emissions()).to(cuda)
+    kw = dict(band=band, delta=p.delta, epsilon=p.epsilon)
+    n0 = cuda_build.launches()
+    fM, lsF, logZ = pairhmm_cuda.pairhmm_fwd(*args, em, **kw,
+                                             max_live=max_live)
+    post = pairhmm_cuda.pairhmm_bwd(fM, lsF, logZ, *args, em, **kw,
+                                    max_live=max_live)
+    torch.cuda.synchronize()
+    n1 = cuda_build.launches()
+    for name in ("pairhmm_fwd_wide", "pairhmm_bwd_wide"):
+        assert n1[name] == n0[name] + 1
+    assert n1["pairhmm_fwd"] == n0["pairhmm_fwd"]
+    assert n1["pairhmm_bwd"] == n0["pairhmm_bwd"]
+    long_pairs = [] if case == "default" else [
+        k for k, (_q, t) in enumerate(pairs) if len(t) > 16384]
+    # "global": 50,000-base gaps, over which float32 sums in any order miss
+    # float64's logZ by ~2e-3 (the plain version's 15.65553 and the
+    # kernels' 15.65499 against 15.65354 on the H100), ten times
+    # LOGZ_RTOL at this logZ; its logZ is held to the float64 run
+    _hold_wide3(f"pairhmm {case} max_live {max_live}", pairs, packed, args,
+                em, kw, fM, lsF, logZ, post, long_pairs,
+                logz_64=case == "global")
+
+
+@pytest.mark.parametrize("max_live,max_ctas", [(300, 0), (16384, 0),
+                                               (20001, 8)])
+def test_pairhmm_cluster_kernels_at_narrow_widths(cuda, max_live, max_ctas):
+    """The cluster kernels forced at widths the narrow kernels take (a
+    cluster of 2 CTAs of one warp, 16 CTAs of 4 warps) and at phase 8's
+    width in 8 CTAs of 10 warps, through the private launches: within
+    chip_smoke's three tolerances of the plain versions, every long pair
+    seen."""
+    rng = np.random.default_rng(max_live)
+    band = 1 << (max_live - 1).bit_length()
+    pairs = [_embedded_pair(rng, 150, max_live - 1, (max_live - 150) // 2),
+             _homologous(max_live, [90], band)[0]]
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    assert banded_cuda.live_width(args[3], band) == max_live
+    shape = pairhmm_cuda.cluster_shape(max_live, max_ctas)
+    want = {300: (2, 32), 16384: (16, 128), 20001: (8, 320)}[max_live]
+    assert (shape["ctas"], shape["threads"]) == want and shape["smem"]
+    p = tp.HmmParams(**chip_smoke.WIDE_HMM_GAPS)
+    em = torch.from_numpy(p.emissions()).to(cuda)
+    kw = dict(band=band, delta=p.delta, epsilon=p.epsilon)
+    fM, lsF, logZ = pairhmm_cuda._launch_fwd(
+        *args, em, **kw, max_live=max_live, route="wide", max_ctas=max_ctas)
+    post = pairhmm_cuda._launch_bwd(
+        fM, lsF, logZ, *args, em, **kw, max_live=max_live, route="wide",
+        max_ctas=max_ctas)
+    torch.cuda.synchronize()
+    _hold_wide3(f"pairhmm cluster at max_live {max_live}", pairs, packed,
+                args, em, kw, fM, lsF, logZ, post, [0])
 
 
 def _wide5_pairs(case):

@@ -129,6 +129,114 @@ def test_pairhmm5_cluster_constants_cover_the_wide_route():
         assert f"= {rows} * words;" in p5
 
 
+def test_pairhmm_cluster_constants_cover_the_wide_route():
+    """csrc/pairhmm.cu's cluster kernels: up to 16 CTAs of 8 cells a lane;
+    with the state rows in shared memory up to 21 warps a CTA, whose ten
+    rows (forward the step's eight M rows, X and Y; backward its eight
+    fM x bM rows, bM and bX) fit the 227 KB a CTA may take
+    beside its static exchange and 22 warps' would not; past that cover
+    (86,016 cells) the global-scratch instance of 1024 threads, with no
+    cap in the launch; one source sizes the global scratch; the tile
+    kernels are gone, and the cluster launcher lives in csrc/cluster.cuh,
+    which both pair-HMM sources include."""
+    p3 = (CSRC / "pairhmm.cu").read_text()
+    ctas = int(_constant(p3, "kClusterMax"))
+    cells = int(_constant(p3, "kClusterCells"))
+    warps = int(_constant(p3, "kClusterSmemWarps"))
+    threads = int(_constant(p3, "kClusterThreads"))
+    assert (ctas, cells, warps, threads) == (16, 8, 21, 1024)
+    # CTAs of up to 8 warps take a 256-thread instance (registers enough
+    # for a lane's cells)
+    assert int(_constant(p3, "kClusterSmallThreads")) == 8 * 32
+    assert _constant(p3, "kClusterFwdSmemRows") == "kStepRows + 2"
+    assert _constant(p3, "kClusterBwdSmemRows") == "kStepRows + 2"
+
+    def smem(w):
+        n = 32 * w * cells
+        return 10 * (n + n // 32 + 1) * 4
+
+    static = 3908     # struct ClusterSmem's bytes
+    assert smem(warps) + static <= 227 * 1024 < smem(warps + 1) + static
+    assert ctas * warps * 32 * cells == 86016
+    launch = p3[p3.index("int pairhmm_fwd_wide_launch"):]
+    assert "kMaxWarps" not in launch[:launch.index("int pairhmm_bwd")]
+    for rows in ("kClusterFwdRows", "kClusterBwdRows"):
+        assert p3.count(f"(size_t)p * {rows} * RW") == 1
+        assert f"= {rows} * words;" in p3
+    for gone in ("pairhmm_fwd_wide_kernel", "pairhmm_bwd_wide_kernel",
+                 "wide_cover", "pairhmm_wide_scratch_floats"):
+        assert gone not in p3
+    p5 = (CSRC / "pairhmm5.cu").read_text()
+    header = (CSRC / "cluster.cuh").read_text()
+    for fn in ("cudaError_t cluster_fits(", "cudaError_t launch_cluster(",
+               "cudaError_t allow_smem("):
+        assert header.count(fn) == 1
+        assert fn not in p3 and fn not in p5
+    for src in (p3, p5):
+        assert '#include "cluster.cuh"' in src
+
+
+def test_pairhmm_wrappers_check_max_live_on_the_cpu():
+    """pairhmm_fwd, pairhmm_bwd and posterior_banded_batch take max_live
+    at or above every pair's live width min(band, n + 1) (the same
+    outputs as without it) and raise below it or below 1, on the CPU as
+    on the card."""
+    rng = np.random.default_rng(64)
+    band = 64
+    pairs = []
+    for m in (10, 30, 45):
+        q = rng.integers(0, 4, m).astype(np.uint8)
+        pairs.append((q, _mutate(rng, q)))
+    packed = jb.pack_band_batch(pairs, band, min_batch=1)
+    targs = [torch.from_numpy(packed[k]) for k in KEYS]
+    p = tp.HmmParams()
+    em = torch.from_numpy(p.emissions())
+    kw = dict(band=band, delta=p.delta, epsilon=p.epsilon)
+    widest = max(min(band, len(t) + 1) for _q, t in pairs)
+    ref = pairhmm_cuda.pairhmm_fwd(*targs, em, **kw)
+    post = pairhmm_cuda.pairhmm_bwd(*ref, *targs, em, **kw)
+    for ok in (widest, band, band + 9, None):
+        got = pairhmm_cuda.pairhmm_fwd(*targs, em, **kw, max_live=ok)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        assert torch.equal(pairhmm_cuda.pairhmm_bwd(*ref, *targs, em, **kw,
+                                                    max_live=ok), post)
+    for bad in (widest - 1, 0):
+        with pytest.raises(ValueError, match="max_live"):
+            pairhmm_cuda.pairhmm_fwd(*targs, em, **kw, max_live=bad)
+        with pytest.raises(ValueError, match="max_live"):
+            pairhmm_cuda.pairhmm_bwd(*ref, *targs, em, **kw, max_live=bad)
+        with pytest.raises(ValueError, match="max_live"):
+            tp.posterior_banded_batch(*targs, em, **kw, max_live=bad)
+
+
+@pytest.mark.parametrize("band", [128, 16448])
+def test_posterior_pairs_passes_the_host_max_live(monkeypatch, band):
+    """posterior_pairs_banded gives each wide-route batch its widest live
+    row max(min(band, n + 1)) from the host lengths (so the cluster is
+    sized without reading n_len back from the card), and the narrow route
+    none (its kernels take the band whole and the default path launches
+    as before)."""
+    rng = np.random.default_rng(band)
+    pairs = []
+    for m in (20, 40, 70, 100):
+        q = rng.integers(0, 4, m).astype(np.uint8)
+        pairs.append((q, _mutate(rng, q)))
+    seen = []
+    real = tp.posterior_banded_batch
+
+    def spy(*a, **kw):
+        seen.append((int(a[3].max()), kw.get("max_live")))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tp, "posterior_banded_batch", spy)
+    got = tp.posterior_pairs_banded(pairs, tp.HmmParams(), band=band,
+                                    min_rows_bin=32, device="cpu")
+    assert len(got) == len(pairs) and seen
+    for n_max, live in seen:
+        wide = pairhmm_cuda.pairhmm_route(band) == "wide"
+        assert live == (min(band, n_max + 1) if wide else None)
+
+
 def test_wrappers_take_every_width():
     """The argument checks the CUDA routes run before a launch accept
     widths past the caps (only argument errors remain)."""
