@@ -1,9 +1,10 @@
-// What the pair-HMM sources (pairhmm.cu, pairhmm5.cu) share: the live
-// window of a banded row, its state rows' layout, a lane's window cells
-// in registers or in global scratch, and the launch of one thread-block
-// cluster a pair once the card has said it can schedule it.  Each source
+// What the cluster sources (pairhmm.cu, pairhmm5.cu and poa_cluster.cu)
+// share: the pair-HMMs' live window of a banded row, its state rows'
+// layout and a lane's window cells in registers or in global scratch, and
+// for all three the launch of one thread-block cluster a pair (a POA
+// problem) once the card has said it can schedule it.  Each source
 // includes it into its own anonymous namespace; ops/cuda_build.py hashes
-// every csrc/*.cuh with each source, so an edit here rebuilds both.
+// every csrc/*.cuh with each source, so an edit here rebuilds them all.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,24 +33,25 @@ __device__ __forceinline__ Window window(int i, int n, int lo, int B) {
   return Window{jlo, max(0, jhi - jlo + 1)};
 }
 
-// A lane's window cells of the row being computed: in registers (C of
-// them), or, for the global-scratch instance, in the pair's scratch at
-// cell c of lane L -> c * lanes + L.
-template <int C, bool kReg>
+// A lane's cells of the row being computed (V: float for the pair-HMMs'
+// windows, int for the POA rows): in registers (C of them), or, for the
+// global-scratch instance, in the pair's (problem's) scratch at cell c of
+// lane L -> c * lanes + L.
+template <int C, bool kReg, typename V = float>
 struct Cells {
-  float v[C];
-  __device__ __forceinline__ float& operator[](int c) { return v[c]; }
-  __device__ __forceinline__ void bind(float*, int) {}
+  V v[C];
+  __device__ __forceinline__ V& operator[](int c) { return v[c]; }
+  __device__ __forceinline__ void bind(V*, int) {}
 };
 
-template <int C>
-struct Cells<C, false> {
-  float* p;
+template <int C, typename V>
+struct Cells<C, false, V> {
+  V* p;
   int stride;
-  __device__ __forceinline__ float& operator[](int c) {
+  __device__ __forceinline__ V& operator[](int c) {
     return p[(size_t)c * stride];
   }
-  __device__ __forceinline__ void bind(float* base, int s) {
+  __device__ __forceinline__ void bind(V* base, int s) {
     p = base;
     stride = s;
   }

@@ -110,82 +110,20 @@
 //   from device memory.
 // Rows wider than the widest cover (16384 cells; the poa engine's default
 //   window of 10,000 bases keeps its rows under 10,002 cells, but the
-//   window is a config knob) take the wide kernels, which loop a block's
-//   threads over the whole row and keep every row in device memory:
-//   poa_wide_kernel for poa_affine and poa_chain (their contract is one),
-//   poa_linear_wide_kernel for poa_linear.  The wrappers route by width
-//   (ops/poa_cuda.py::poa_route).
+//   window is a config knob) take the wide route, one thread-block
+//   cluster a problem on its live row (csrc/poa_cluster.cu, under the
+//   same contracts).  The wrappers route by width
+//   (ops/poa_cuda.py::poa_route).  What the two sources share (the
+//   candidates, the two passes of a cell, the stores) is csrc/poa.cuh.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
 
+#include "poa.cuh"
+
 namespace {
-
-constexpr int kNeg = -(1 << 28);   // poa.py NEG
-constexpr int kMaxPreds = 4;       // poa.py MAX_PREDS
-constexpr int kMaxThreads = 256;   // poa_linear_wide_kernel's block
-constexpr int kWideThreads = 512;  // poa_wide_kernel's block
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
-__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
-
-struct Gaps {
-  int o1, e1, o2, e2;
-};
-
-// the virtual start row at column j: j insertions at convex cost
-__device__ __forceinline__ int row0_at(int j, const Gaps& g) {
-  if (j == 0) return 0;
-  if (j < 0) return kNeg;
-  return -imin(g.o1 + j * g.e1, g.o2 + j * g.e2);
-}
-
-// inclusive max-scan of two ints across the warp
-__device__ __forceinline__ void warp_incl_max2(int& a, int& b) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int oa = __shfl_up_sync(kFull, a, off);
-    const int ob = __shfl_up_sync(kFull, b, off);
-    if (lane >= off) {
-      a = imax(a, oa);
-      b = imax(b, ob);
-    }
-  }
-}
-
-// exclusive max-scan of two ints across the block (blockDim.x a multiple
-// of 32), seeded with `seed`.  wbuf holds 64 ints; the caller puts a
-// __syncthreads between this call and the next one.
-__device__ __forceinline__ void block_excl_max2(int& a, int& b, int seed,
-                                                int* wbuf) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  warp_incl_max2(a, b);
-  int ea = __shfl_up_sync(kFull, a, 1);
-  int eb = __shfl_up_sync(kFull, b, 1);
-  if (lane == 0) ea = eb = INT_MIN;
-  if (lane == 31) {
-    wbuf[warp] = a;
-    wbuf[32 + warp] = b;
-  }
-  __syncthreads();
-  int pa = seed, pb = seed;
-  for (int w = 0; w < warp; ++w) {
-    pa = imax(pa, wbuf[w]);
-    pb = imax(pb, wbuf[32 + w]);
-  }
-  a = imax(pa, ea);
-  b = imax(pb, eb);
-}
-
-__device__ __forceinline__ int ext_bits(int E1, int E2, int pE1, int pE2,
-                                        const Gaps& g) {
-  return ((E1 == pE1 - g.e1) ? 2048 : 0) | ((E2 == pE2 - g.e2) ? 4096 : 0);
-}
 
 // ------------------------------------------------------------ kernel 7
 
@@ -220,131 +158,6 @@ __device__ __forceinline__ void seg_incl_max2(int& a, int& b, int lane_t) {
     if (lane_t >= off) {
       a = imax(a, oa);
       b = imax(b, ob);
-    }
-  }
-}
-
-// Pass 1 of a team kernel's cell from packed candidates.  A candidate is
-// value * 4 + 3 - slot, so one integer max keeps the larger value and, on
-// a tie, the lower slot: the contract's first maximum over slots 0..3.
-// Opens (H - o - e) and extends (F - e) are kept apart, since opens come
-// first in the contract's order; diag is Hd + s.  Values stay within
-// 2^29 of 0 (H >= NEG on every cell a live cell reads, F >= NEG - o - e),
-// so the packed ints do not overflow there.  The team kernels keep no
-// NEG mask past the query: such cells are not live and no live cell reads
-// them (see the header), so pass 1 and 2 skip the mask.
-struct Cands {
-  int o1, o2, x1, x2, d;
-};
-
-__device__ __forceinline__ int pack(int v, int k) { return v * 4 + 3 - k; }
-
-// the empty slot k (NEG rows): of equal empty slots only the lowest can
-// be a first maximum, so it stands for them all
-__device__ __forceinline__ void cands_empty(Cands& c, int k, int s,
-                                            const Gaps& g) {
-  c.o1 = pack(kNeg - g.o1 - g.e1, k);
-  c.o2 = pack(kNeg - g.o2 - g.e2, k);
-  c.x1 = pack(kNeg - g.e1, k);
-  c.x2 = pack(kNeg - g.e2, k);
-  c.d = pack(kNeg + s, k);
-}
-
-__device__ __forceinline__ void cands_none(Cands& c) {
-  c.o1 = c.o2 = c.x1 = c.x2 = c.d = INT_MIN;
-}
-
-// slot k's predecessor cells: H and F at the cell's column, H left of it
-__device__ __forceinline__ void cands_slot(Cands& c, int k, int H, int F1,
-                                           int F2, int Hd, int s,
-                                           const Gaps& g) {
-  c.o1 = imax(c.o1, pack(H - g.o1 - g.e1, k));
-  c.o2 = imax(c.o2, pack(H - g.o2 - g.e2, k));
-  c.x1 = imax(c.x1, pack(F1 - g.e1, k));
-  c.x2 = imax(c.x2, pack(F2 - g.e2, k));
-  c.d = imax(c.d, pack(Hd + s, k));
-}
-
-// h0, F1, F2 and the direction code without its E bits: bits 0-2 hold
-// the first of (diag, F1, F2) equal to h0, the move whenever H == h0
-__device__ __forceinline__ void cands_cell(const Cands& c, int& h0, int& F1,
-                                           int& F2, int& code) {
-  const bool open1 = (c.o1 >> 2) >= (c.x1 >> 2);
-  const bool open2 = (c.o2 >> 2) >= (c.x2 >> 2);
-  const int p1 = open1 ? c.o1 : c.x1;
-  const int p2 = open2 ? c.o2 : c.x2;
-  F1 = p1 >> 2;
-  F2 = p2 >> 2;
-  const int diag = c.d >> 2;
-  h0 = imax(diag, imax(F1, F2));
-  const int move = diag == h0 ? 0 : (F1 == h0 ? 1 : 2);
-  code = move | ((3 - (c.d & 3)) << 3) | ((3 - (p1 & 3)) << 5) |
-         (open1 ? 0 : 128) | ((3 - (p2 & 3)) << 8) | (open2 ? 0 : 1024);
-}
-
-// Pass 2 of a cell: r1/r2 are the exclusive prefix maxima of Z_k before
-// cell b.  Returns H and E1/E2, and completes the move (no mask past the
-// query: such cells are not live)
-__device__ __forceinline__ void cell_pass2_live(int h0, int& code, int r1,
-                                                int r2, int b, const Gaps& g,
-                                                int& H, int& E1, int& E2) {
-  E1 = imax(kNeg, r1 - g.o1 - g.e1 * b);
-  E2 = imax(kNeg, r2 - g.o2 - g.e2 * b);
-  H = imax(h0, imax(E1, E2));
-  if (H != h0) code = (code & ~7) | (H == E1 ? 3 : 4);
-}
-
-// H and the E states of a team's edge cell from what its warp published
-// before the node's barrier: the exclusive prefix maxima r1/r2 before
-// cell b and its pass-1 h0.
-__device__ __forceinline__ void edge_cell(int h0, int r1, int r2, int b,
-                                          const Gaps& g, int& H, int& E1,
-                                          int& E2) {
-  int code = 0;
-  cell_pass2_live(h0, code, r1, r2, b, g, H, E1, E2);
-}
-
-// A lane's C ints as one or two vector stores (C = 2, 4 or 8; dst and the
-// lane's first cell aligned to 4 C bytes).
-template <int C>
-__device__ __forceinline__ void store_ints(int* dst, const int (&x)[C]) {
-  if constexpr (C == 2) {
-    *reinterpret_cast<int2*>(dst) = make_int2(x[0], x[1]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; c += 4)
-      *reinterpret_cast<int4*>(dst + c) =
-          make_int4(x[c], x[c + 1], x[c + 2], x[c + 3]);
-  }
-}
-
-// H and dirs of one problem's lane cells on the live cells only
-// (b <= L - off_v, wlive = L - off_v + 1), as vector stores when the
-// lane's cells are all live.
-template <int C>
-__device__ __forceinline__ void store_cells(int* hrow, int16_t* drow,
-                                            const int (&Hc)[C],
-                                            const int (&code)[C], int b0,
-                                            int wlive) {
-  if (b0 + C <= wlive) {
-    store_ints<C>(hrow + b0, Hc);
-    int w[C / 2];
-#pragma unroll
-    for (int c = 0; c < C; c += 2)
-      w[c / 2] = (int)((unsigned)(uint16_t)code[c] |
-                       ((unsigned)(uint16_t)code[c + 1] << 16));
-    if constexpr (C == 2) {
-      *reinterpret_cast<int*>(drow + b0) = w[0];
-    } else {
-      store_ints<C / 2>(reinterpret_cast<int*>(drow + b0), w);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      if (b0 + c < wlive) {
-        hrow[b0 + c] = Hc[c];
-        drow[b0 + c] = (int16_t)code[c];
-      }
     }
   }
 }
@@ -1012,270 +825,6 @@ poa_linear_kernel(const uint8_t* __restrict__ bases,
   }
 }
 
-// poa_linear_wide_kernel: the linear DP at any width (rows wider than the
-// widest team cover): one block of up to 256 threads loops over the
-// whole row, every column of every node up to n, h0 and the partial
-// direction code staged in the output row between the two passes.
-__global__ void __launch_bounds__(kMaxThreads)
-poa_linear_wide_kernel(const uint8_t* __restrict__ bases,
-                       const int* __restrict__ preds,
-                       const uint8_t* __restrict__ q, int N, int L, int gap,
-                       int match, int mismatch, int* H, uint8_t* dirs,
-                       int* __restrict__ ends) {
-  __shared__ int wbuf[64];
-  const int W = L + 1;
-  const int T = blockDim.x;
-  const int t = threadIdx.x;
-  const int C = (W + T - 1) / T;
-  const int b0 = imin(t * C, W), b1 = imin(b0 + C, W);
-
-  for (int v = 0; v < N; ++v) {
-    const int base = bases[v];
-    int pv[kMaxPreds];
-    bool has = false;
-#pragma unroll
-    for (int k = 0; k < kMaxPreds; ++k) {
-      pv[k] = preds[v * kMaxPreds + k];
-      has |= pv[k] >= 0;
-    }
-    int* hrow = H + (size_t)v * W;
-    uint8_t* drow = dirs + (size_t)v * W;
-    int agg = INT_MIN;
-    for (int j = b0; j < b1; ++j) {
-      // slot k's row at columns j-1 and j; empty slots and rows not
-      // computed yet read NEG, a source reads the virtual start row
-      const int s = j > 0 ? (q[j - 1] == base ? match : mismatch) : 0;
-      int bd = INT_MIN, sd = 0, bl = INT_MIN, sl = 0;
-#pragma unroll
-      for (int k = 0; k < kMaxPreds; ++k) {
-        int cur = kNeg, left = kNeg;
-        if (!has) {
-          if (k == 0) {
-            cur = -gap * j;
-            left = -gap * (j - 1);
-          }
-        } else if (pv[k] >= 0 && pv[k] < v) {
-          cur = H[(size_t)pv[k] * W + j];
-          if (j > 0) left = H[(size_t)pv[k] * W + j - 1];
-        }
-        const int diag = j > 0 ? left + s : kNeg;
-        const int dele = cur - gap;
-        if (k == 0 || diag > bd) {   // first maximum wins
-          sd = k;
-          bd = diag;
-        }
-        if (k == 0 || dele > bl) {
-          sl = k;
-          bl = dele;
-        }
-      }
-      const int h0 = imax(bd, bl);
-      const int code = bd >= bl ? (sd << 2) : (1 | (sl << 2));
-      hrow[j] = h0;             // staged until pass 2
-      drow[j] = (uint8_t)code;
-      agg = imax(agg, h0 + gap * j);
-    }
-    int run = agg, unused = INT_MIN;
-    block_excl_max2(run, unused, INT_MIN, wbuf);
-    for (int j = b0; j < b1; ++j) {
-      const int h0 = hrow[j];
-      run = imax(run, h0 + gap * j);
-      const int y = run - gap * j;
-      if (y != h0) drow[j] = (uint8_t)((drow[j] & ~3) | 2);
-      hrow[j] = y;
-      if (j == L) ends[v] = y;
-    }
-    __syncthreads();   // the row is final before the next node reads it
-  }
-}
-
-// ------------------------------------------------------------ wide rows
-
-// Pass 1 of one affine cell from its per-slot predecessor values (NEG in
-// empty slots).  Returns h0, the masked F1/F2, and the direction code
-// without its E bits; bits 0-2 hold the move when the cell is past the
-// query (H = NEG there) and, for a cell inside it, the first of
-// (diag, F1, F2) equal to h0: the move whenever H == h0.
-__device__ __forceinline__ void cell_pass1(const int (&Hp)[kMaxPreds],
-                                           const int (&F1p)[kMaxPreds],
-                                           const int (&F2p)[kMaxPreds],
-                                           const int (&Hd)[kMaxPreds],
-                                           int s, bool valid, const Gaps& g,
-                                           int& h0, int& F1o, int& F2o,
-                                           int& code) {
-  const int pen1 = g.o1 + g.e1, pen2 = g.o2 + g.e2;
-  int F1 = Hp[0] - pen1, a1 = 0;
-  int F2 = Hp[0] - pen2, a2 = 0;
-#pragma unroll
-  for (int k = 1; k < kMaxPreds; ++k) {
-    if (Hp[k] - pen1 > F1) { F1 = Hp[k] - pen1; a1 = k; }
-    if (Hp[k] - pen2 > F2) { F2 = Hp[k] - pen2; a2 = k; }
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxPreds; ++k) {
-    if (F1p[k] - g.e1 > F1) { F1 = F1p[k] - g.e1; a1 = kMaxPreds + k; }
-    if (F2p[k] - g.e2 > F2) { F2 = F2p[k] - g.e2; a2 = kMaxPreds + k; }
-  }
-  int diag = Hd[0] + s, ds = 0;
-#pragma unroll
-  for (int k = 1; k < kMaxPreds; ++k) {
-    if (Hd[k] + s > diag) { diag = Hd[k] + s; ds = k; }
-  }
-  h0 = imax(diag, imax(F1, F2));
-  int move;
-  if (valid) {
-    move = diag == h0 ? 0 : (F1 == h0 ? 1 : 2);
-    F1o = F1;
-    F2o = F2;
-  } else {
-    move = diag == kNeg ? 0 : 1;
-    F1o = F2o = kNeg;
-  }
-  code = move | (ds << 3) | ((a1 & 3) << 5) | ((a1 >> 2) << 7) |
-         ((a2 & 3) << 8) | ((a2 >> 2) << 10);
-}
-
-// Pass 2 of one affine cell: r1/r2 are the exclusive prefix maxima of Z_k
-// before cell b.  Returns H and the masked E1/E2, and completes the move.
-__device__ __forceinline__ void cell_pass2(int h0, int& code, int r1, int r2,
-                                           int b, bool valid, const Gaps& g,
-                                           int& H, int& E1, int& E2) {
-  E1 = imax(kNeg, r1 - g.o1 - g.e1 * b);
-  E2 = imax(kNeg, r2 - g.o2 - g.e2 * b);
-  if (valid) {
-    H = imax(h0, imax(E1, E2));
-    if (H != h0) code = (code & ~7) | (H == E1 ? 3 : 4);
-  } else {
-    H = E1 = E2 = kNeg;
-  }
-}
-
-// poa_wide_kernel: poa_affine's contract (and so poa_chain's) at rows
-// wider than the widest team cover.  One block of kWideThreads threads a
-// problem, each thread a contiguous run of B / kWideThreads band cells
-// of every real node's row, all B cells (the NEG mask past the query
-// included, as the contract computes them).  The predecessor rows are
-// the H output itself and per-problem F1/F2 history planes (P, N, B) the
-// wrapper allocates; h0 and the partial direction code wait in the
-// output rows between the two passes, and a block scan (two barriers)
-// joins the threads' runs.
-__global__ void __launch_bounds__(kWideThreads)
-poa_wide_kernel(const uint8_t* __restrict__ bases,
-                const int* __restrict__ preds, const int* __restrict__ off,
-                const uint8_t* __restrict__ q_ext,
-                const int* __restrict__ l_len,
-                const int* __restrict__ n_nodes,
-                const int* __restrict__ submat, int N, int Lq, int B, Gaps g,
-                int* H, int16_t* dirs, int* __restrict__ ends, int* F1h,
-                int* F2h) {
-  __shared__ int s_sub[36];
-  __shared__ int wbuf[64];
-  __shared__ int lastE[2 * kWideThreads];
-  const int p = blockIdx.x;
-  const int t = threadIdx.x;
-  const int T = blockDim.x;
-  const int C = B / T;
-  const int b0 = t * C, b1 = b0 + C;
-  const int L = l_len[p];
-  const int n = n_nodes[p];
-  const size_t plane = (size_t)p * N * B;
-  int* Hp_ = H + plane;
-  int* F1_ = F1h + plane;
-  int* F2_ = F2h + plane;
-  int16_t* Dp = dirs + plane;
-  const uint8_t* qp = q_ext + (size_t)p * Lq;
-  const int* pp = preds + (size_t)p * N * kMaxPreds;
-  const int* op = off + (size_t)p * N;
-  for (int k = t; k < 36; k += T) s_sub[k] = submat[k];
-  __syncthreads();
-
-  for (int v = 0; v < n; ++v) {
-    const int off_v = op[v];
-    const int* srow = s_sub + 6 * bases[(size_t)p * N + v];
-    // a slot reads its predecessor's row only when that row is final
-    // (p < v); an empty slot, or a row not computed yet (the contract's
-    // scan reads its NEG init there), gives NEG candidates
-    int pv[kMaxPreds], dv[kMaxPreds];
-    bool has = false, row_ok[kMaxPreds];
-#pragma unroll
-    for (int k = 0; k < kMaxPreds; ++k) {
-      pv[k] = pp[v * kMaxPreds + k];
-      has |= pv[k] >= 0;
-      row_ok[k] = pv[k] >= 0 && pv[k] < v;
-      dv[k] = row_ok[k] ? off_v - op[pv[k]] : 0;
-    }
-    int* hrow = Hp_ + (size_t)v * B;
-    int16_t* drow = Dp + (size_t)v * B;
-    int agg1 = INT_MIN, agg2 = INT_MIN;
-    for (int b = b0; b < b1; ++b) {
-      const int j = off_v + b;
-      const bool valid = j <= L;
-      const int s = srow[qp[imin(imax(j, 0), L)]];
-      int Hk[kMaxPreds], F1k[kMaxPreds], F2k[kMaxPreds], Hd[kMaxPreds];
-#pragma unroll
-      for (int k = 0; k < kMaxPreds; ++k) {
-        Hk[k] = F1k[k] = F2k[k] = Hd[k] = kNeg;
-        if (!row_ok[k]) continue;
-        const int gi = dv[k] + b;
-        const size_t base = (size_t)pv[k] * B;
-        if (gi >= 0 && gi < B) {
-          Hk[k] = Hp_[base + gi];
-          F1k[k] = F1_[base + gi];
-          F2k[k] = F2_[base + gi];
-        }
-        if (gi >= 1 && gi <= B) Hd[k] = Hp_[base + gi - 1];
-      }
-      if (!has) {   // a source reads the virtual start row in slot 0
-        Hk[0] = row0_at(j, g);
-        Hd[0] = row0_at(j - 1, g);
-      }
-      int h0, F1o, F2o, code;
-      cell_pass1(Hk, F1k, F2k, Hd, s, valid, g, h0, F1o, F2o, code);
-      hrow[b] = h0;             // staged until pass 2
-      drow[b] = (int16_t)code;
-      F1_[(size_t)v * B + b] = F1o;
-      F2_[(size_t)v * B + b] = F2o;
-      agg1 = imax(agg1, h0 + g.e1 * b);
-      agg2 = imax(agg2, h0 + g.e2 * b);
-    }
-    int r1 = agg1, r2 = agg2;
-    block_excl_max2(r1, r2, kNeg, wbuf);
-
-    int pE1 = kNeg, pE2 = kNeg, fE1 = kNeg, fE2 = kNeg, fcode = 0;
-    const int bL = L - off_v;
-    for (int b = b0; b < b1; ++b) {
-      const int h0 = hrow[b];
-      int code = drow[b];
-      const bool valid = off_v + b <= L;
-      int Hc, E1, E2;
-      cell_pass2(h0, code, r1, r2, b, valid, g, Hc, E1, E2);
-      if (b == b0) {
-        fE1 = E1;
-        fE2 = E2;
-        fcode = code;
-      } else {
-        drow[b] = (int16_t)(code | ext_bits(E1, E2, pE1, pE2, g));
-      }
-      hrow[b] = Hc;
-      if (b == bL) ends[(size_t)p * N + v] = Hc;
-      r1 = imax(r1, h0 + g.e1 * b);
-      r2 = imax(r2, h0 + g.e2 * b);
-      pE1 = E1;
-      pE2 = E2;
-    }
-    lastE[t] = pE1;
-    lastE[kWideThreads + t] = pE2;
-    __syncthreads();
-    {
-      const int q1 = t == 0 ? kNeg : lastE[t - 1];
-      const int q2 = t == 0 ? kNeg : lastE[kWideThreads + t - 1];
-      drow[b0] = (int16_t)(fcode | ext_bits(fE1, fE2, q1, q2, g));
-    }
-    if (t == 0 && (bL < 0 || bL >= B)) ends[(size_t)p * N + v] = kNeg;
-    __syncthreads();   // the row is final before the next node reads it
-  }
-}
-
 // The team shapes ops/poa_cuda.py::TEAM_SHAPES lists for each kernel,
 // cover by cover (and poa_chain's shape for large cover-64 launches,
 // POA_CHAIN_PACKED): the shapes team_shape picks and no other.
@@ -1423,45 +972,6 @@ int poa_linear_launch(const void* bases, const void* preds, const void* q,
   POA_LINEAR_SHAPES(POA_LINEAR_SHAPE)
 #undef POA_LINEAR_SHAPE
   return (int)cudaErrorInvalidValue;   // not a shape of POA_LINEAR_SHAPES
-}
-
-// poa_linear at any width: every column of nodes v < n, rows of stride
-// L + 1.
-int poa_linear_wide_launch(const void* bases, const void* preds,
-                           const void* q, int n, int L, int gap, int match,
-                           int mismatch, void* H, void* dirs, void* ends,
-                           void* stream) {
-  if (n <= 0) return 0;
-  const int W = L + 1;
-  const int T = W >= kMaxThreads ? kMaxThreads : ((W + 31) / 32) * 32;
-  poa_linear_wide_kernel<<<1, T, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bases), static_cast<const int*>(preds),
-      static_cast<const uint8_t*>(q), n, L, gap, match, mismatch,
-      static_cast<int*>(H), static_cast<uint8_t*>(dirs),
-      static_cast<int*>(ends));
-  return (int)cudaGetLastError();
-}
-
-// poa_affine's contract at rows wider than the widest team cover (the
-// wide route of both poa_affine and poa_chain): one block a problem;
-// F1h and F2h are (P, N, B) int32 history planes.
-int poa_wide_launch(const void* bases, const void* preds, const void* off,
-                    const void* q_ext, const void* l_len, const void* n_nodes,
-                    const void* submat, int P, int N, int Lq, int B, int o1,
-                    int e1, int o2, int e2, void* H, void* dirs, void* ends,
-                    void* F1h, void* F2h, void* stream) {
-  if (P <= 0 || N <= 0) return 0;
-  if (B < kWideThreads || B % kWideThreads != 0)
-    return (int)cudaErrorInvalidValue;
-  const Gaps g{o1, e1, o2, e2};
-  poa_wide_kernel<<<P, kWideThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bases), static_cast<const int*>(preds),
-      static_cast<const int*>(off), static_cast<const uint8_t*>(q_ext),
-      static_cast<const int*>(l_len), static_cast<const int*>(n_nodes),
-      static_cast<const int*>(submat), N, Lq, B, g, static_cast<int*>(H),
-      static_cast<int16_t*>(dirs), static_cast<int*>(ends),
-      static_cast<int*>(F1h), static_cast<int*>(F2h));
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

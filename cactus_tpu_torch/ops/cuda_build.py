@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-SOURCES = ("banded", "pairhmm", "pairhmm5", "poa")
+SOURCES = ("banded", "pairhmm", "pairhmm5", "poa", "poa_cluster")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the 5-state pair-HMM keeps each float32 multiply and add separately

@@ -17,9 +17,12 @@ Source: csrc/poa.cu (see its header for the design).
   is int16: its 13 bits fit, and it halves the bytes the kernels write
   against int32.
 - Rows wider than the widest team cover (POA_MAX_COVER cells) take the
-  wide kernels (`poa_route`): poa_affine and poa_chain both the one wide
-  affine kernel, poa_linear its wide kernel; each counts its launches
-  under its own name ("poa_wide", "poa_linear_wide").
+  wide route (`poa_route`), csrc/poa_cluster.cu: one thread-block
+  cluster a problem on its live row (`cluster_shape`), under the same
+  contracts; poa_affine and poa_chain share one kernel (its DAG
+  instance keeps history rows in global scratch, its chain instance
+  none), poa_linear has its own.  Each route counts its launches under
+  its own name ("poa_wide", "poa_linear_wide").
 - Bound on an H100: int32 operations (POA_AFFINE_OPS_PER_CELL and
   POA_LINEAR_OPS_PER_CELL a cell, plus a few per extra predecessor),
   against 6 bytes a cell written (H int32 + dirs int16) for the affine
@@ -67,12 +70,14 @@ POA_LINEAR_OPS_PER_CELL = 10
 POA_LINEAR_OPS_PER_PRED = 4
 # bytes a cell written: H int32 + dirs int16 (affine), + dirs uint8
 # (linear); poa_affine's history rows in global scratch add at most 12
-# bytes a band cell (H, F1, F2 of max_live cells rounded up to 4), the
-# wide kernel's F1/F2 history planes 8
+# bytes a band cell (H, F1, F2 of max_live cells rounded up to 4), and so
+# do the wide route's on a DAG (its chain launches keep none; the lanes'
+# cells past registers take csrc/poa_cluster.cu kAffinePlanes words a
+# cell of the cluster's cover a problem, `cluster_shape`, beside them)
 POA_AFFINE_OUT_BYTES_PER_CELL = 6
 POA_LINEAR_OUT_BYTES_PER_CELL = 5
 POA_AFFINE_SCRATCH_BYTES_PER_CELL = 12
-POA_WIDE_SCRATCH_BYTES_PER_CELL = 8
+POA_WIDE_SCRATCH_BYTES_PER_CELL = 12
 # a launch's device footprint cap in align_bin: outputs + scratch of one
 # chunk of a shape bin.  4 GiB is 5% of the H100's 80 GB, so the two
 # ancestor threads of the progressive driver and the caching allocator
@@ -85,13 +90,57 @@ _SIGNATURES = {
     "poa_affine_launch": [_VP] * 7 + [_INT] * 14 + [_VP] * 5,
     "poa_chain_launch": [_VP] * 7 + [_INT] * 11 + [_VP] * 4,
     "poa_linear_launch": [_VP] * 3 + [_INT] * 9 + [_VP] * 4,
-    "poa_linear_wide_launch": [_VP] * 3 + [_INT] * 5 + [_VP] * 4,
-    "poa_wide_launch": [_VP] * 7 + [_INT] * 8 + [_VP] * 6,
 }
+_CLUSTER_SIGNATURES = {
+    "poa_cluster_shape": [_INT] * 3 + [_VP],
+    "poa_wide_launch": [_VP] * 7 + [_INT] * 12 + [_VP] * 6,
+    "poa_linear_wide_launch": [_VP] * 3 + [_INT] * 7 + [_VP] * 5,
+}
+# csrc/poa_cluster.cu's clusters: up to POA_CLUSTER_MAX_CTAS CTAs a
+# problem, 4 cells a lane in registers in CTAs of up to 512 threads (16 x
+# 512 x 4: 32,768 cells, both kernels); past that, CTAs of
+# POA_CLUSTER_SCRATCH_THREADS threads with the lanes' cells in global
+# scratch, so every width runs
+POA_CLUSTER_MAX_CTAS = 16
+POA_CLUSTER_CELLS = 4
+POA_CLUSTER_REG_THREADS = 512
+POA_CLUSTER_SCRATCH_THREADS = 512
 
 
 def _lib() -> ctypes.CDLL:
     return cuda_build.bind("poa", _SIGNATURES)
+
+
+def _cluster_lib() -> ctypes.CDLL:
+    return cuda_build.bind("poa_cluster", _CLUSTER_SIGNATURES)
+
+
+def cluster_shape(max_live: int, max_ctas: int = 0,
+                  linear: bool = False) -> dict:
+    """The cluster a wide launch takes for this max_live (csrc/
+    poa_cluster.cu poa_shape, at most max_ctas CTAs when it is above 0;
+    needs the card): ctas, threads a CTA, cells a lane, registers (whether
+    a lane's cells live in registers) and words, the int32 words of
+    global scratch a problem's lanes need (0 in registers; `linear`:
+    poa_linear's kernel, else poa_affine's and poa_chain's)."""
+    lib = _cluster_lib()
+    out = (ctypes.c_longlong * 5)()
+    cuda_build.check(lib, lib.poa_cluster_shape(max_live, max_ctas,
+                                                int(linear), out),
+                     "poa_cluster_shape")
+    return dict(ctas=out[0], threads=out[1], cells=out[2],
+                registers=bool(out[3]), words=out[4])
+
+
+def _scratch(P: int, shape: dict, dev):
+    """The lanes' global scratch of a wide launch (None in registers)."""
+    if shape["words"] == 0:
+        return None
+    return torch.empty((P, shape["words"]), dtype=torch.int32, device=dev)
+
+
+def _ptr(x) -> int | None:
+    return None if x is None else x.data_ptr()
 
 
 def poa_linear(bases, preds, q, gap: int, match: int, mismatch: int,
@@ -110,11 +159,25 @@ def poa_linear(bases, preds, q, gap: int, match: int, mismatch: int,
     if bases.device.type == "cpu":
         return poa_align_scan(bases, preds, q, gap=gap, match=match,
                               mismatch=mismatch)
-    dev = bases.device
     N = bases.shape[0]
     L = q.shape[0]
     n = N if n_nodes is None else int(n_nodes)
     ll = L if l_len is None else int(l_len)
+    return _launch_linear(bases, preds, q, gap, match, mismatch, n, ll,
+                          poa_route(ll + 1))
+
+
+def _launch_linear(bases, preds, q, gap: int, match: int, mismatch: int,
+                   n: int, ll: int, route: str, max_ctas: int = 0):
+    """poa_linear's launch on the named route ("wide" runs the cluster
+    kernel at any width, with at most max_ctas CTAs when it is above 0:
+    the card tests and tests/poa_sweep_report.py force it at narrow widths
+    and other cluster sizes): checks the tensors and the live extents,
+    allocates the outputs, launches on the current stream and counts the
+    launch."""
+    dev = bases.device
+    N = bases.shape[0]
+    L = q.shape[0]
     if not 0 <= n <= N:
         raise ValueError(f"n_nodes {n} outside 0..{N}")
     if not 0 <= ll <= L:
@@ -126,20 +189,21 @@ def poa_linear(bases, preds, q, gap: int, match: int, mismatch: int,
     H = torch.empty((N, L + 1), dtype=torch.int32, device=dev)
     dirs = torch.empty((N, L + 1), dtype=torch.uint8, device=dev)
     ends = torch.empty((N,), dtype=torch.int32, device=dev)
-    lib = _lib()
     ptrs = (bases.data_ptr(), preds.data_ptr(), q.data_ptr())
-    outs = (H.data_ptr(), dirs.data_ptr(), ends.data_ptr(),
-            cuda_build.stream(dev))
-    if poa_route(ll + 1) == "team":
+    outs = (H.data_ptr(), dirs.data_ptr(), ends.data_ptr())
+    if route == "team":
         name = "poa_linear"
+        lib = _lib()
         code = lib.poa_linear_launch(
             *ptrs, n, L, ll, *team_shape(ll + 1, name, 1), int(gap),
-            int(match), int(mismatch), *outs)
+            int(match), int(mismatch), *outs, cuda_build.stream(dev))
     else:
-        # every column of the real nodes
         name = "poa_linear_wide"
-        code = lib.poa_linear_wide_launch(*ptrs, n, L, int(gap), int(match),
-                                          int(mismatch), *outs)
+        lib = _cluster_lib()
+        scratch = _scratch(1, cluster_shape(ll + 1, max_ctas, True), dev)
+        code = lib.poa_linear_wide_launch(
+            *ptrs, n, L, ll, max_ctas, int(gap), int(match), int(mismatch),
+            *outs, _ptr(scratch), cuda_build.stream(dev))
     cuda_build.check(lib, code, name)
     cuda_build.count_launch(name)
     return H, dirs, ends
@@ -199,9 +263,10 @@ def team_cover(max_live: int) -> int:
 
 def poa_route(max_live: int) -> str:
     """Which kernel a launch whose widest live row is max_live runs:
-    "team" (the team kernels, covers up to POA_MAX_COVER) or "wide" (a
-    block's threads loop over the whole row: poa_wide for poa_affine and
-    poa_chain, poa_linear_wide for poa_linear)."""
+    "team" (the team kernels, covers up to POA_MAX_COVER) or "wide" (one
+    thread-block cluster a problem on its live row, `cluster_shape`:
+    poa_wide for poa_affine and poa_chain, poa_linear_wide for
+    poa_linear)."""
     return "team" if max_live <= POA_MAX_COVER else "wide"
 
 
@@ -344,29 +409,9 @@ def poa_affine(bases, preds, off, q_ext, l_len, submat, band: int,
                                      o2=o2, e2=e2)
     n_nodes, max_live = _live_args(preds, off, l_len, n_nodes, band,
                                    max_live)
-    dev, P, N, H, dirs, ends = _check_affine(bases, preds, off, q_ext,
-                                             l_len, submat, band)
-    cuda_build.check_tensor(n_nodes, "n_nodes", torch.int32, (P,), dev)
-    if poa_route(max_live) == "wide":
-        return _poa_wide(bases, preds, off, q_ext, l_len, n_nodes, submat,
-                         band, (o1, e1, o2, e2), H, dirs, ends)
-    shape = team_shape(max_live, "poa_affine", P)
-    stride = history_stride(max_live)
-    smem = affine_rows_in_smem(P, N, max_live, shape, dev)
-    hist = None if smem else torch.empty((P, 3, N, stride),
-                                         dtype=torch.int32, device=dev)
-    C, TL, NW = shape
-    lib = _lib()
-    code = lib.poa_affine_launch(
-        bases.data_ptr(), preds.data_ptr(), off.data_ptr(), q_ext.data_ptr(),
-        l_len.data_ptr(), n_nodes.data_ptr(), submat.data_ptr(), P, N,
-        int(q_ext.shape[1]), band, C, TL, NW, int(smem), N, stride,
-        int(o1), int(e1), int(o2), int(e2), H.data_ptr(), dirs.data_ptr(),
-        ends.data_ptr(), hist.data_ptr() if hist is not None else None,
-        cuda_build.stream(dev))
-    cuda_build.check(lib, code, "poa_affine")
-    cuda_build.count_launch("poa_affine")
-    return H, dirs, ends
+    return _launch("poa_affine", bases, preds, off, q_ext, l_len, submat,
+                   band, (o1, e1, o2, e2), n_nodes, max_live,
+                   poa_route(max_live))
 
 
 def poa_chain(bases, preds, off, q_ext, l_len, submat, band: int,
@@ -386,43 +431,59 @@ def poa_chain(bases, preds, off, q_ext, l_len, submat, band: int,
                                      o2=o2, e2=e2)
     n_nodes, max_live = _live_args(preds, off, l_len, n_nodes, band,
                                    max_live)
+    return _launch("poa_chain", bases, preds, off, q_ext, l_len, submat,
+                   band, (o1, e1, o2, e2), n_nodes, max_live,
+                   poa_route(max_live))
+
+
+def _launch(kernel: str, bases, preds, off, q_ext, l_len, submat,
+            band: int, gaps, n_nodes, max_live: int, route: str,
+            max_ctas: int = 0):
+    """The launch of poa_affine or poa_chain (`kernel`) on the named
+    route: "team", or "wide", the cluster kernel at any width, with at
+    most max_ctas CTAs when it is above 0 (the card tests and
+    tests/poa_sweep_report.py force it at narrow widths and other
+    cluster sizes).  Checks the tensors, allocates the outputs and
+    scratch, launches on the current stream and counts the launch."""
     dev, P, N, H, dirs, ends = _check_affine(bases, preds, off, q_ext,
                                              l_len, submat, band)
     cuda_build.check_tensor(n_nodes, "n_nodes", torch.int32, (P,), dev)
-    if poa_route(max_live) == "wide":
-        return _poa_wide(bases, preds, off, q_ext, l_len, n_nodes, submat,
-                         band, (o1, e1, o2, e2), H, dirs, ends)
-    C, TL, NW = team_shape(max_live, "poa_chain", P)
-    lib = _lib()
-    code = lib.poa_chain_launch(
-        bases.data_ptr(), preds.data_ptr(), off.data_ptr(), q_ext.data_ptr(),
-        l_len.data_ptr(), n_nodes.data_ptr(), submat.data_ptr(), P, N,
-        int(q_ext.shape[1]), band, C, TL, NW, int(o1), int(e1), int(o2),
-        int(e2), H.data_ptr(), dirs.data_ptr(), ends.data_ptr(),
-        cuda_build.stream(dev))
-    cuda_build.check(lib, code, "poa_chain")
-    cuda_build.count_launch("poa_chain")
-    return H, dirs, ends
-
-
-def _poa_wide(bases, preds, off, q_ext, l_len, n_nodes, submat, band: int,
-              gaps, H, dirs, ends):
-    """The wide route of poa_affine and poa_chain: one block a problem
-    over every band cell of its real nodes, with (P, N, B) F1/F2 history
-    planes (POA_WIDE_SCRATCH_BYTES_PER_CELL)."""
-    dev = bases.device
-    P, N = bases.shape
-    F1 = torch.empty((P, N, band), dtype=torch.int32, device=dev)
-    F2 = torch.empty((P, N, band), dtype=torch.int32, device=dev)
-    lib = _lib()
-    code = lib.poa_wide_launch(
-        bases.data_ptr(), preds.data_ptr(), off.data_ptr(), q_ext.data_ptr(),
-        l_len.data_ptr(), n_nodes.data_ptr(), submat.data_ptr(), P, N,
-        int(q_ext.shape[1]), band, *(int(x) for x in gaps), H.data_ptr(),
-        dirs.data_ptr(), ends.data_ptr(), F1.data_ptr(), F2.data_ptr(),
-        cuda_build.stream(dev))
-    cuda_build.check(lib, code, "poa_wide")
-    cuda_build.count_launch("poa_wide")
+    ins = (bases.data_ptr(), preds.data_ptr(), off.data_ptr(),
+           q_ext.data_ptr(), l_len.data_ptr(), n_nodes.data_ptr(),
+           submat.data_ptr(), P, N, int(q_ext.shape[1]), band)
+    outs = (H.data_ptr(), dirs.data_ptr(), ends.data_ptr())
+    gaps = tuple(int(x) for x in gaps)
+    stride = history_stride(max_live)
+    if route == "wide":
+        # the DAG instance's history rows (H, F1, F2 of each node's live
+        # cells) and, past registers, the lanes' cells
+        name = "poa_wide"
+        chain = kernel == "poa_chain"
+        hist = None if chain else torch.empty((P, 3, N, stride),
+                                              dtype=torch.int32, device=dev)
+        scratch = _scratch(P, cluster_shape(max_live, max_ctas), dev)
+        lib = _cluster_lib()
+        code = lib.poa_wide_launch(
+            *ins, max_live, max_ctas, int(chain), stride, *gaps, *outs,
+            _ptr(hist), _ptr(scratch), cuda_build.stream(dev))
+    elif kernel == "poa_chain":
+        name = kernel
+        lib = _lib()
+        code = lib.poa_chain_launch(
+            *ins, *team_shape(max_live, kernel, P), *gaps, *outs,
+            cuda_build.stream(dev))
+    else:
+        name = kernel
+        shape = team_shape(max_live, kernel, P)
+        smem = affine_rows_in_smem(P, N, max_live, shape, dev)
+        hist = None if smem else torch.empty((P, 3, N, stride),
+                                             dtype=torch.int32, device=dev)
+        lib = _lib()
+        code = lib.poa_affine_launch(
+            *ins, *shape, int(smem), N, stride, *gaps, *outs, _ptr(hist),
+            cuda_build.stream(dev))
+    cuda_build.check(lib, code, name)
+    cuda_build.count_launch(name)
     return H, dirs, ends
 
 
@@ -480,8 +541,8 @@ def align_bin(stack: dict, l_len: np.ndarray, submat: np.ndarray,
                           band)
     wide = poa_route(max_live) == "wide"
     per_cell = POA_AFFINE_OUT_BYTES_PER_CELL + (
-        POA_WIDE_SCRATCH_BYTES_PER_CELL if wide
-        else 0 if chain else POA_AFFINE_SCRATCH_BYTES_PER_CELL)
+        0 if chain else POA_WIDE_SCRATCH_BYTES_PER_CELL if wide
+        else POA_AFFINE_SCRATCH_BYTES_PER_CELL)
     step = max(1, int(max_launch_bytes // (N * band * per_cell)))
     run = poa_chain if chain else poa_affine
     sub = torch.from_numpy(np.ascontiguousarray(submat, np.int32)).to(device)

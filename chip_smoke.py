@@ -108,15 +108,17 @@ the children's gaps.
 8. Runs the wide routes (rows past each kernel's widest narrow launch:
    POA rows over 16,384 live cells, 3-state bands over 16,384, 5-state
    windows over 65,536 cells) through the entry points a user calls,
-   poa_align_affine and poa_align of a 20,000-base query,
+   poa_align_affine and poa_align of a 20,000-base query against a chain
+   graph and a bubbled graph (poa_align's linear DP then reads DAG
+   predecessors),
    posterior_pairs_banded at band 32768 and posterior_pairs_banded5 at
    max_live 70,001 and at max_live 140,001 (band 262144, past the
    131,072 cells the 5-state cluster kernels hold in shared memory),
    with the launch counts set to 0 just before and read just after; each
    must launch its wide kernels (poa_wide, poa_linear_wide,
    pairhmm_fwd_wide / pairhmm_bwd_wide, pairhmm5_fwd_wide /
-   pairhmm5_bwd_wide: one thread-block cluster a pair), the POA
-   alignments must equal the CPU run's and the hits the plain
+   pairhmm5_bwd_wide: one thread-block cluster a pair or problem), the
+   POA alignments must equal the CPU run's and the hits the plain
    posterior's.  The pair-HMMs' long pairs run under gaps that keep
    their paths in float32's range (WIDE_HMM_GAPS, WIDE_HMM5_GAPS), and
    each must have hits in both runs (the 3-state one also a plain
@@ -125,9 +127,14 @@ the children's gaps.
    the checks see them and not zeros.  Then it holds each wide kernel
    against its plain version at those shapes (POA bit-equal on the live
    cells, pair-HMMs by step 2's tolerances) and times it beside the
-   bound for the same work; the pair-HMM lines also name each call's
-   cluster and give a latency line (the longest pair's rows x the
-   dependent steps of a cluster row, `hmm_cluster_row_steps`), and the
+   bound for the same work (poa_wide on the chain and on the bubbled
+   graph, logged apart); a direct poa_affine call on moving band offsets
+   (`poa_offset_batch`: three DAGs against ~40,000-base queries at band
+   32768, predecessor cells thousands of cells away) must launch
+   poa_wide once and equal the plain version on the live cells.  Each
+   wide line names its cluster and gives a latency line (the longest
+   pair's rows or problem's nodes x the dependent steps of a cluster row
+   or node, `hmm_cluster_row_steps`, `poa_cluster_node_steps`), and the
    5-state ones time the global-scratch call.
 9. Runs the pangenome builder (cactus_tpu_torch.pangenome) on 4
    haplotypes of PAN_NEWICK, seed 23, in process, each run with the
@@ -1471,6 +1478,59 @@ def poa_batch(seed, P, n, l, band, chain):
     return bases, preds, off, q_ext, l_len
 
 
+def poa_offset_batch(seed, P, N, lq, band, chain, n_lo=1, jump=2500,
+                     far=60, step=400):
+    """P problems whose band (B < L + 1) moves with the query: ragged
+    queries (problem 0 has lq bases, the others lq - 3000 .. lq) and real
+    node counts (problem 0 fills the bin, the others n_lo .. N, source pad
+    nodes after them).  Chains step their band offset by 0 or 1 and have
+    one middle source whose offset jumps by `jump`; DAGs keep v - 1 in
+    slot 0 at a step of 0, 1 or up to `step` (a few steps back by up to
+    step / 8), a predecessor 2-8 nodes back in slot 1, one up to `far`
+    nodes back in slot 2 and, on some nodes, a forward one (p > v, read
+    as NEG rows) in slot 3, so that a predecessor cell lies up to
+    thousands of cells away.  Offsets are clipped to 0 .. L + 1 - B.
+    Returns (bases, preds, off, q_ext, l_len, n_nodes) numpy arrays."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    bases = np.zeros((P, N), np.uint8)
+    preds = np.full((P, N, 4), -1, np.int32)
+    off = np.zeros((P, N), np.int32)
+    q_ext = np.full((P, lq + 1), 5, np.uint8)
+    l_len = np.zeros(P, np.int32)
+    n_nodes = np.zeros(P, np.int32)
+    for i in range(P):
+        n = N if i == 0 else int(rng.integers(n_lo, N + 1))
+        li = lq if i == 0 else int(rng.integers(max(1, lq - 3000), lq + 1))
+        bases[i, :n] = rng.integers(0, 4, n)
+        preds[i, 1:n, 0] = np.arange(n - 1)
+        cap = max(0, li + 1 - band)
+        if chain:
+            steps = rng.integers(0, 2, n)
+            if n > 4:
+                preds[i, n // 2, 0] = -1          # a middle source
+                steps[n // 2] = jump
+        else:
+            kind = rng.random(n)
+            steps = np.where(kind < 0.3, 0, np.where(
+                kind < 0.5, 1, np.where(
+                    kind < 0.9, rng.integers(2, step + 1, n),
+                    -rng.integers(1, max(2, step // 8 + 1), n))))
+            for v in range(3, n):
+                preds[i, v, 1] = v - int(rng.integers(2, min(8, v) + 1))
+                preds[i, v, 2] = int(rng.integers(max(0, v - far), v - 1))
+                if v + 1 < n and rng.random() < 0.15:
+                    preds[i, v, 3] = int(rng.integers(v + 1, n))
+        steps[0] = 0
+        o = np.zeros(n, np.int64)
+        for v in range(1, n):
+            o[v] = min(max(o[v - 1] + steps[v], 0), cap)
+        off[i, :n] = o
+        q_ext[i, 1:li + 1] = rng.integers(0, 4, li)
+        l_len[i], n_nodes[i] = li, n
+    return bases, preds, off, q_ext, l_len, n_nodes
+
+
 def poa_live_equal(got, ref, off, l_len, n_nodes, band) -> bool:
     """poa_chain / poa_affine outputs (H, dirs, ends) against the plain
     version's: H and dirs on the live cells (ops/poa_cuda.py::live_mask),
@@ -2152,6 +2212,117 @@ def wide_hmm5_global(call, timed):
         f"{plain_f:.1f} / {plain_b:.1f} ms")
 
 
+# phase 8's direct poa_affine call where the band moves (B < L + 1): three
+# bubbled DAGs of up to 64 nodes against queries of about 40,000 bases at
+# band 32768, predecessor cells up to thousands of cells away
+# (`poa_offset_batch`)
+WIDE_POA_OFFSET_L = 40000
+WIDE_POA_OFFSET_SEED = 173
+
+
+def wide_poa_offsets(dev):
+    """Phase 8's direct poa_affine call on moving band offsets
+    (`poa_offset_batch`): it must take the wide route, launch poa_wide
+    once and equal the plain version on the live cells; logs its time."""
+    import torch
+    from cactus_tpu_torch.config import PoaParams
+    from cactus_tpu_torch.ops import banded as tb
+    from cactus_tpu_torch.ops import cuda_build, poa_cuda
+    from cactus_tpu_torch.ops import poa as tpoa
+    inputs = poa_offset_batch(WIDE_POA_OFFSET_SEED, 3, 64, WIDE_POA_OFFSET_L,
+                              WIDE_POA_BAND, chain=False, n_lo=40)
+    max_live = poa_cuda.check_live(inputs[1], inputs[2], inputs[4],
+                                   inputs[5], WIDE_POA_BAND)
+    if poa_cuda.poa_route(max_live) != "wide":
+        raise AssertionError("phase 8: the offset call is not on the wide "
+                             "route")
+    a = [torch.from_numpy(x).to(dev) for x in inputs]
+    sub = torch.from_numpy(tb.score_matrix_6(PoaParams().sub_matrix)).to(dev)
+    kw = dict(band=WIDE_POA_BAND, **POA_GAPS)
+    n0 = cuda_build.launches()["poa_wide"]
+    got = poa_cuda.poa_affine(*a[:5], sub, **kw, n_nodes=a[5],
+                              max_live=max_live)
+    torch.cuda.synchronize()
+    if cuda_build.launches()["poa_wide"] != n0 + 1:
+        raise AssertionError("phase 8: the offset call did not launch "
+                             "poa_wide once")
+    plain = {}
+    plain_ms = time_ms(lambda: plain.update(r=tpoa.poa_align_scan_affine(
+        *a[:5], sub, **kw)), 1, warmup=False)
+    if not poa_live_equal(got, plain["r"], a[2], a[4], a[5], WIDE_POA_BAND):
+        raise AssertionError("phase 8: poa_affine on moving band offsets "
+                             "differs from the plain version on the live "
+                             "cells")
+    del got, plain
+    ms = time_ms(lambda: poa_cuda.poa_affine(
+        *a[:5], sub, **kw, n_nodes=a[5], max_live=max_live), 3)
+    longest = int(inputs[5].max())
+    log(f"phase 8: poa_affine on moving band offsets at "
+        f"{[*inputs[0].shape, WIDE_POA_BAND]} (queries "
+        f"{inputs[4].tolist()}, n_nodes {inputs[5].tolist()}, max_live "
+        f"{max_live}, {poa_cluster_line(max_live)}, DAG predecessors up to "
+        f"{poa_max_shift(inputs)} cells away): bit-equal to the plain "
+        f"version on the live cells; {ms:.4f} ms, {ms * 1e3 / longest:.2f} "
+        f"us a node; plain {plain_ms:.1f} ms")
+
+
+def poa_max_shift(inputs) -> int:
+    """The largest |off[v] - off[p]| over the real nodes' predecessors
+    p < v of a poa_offset_batch."""
+    _b, preds, off, _q, _l, n_nodes = inputs
+    return max((abs(int(off[p, v]) - int(off[p, u]))
+                for p in range(off.shape[0]) for v in range(int(n_nodes[p]))
+                for u in preds[p, v] if 0 <= u < v), default=0)
+
+
+WIDE_SEED = 88
+
+
+def wide_poa_inputs(rng):
+    """Phase 8's POA inputs, the first draws of rng (WIDE_SEED): a chain
+    graph of 60 bases, a bubbled graph of it and a mutated copy (the poa
+    engine's poa_msa on the CPU), and a WIDE_POA_L-base query holding a
+    mutated copy 9,000 bases in."""
+    import numpy as np
+    from cactus_tpu_torch.config import PoaParams
+    from cactus_tpu_torch.ops import poa as tpoa
+    seed60 = rng.integers(0, 4, 60).astype(np.uint8)
+    chain_g = tpoa.PoaGraph.from_sequence(seed60)
+    bub_g = tpoa.poa_msa([seed60, mutate(rng, seed60, sub=0.15, indel=0.1)],
+                         params=PoaParams(), device="cpu")
+    if max(len(ps) for ps in bub_g.preds) < 2:
+        raise AssertionError("phase 8: the bubbled graph has no bubble")
+    query = np.concatenate([rng.integers(0, 4, 9000).astype(np.uint8),
+                            mutate(rng, seed60),
+                            rng.integers(0, 4, WIDE_POA_L).astype(np.uint8)]
+                           )[:WIDE_POA_L]
+    return chain_g, bub_g, query
+
+
+def poa_cluster_line(max_live, linear=False) -> str:
+    """The cluster a wide POA launch takes for max_live, for logs."""
+    from cactus_tpu_torch.ops import poa_cuda
+    sh = poa_cuda.cluster_shape(max_live, linear=linear)
+    return (f"cluster of {sh['ctas']} CTAs x {sh['threads']} threads x "
+            f"{sh['cells']} cells a lane, the cells in "
+            + ("registers" if sh["registers"] else "global scratch"))
+
+
+def poa_cluster_node_steps(max_live, linear=False) -> int:
+    """The dependent steps of a node on a POA cluster kernel, one
+    warp-shuffle latency each: the previous row's neighbour cells (1),
+    the lanes' max-scan (5 levels) and its exclusive shift (1), the block
+    barrier (1), warp 0's fold of its CTA's warp totals (5) and its push
+    (1), the cluster barrier (1), each thread's walk over the totals of
+    the CTAs and warps before it (ctas - 1 + warps - 1), and for the
+    affine kernel the E of the cell left of each lane (1).  A DAG's round
+    of history loads is not counted."""
+    from cactus_tpu_torch.ops import poa_cuda
+    sh = poa_cuda.cluster_shape(max_live, linear=linear)
+    return (15 + (0 if linear else 1) + sh["ctas"] - 1
+            + sh["threads"] // 32 - 1)
+
+
 def phase_wide(dev, errs):
     """Phase 8, the wide routes (widths past each kernel's widest narrow
     launch).  The path: the entry points a user calls, at those widths,
@@ -2172,24 +2343,14 @@ def phase_wide(dev, errs):
     kernels-line rows."""
     import numpy as np
     import torch
-    from cactus_tpu_torch.config import PoaParams
     from cactus_tpu_torch.ops import banded_cuda, cuda_build, pairhmm5_cuda
     from cactus_tpu_torch.ops import pairhmm_cuda, poa_cuda
     from cactus_tpu_torch.ops import pairhmm as tp
     from cactus_tpu_torch.ops import pairhmm5 as tp5
     from cactus_tpu_torch.ops import poa as tpoa
 
-    rng = np.random.default_rng(88)
-    seed60 = rng.integers(0, 4, 60).astype(np.uint8)
-    chain_g = tpoa.PoaGraph.from_sequence(seed60)
-    bub_g = tpoa.poa_msa([seed60, mutate(rng, seed60, sub=0.15, indel=0.1)],
-                         params=PoaParams(), device="cpu")
-    if max(len(ps) for ps in bub_g.preds) < 2:
-        raise AssertionError("phase 8: the bubbled graph has no bubble")
-    query = np.concatenate([rng.integers(0, 4, 9000).astype(np.uint8),
-                            mutate(rng, seed60),
-                            rng.integers(0, 4, WIDE_POA_L).astype(np.uint8)]
-                           )[:WIDE_POA_L]
+    rng = np.random.default_rng(WIDE_SEED)
+    chain_g, bub_g, query = wide_poa_inputs(rng)
     pairs3 = [embedded_pair(rng, WIDE_HMM_QUERY, WIDE_HMM_TARGET,
                             WIDE_HMM_TARGET // 2)]
     pairs3 += ragged_pairs(3, 1, 200, 260, WIDE_HMM_BAND)
@@ -2223,7 +2384,8 @@ def phase_wide(dev, errs):
     try:
         ops = [tpoa.poa_align_affine(g, query, device=dev)
                for g in (chain_g, bub_g)]
-        ops.append(tpoa.poa_align(chain_g, query, device=dev))
+        ops += [tpoa.poa_align(g, query, device=dev)
+                for g in (chain_g, bub_g)]
         hits3 = tp.posterior_pairs_banded(pairs3, hp, band=WIDE_HMM_BAND,
                                           device=dev)
         hits5 = tp5.posterior_pairs_banded5(pairs5, hp5,
@@ -2244,11 +2406,12 @@ def phase_wide(dev, errs):
             raise AssertionError(f"phase 8 never launched {name}")
     ref_ops = [tpoa.poa_align_affine(g, query, device="cpu")
                for g in (chain_g, bub_g)]
-    ref_ops.append(tpoa.poa_align(chain_g, query, device="cpu"))
+    ref_ops += [tpoa.poa_align(g, query, device="cpu")
+                for g in (chain_g, bub_g)]
     if ops != ref_ops:
         raise AssertionError("phase 8: a wide POA alignment differs from "
                              "the CPU run's")
-    log("phase 8: poa_align_affine (chain and bubbled graph) and poa_align "
+    log("phase 8: poa_align_affine and poa_align (chain and bubbled graph) "
         f"of a {WIDE_POA_L}-base query: traceback ops equal to the CPU run's")
 
     def plain_hits(pairs, band, plain, pack_kw):
@@ -2318,10 +2481,20 @@ def phase_wide(dev, errs):
             log(f"phase 8: {name} path call at {[*a[0].shape, k['band']]}, "
                 f"max_live {k['max_live']} ({route} route): bit-equal to the "
                 f"plain version on its {cells} live cells")
-            if route == "wide" and (best is None or cells > best[0]):
-                best = (cells, name, a, k, plain_ms)
+            if route == "wide":
+                ms = time_ms(lambda: launch(*a, **k), 3)
+                longest = int(k["n_nodes"].max())
+                graph = "chain" if name == "poa_chain" else "DAG"
+                log(f"poa_wide as {name} ({graph} graph) at "
+                    f"{[*a[0].shape, k['band']]}, max_live "
+                    f"{k['max_live']} ({poa_cluster_line(k['max_live'])}): "
+                    f"{ms:.4f} ms, {ms * 1e3 / longest:.2f} us a node "
+                    f"({longest} nodes); plain {plain_ms:.1f} ms")
+                if best is None or cells > best[0]:
+                    best = (cells, name, a, k, plain_ms)
     if best is None:
         raise AssertionError("phase 8: no POA affine call on the wide route")
+    wide_poa_offsets(dev)
     errs["poa_wide"] = 0.0
     _cells, name, args, kw, plain_ms = best
     launch = getattr(poa_cuda, name)
@@ -2332,8 +2505,14 @@ def phase_wide(dev, errs):
     log(f"poa_wide as {name} at {[P, N, kw['band']]}, max_live "
         f"{kw['max_live']}: {ms * 1e3 / longest:.2f} us a node of the "
         f"longest problem ({longest} nodes)")
+    step_ns, step_what = smem_step_ns()
+    steps = poa_cluster_node_steps(kw["max_live"])
+    latency_ms = longest * steps * step_ns / 1e6
+    log(f"poa_wide: {poa_cluster_line(kw['max_live'])}; latency line "
+        f"{longest} x {steps} steps x {step_ns:.2f} ns = {latency_ms:.4f} ms "
+        f"({step_what}), {ms / latency_ms:.2f}x")
     rows.append(kernel_row(
-        "poa_wide", "cactus_tpu_torch/csrc/poa.cu",
+        "poa_wide", "cactus_tpu_torch/csrc/poa_cluster.cu",
         {"poa_affine": "cactus_tpu/ops/poa_pallas.py:397",
          "poa_chain": "cactus_tpu/ops/poa_pallas.py:915"}[name], launches,
         errs, ms, plain_ms, bytes_, ops_, INT32_OPS_PER_S,
@@ -2374,8 +2553,13 @@ def phase_wide(dev, errs):
     shape = [int(args[0].shape[0]), int(args[2].shape[0]) + 1]
     log(f"poa_linear_wide at {shape}, n_nodes {n}, l_len {L}: {cells} live "
         f"cells; {ms * 1e3 / n:.2f} us a node")
+    steps = poa_cluster_node_steps(L + 1, linear=True)
+    latency_ms = n * steps * step_ns / 1e6
+    log(f"poa_linear_wide: {poa_cluster_line(L + 1, linear=True)}; latency "
+        f"line {n} x {steps} steps x {step_ns:.2f} ns = {latency_ms:.4f} ms "
+        f"({step_what}), {ms / latency_ms:.2f}x")
     rows.append(kernel_row(
-        "poa_linear_wide", "cactus_tpu_torch/csrc/poa.cu",
+        "poa_linear_wide", "cactus_tpu_torch/csrc/poa_cluster.cu",
         "cactus_tpu/ops/poa_pallas.py:42", launches, errs, ms, plain_ms,
         bytes_, ops_, INT32_OPS_PER_S, shape, None))
 

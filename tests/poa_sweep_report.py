@@ -26,6 +26,20 @@ passes them (max_live from check_live on the host arrays; poa_linear's
 n_nodes and l_len as poa_align passes them); an older tree's wrappers
 compute every node and column.
 
+With --only wide, the wide route (rows past the widest team cover, the
+cluster kernels of csrc/poa_cluster.cu): phase 8's calls
+(poa_align_affine of its 20,000-base query against the chain and the
+bubbled graph, poa_align against both, and the direct poa_affine call on
+moving band offsets), the widths past the cluster's register instance
+(max_live 72,001 for poa_chain / poa_affine, 70,001 for poa_linear), and,
+in a tree that can force the route (`poa_cuda._launch`), the team kernels
+against the forced cluster at max_live 4,096, 8,192 and 16,384.  Each
+wide line gives us_per_node (the longest problem's real nodes) and, in a
+tree with the clusters, the cluster and a latency line (the nodes x
+chip_smoke.poa_cluster_node_steps x one shuffle step); each call is first
+held to the plain version on its live cells (--no-check skips that, to
+time a copy with a part of a kernel taken out).
+
 With --replay, also every poa_chain and poa_affine call of the poa paths
 and every poa_linear call of poa_msa without params that `python3
 chip_smoke.py --dump-poa FILE` (or --dump here) saved, one at a time,
@@ -72,6 +86,9 @@ def main() -> int:
                     "accuracies and leaf-pair digests")
     ap.add_argument("--dump", metavar="FILE",
                     help="with --paths: save the paths' calls there")
+    ap.add_argument("--no-check", action="store_true",
+                    help="time the wide cases without holding them to the "
+                    "plain version")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -100,6 +117,8 @@ def main() -> int:
             smoke.dump_poa({**recorders, **lin_recorders}, args.dump)
     run = Runner(poa_cuda, smoke, banded_sweep, dev, rel, args.reps)
     sweep(run, smoke, dev, args.only)
+    if "wide" in args.only:
+        wide(run, smoke, dev, not args.no_check, args.only)
     if args.replay:
         replay(run, args.replay, dev)
     return 0
@@ -117,18 +136,29 @@ class Runner:
             poa_cuda.poa_chain).parameters
         self.linear_live = "l_len" in inspect.signature(
             poa_cuda.poa_linear).parameters
+        # the route to force (wide()'s team-vs-cluster cases), None for
+        # the wrappers' own
+        self.route = None
 
     def fn(self, kernel, args, kw, n_nodes, max_live):
         wrapper = getattr(self.poa_cuda, kernel)
+        if self.route is not None:
+            # the named route of a tree that can force it
+            gaps = tuple(kw[k] for k in ("o1", "e1", "o2", "e2"))
+            return lambda: self.poa_cuda._launch(
+                kernel, *args, kw["band"], gaps, n_nodes, max_live,
+                self.route)
         if self.live:
             return lambda: wrapper(*args, **kw, n_nodes=n_nodes,
                                    max_live=max_live)
         return lambda: wrapper(*args, **kw)
 
-    def time(self, case, kernel, args, kw, n_nodes, max_live):
+    def time(self, case, kernel, args, kw, n_nodes, max_live, key=None):
+        """One call's time; key: the device kernel's name to read from the
+        profiler (default: the wrapper's)."""
         fn = self.fn(kernel, args, kw, n_nodes, max_live)
         ms = self.smoke.time_ms(fn, self.reps)
-        dev_ms = self.sweep.kernel_device_ms(fn, self.reps, kernel)
+        dev_ms = self.sweep.kernel_device_ms(fn, self.reps, key or kernel)
         P, N = args[0].shape
         B = kw["band"]
         return dict(root=self.root, case=case, kernel=kernel,
@@ -138,14 +168,23 @@ class Runner:
                     band_cells=P * N * B)
 
 
-    def time_linear(self, case, args, kw):
+    def linear_fn(self, args, kw):
         """One poa_linear call, with its live extents (n_nodes, l_len in
-        kw) where the tree takes them."""
+        kw) where the tree takes them, on the forced route where one is
+        set."""
+        if self.route is not None:
+            return lambda: self.poa_cuda._launch_linear(
+                *args, kw["gap"], kw["match"], kw["mismatch"], kw["n_nodes"],
+                kw["l_len"], self.route)
         if not self.linear_live:
             kw = {k: v for k, v in kw.items() if k not in ("n_nodes",
                                                            "l_len")}
         wrapper = self.poa_cuda.poa_linear
-        fn = lambda: wrapper(*args, **kw)   # noqa: E731
+        return lambda: wrapper(*args, **kw)
+
+    def time_linear(self, case, args, kw):
+        """Times linear_fn's call."""
+        fn = self.linear_fn(args, kw)
         ms = self.smoke.time_ms(fn, self.reps)
         dev_ms = self.sweep.kernel_device_ms(fn, self.reps, "poa_linear")
         return dict(root=self.root, case=case, kernel="poa_linear",
@@ -207,6 +246,164 @@ def sweep(run, smoke, dev, only):
         args = [torch.from_numpy(x).to(dev) for x in (bases, preds, q)]
         kw = dict(gap=30, match=10, mismatch=-15, n_nodes=n, l_len=l)
         print(json.dumps(run.time_linear(case, args, kw)), flush=True)
+
+
+def wide_calls(smoke, dev):
+    """Phase 8's POA calls, captured at the wrappers (poa_chain,
+    poa_affine, poa_linear) while poa_align_affine and poa_align run its
+    query against the chain and the bubbled graph on the CPU: [(case,
+    kernel, args, kw)] on `dev`."""
+    import numpy as np
+    import torch
+    from cactus_tpu_torch.ops import poa as tpoa
+    from cactus_tpu_torch.ops import poa_cuda
+    chain_g, bub_g, query = smoke.wide_poa_inputs(
+        np.random.default_rng(smoke.WIDE_SEED))
+    saved = {k: getattr(poa_cuda, k)
+             for k in ("poa_chain", "poa_affine", "poa_linear")}
+    calls = []
+
+    def on(x):
+        return x.to(dev) if torch.is_tensor(x) else x
+
+    def recorder(kernel):
+        def record(*a, **k):
+            calls.append([kernel, [on(x) for x in a],
+                          {x: on(v) for x, v in k.items()}])
+            return saved[kernel](*a, **k)
+        return record
+
+    try:
+        for kernel in saved:
+            setattr(poa_cuda, kernel, recorder(kernel))
+        for graph, g in (("chain", chain_g), ("bubbled", bub_g)):
+            tpoa.poa_align_affine(g, query, device="cpu")
+            calls[-1].insert(0, f"wide phase 8 {graph} graph")
+            tpoa.poa_align(g, query, device="cpu")
+            calls[-1].insert(0, f"wide phase 8 linear {graph} graph")
+    finally:
+        for kernel, fn in saved.items():
+            setattr(poa_cuda, kernel, fn)
+    return [tuple(c) for c in calls]
+
+
+def _held(what, got, ref, live):
+    import torch
+    if not all(torch.equal(g[m], r[m]) for g, r, m in zip(got[:2], ref[:2],
+                                                         live)):
+        raise AssertionError(f"{what}: differs from the plain version on "
+                             "the live cells")
+
+
+def wide(run, smoke, dev, check, only="wide"):
+    """The wide route's cases (module docstring) whose name holds `only`,
+    each held to the plain version first unless check is False."""
+    import numpy as np
+    import torch
+    from cactus_tpu_torch.config import PoaParams
+    from cactus_tpu_torch.ops import banded as tb
+    from cactus_tpu_torch.ops import poa as tpoa
+    pc = run.poa_cuda
+    clusters = hasattr(pc, "cluster_shape")
+    step_ns, step_what = smoke.smem_step_ns()
+    sub = torch.from_numpy(tb.score_matrix_6(PoaParams().sub_matrix)).to(dev)
+
+    def latency(line, max_live, nodes, linear):
+        line["us_per_node"] = line["ms"] * 1e3 / nodes
+        if clusters and run.route in (None, "wide"):
+            steps = smoke.poa_cluster_node_steps(max_live, linear)
+            line["cluster"] = smoke.poa_cluster_line(max_live, linear)
+            line["latency_ms"] = nodes * steps * step_ns / 1e6
+            line["latency_line"] = (f"{nodes} x {steps} steps x "
+                                    f"{step_ns:.2f} ns ({step_what})")
+        return line
+
+    def affine(case, kernel, args, kw, n_nodes, max_live):
+        if only not in case:
+            return
+        if check:
+            got = run.fn(kernel, args, kw, n_nodes, max_live)()
+            ref = tpoa.poa_align_scan_affine(*args, **kw)
+            live = pc.live_mask(args[2], args[4], n_nodes, kw["band"])
+            _held(case, got, ref, (live, live))
+            del got, ref
+        # the call launches one kernel: the team kernel's, the cluster
+        # kernel or an older tree's wide kernel
+        line = run.time(case, kernel, args, kw, n_nodes, max_live, "poa_")
+        print(json.dumps(latency(line, max_live, int(n_nodes.max()), False)),
+              flush=True)
+
+    def linear(case, args, kw):
+        if only not in case:
+            return
+        if check:
+            got = run.linear_fn(args, kw)()
+            ref = tpoa.poa_align_scan(*args, **{k: kw[k] for k in (
+                "gap", "match", "mismatch")})
+            live = pc.linear_live_mask(args[0].shape[0], args[2].shape[0],
+                                       kw["n_nodes"], kw["l_len"], dev)
+            _held(case, got, ref, (live, live))
+            del got, ref
+        line = run.time_linear(case, args, kw)
+        print(json.dumps(latency(line, kw["l_len"] + 1, kw["n_nodes"], True)),
+              flush=True)
+
+    for case, kernel, a, k in wide_calls(smoke, dev):
+        if kernel == "poa_linear":
+            linear(case, a, k)
+        else:
+            kw = {x: v for x, v in k.items() if x not in ("n_nodes",
+                                                         "max_live")}
+            affine(case, kernel, a, kw, k["n_nodes"], k["max_live"])
+    gaps = dict(band=smoke.WIDE_POA_BAND, **smoke.POA_GAPS)
+    # the direct call on moving band offsets, and the widths past the
+    # register instance
+    cases = [("wide phase 8 offsets", "poa_affine", smoke.poa_offset_batch(
+        smoke.WIDE_POA_OFFSET_SEED, 3, 64, smoke.WIDE_POA_OFFSET_L,
+        smoke.WIDE_POA_BAND, chain=False, n_lo=40), gaps)]
+    for kernel in ("poa_chain", "poa_affine"):
+        cases.append((f"wide global scratch {kernel}", kernel,
+                      smoke.poa_offset_batch(72000 + 131072, 1, 16, 72000,
+                                             131072, chain=kernel ==
+                                             "poa_chain", n_lo=16, far=12),
+                      dict(gaps, band=131072)))
+    for case, kernel, inputs, kw in cases:
+        t = [torch.from_numpy(x).to(dev) for x in inputs]
+        max_live = pc.check_live(inputs[1], inputs[2], inputs[4], inputs[5],
+                                 kw["band"])
+        affine(case, kernel, t[:5] + [sub], kw, t[5], max_live)
+        del t
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(9)
+    bases, preds = smoke.poa_dag(rng, 16, forward=3)
+    q = rng.integers(0, 4, 70000).astype(np.uint8)
+    linear("wide global scratch poa_linear",
+           [torch.from_numpy(x).to(dev) for x in (bases, preds, q)],
+           dict(gap=30, match=10, mismatch=-15, n_nodes=16, l_len=70000))
+    if not hasattr(pc, "_launch"):
+        return
+    # team against the forced cluster, one 64-node problem whose query
+    # fills the band (offsets 0, max_live = W)
+    for W in (4096, 8192, 16384):
+        for kernel in ("poa_chain", "poa_affine"):
+            inputs = smoke.poa_offset_batch(W, 1, 64, W - 1, W,
+                                            chain=kernel == "poa_chain")
+            t = [torch.from_numpy(x).to(dev) for x in inputs]
+            kw = dict(gaps, band=W)
+            for run.route in ("team", "wide"):
+                label = "cluster" if run.route == "wide" else "team"
+                affine(f"wide {label} {kernel} max_live {W}", kernel,
+                       t[:5] + [sub], kw, t[5], W)
+        rng = np.random.default_rng(W)
+        bases, preds = smoke.poa_dag(rng, 64, forward=3)
+        q = rng.integers(0, 4, W - 1).astype(np.uint8)
+        args = [torch.from_numpy(x).to(dev) for x in (bases, preds, q)]
+        for run.route in ("team", "wide"):
+            label = "cluster" if run.route == "wide" else "team"
+            linear(f"wide {label} poa_linear max_live {W}", args,
+                   dict(gap=30, match=10, mismatch=-15, n_nodes=64,
+                        l_len=W - 1))
+    run.route = None
 
 
 def replay(run, path, dev):

@@ -871,6 +871,45 @@ def test_poa_wide_rows_match_plain(cuda, kernel, P):
     _assert_poa_live(got, ref, args[2], args[4], args[5], 32768)
 
 
+@pytest.mark.parametrize("kernel,P", [("poa_chain", 1), ("poa_chain", 3),
+                                      ("poa_affine", 1), ("poa_affine", 3)])
+def test_poa_wide_offsets_match_plain(cuda, kernel, P):
+    """The wide route where the band moves: queries of about 40,000 bases
+    at band 32768 (so off[v] steps), 64-node chains with a middle source
+    whose offset jumps by 2,500, and DAGs whose predecessors lie up to 60
+    nodes back at shifts up to thousands of cells, past one CTA's slice
+    of the row; ragged l_len and n_nodes.  Bit-equal to the plain
+    version on the live cells, one poa_wide launch."""
+    inputs = chip_smoke.poa_offset_batch(P + 170, P, 64, 40000, 32768,
+                                         chain=kernel == "poa_chain",
+                                         n_lo=40)
+    assert poa_cuda.chain_certified(inputs[1], inputs[2]) == (
+        kernel == "poa_chain")
+    max_live = poa_cuda.check_live(inputs[1], inputs[2], inputs[4],
+                                   inputs[5], 32768)
+    assert poa_cuda.poa_route(max_live) == "wide"
+    # a chain's middle source jumps past a CTA's slice (about 2,048
+    # cells); a DAG reads predecessor cells farther away than that
+    off = inputs[2].astype(np.int64)
+    if kernel == "poa_chain":
+        assert np.diff(off[0, :int(inputs[5][0])]).max() >= 2500
+    else:
+        assert max(int(off[p, v]) - int(off[p, u])
+                   for p in range(P) for v in range(int(inputs[5][p]))
+                   for u in inputs[1][p, v] if 0 <= u < v) > 2048
+    args = [torch.from_numpy(x).to(cuda) for x in inputs]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    kw = dict(band=32768, o1=400, e1=30, o2=1200, e2=1)
+    n0 = cuda_build.launches()
+    got = getattr(poa_cuda, kernel)(*args[:5], sub, **kw, n_nodes=args[5],
+                                    max_live=max_live)
+    torch.cuda.synchronize()
+    n1 = cuda_build.launches()
+    assert n1["poa_wide"] == n0["poa_wide"] + 1 and n1[kernel] == n0[kernel]
+    ref = tpoa.poa_align_scan_affine(*args[:5], sub, **kw)
+    _assert_poa_live(got, ref, args[2], args[4], args[5], 32768)
+
+
 def test_poa_align_bin_wide(cuda):
     """align_bin, the poa engine's card route, on a bin whose live row
     passes the widest team cover: the wide kernel, dirs and ends equal to
@@ -898,7 +937,8 @@ def test_poa_align_bin_wide(cuda):
     (64, 128, 60, 100),       # live rows and columns inside the padding
     (64, 2048, 64, 2048),     # the whole grid, 16 warps
     (64, 32768, 64, 20000),   # past the widest cover: the wide kernel
-    (40, 20000, 33, 20000)])
+    (40, 20000, 33, 20000),
+    (48, 40000, 40, 36000)])  # a DAG over 16 CTAs of 2,304 columns
 def test_poa_linear_wide_and_live_rows(cuda, N, L, n, l_len):
     """poa_linear with n_nodes and l_len (poa_align's live extents):
     bit-equal to the plain version on the live cells, ends on the real
@@ -925,6 +965,125 @@ def test_poa_linear_wide_and_live_rows(cuda, N, L, n, l_len):
     assert torch.equal(got[1][live], ref[1][live])
     if l_len == L:
         assert torch.equal(got[2][:n], ref[2][:n])
+
+
+def test_poa_wide_cluster_shapes(cuda):
+    """The clusters csrc/poa_cluster.cu picks: phase 8's width (20,001
+    live cells) in registers over 16 CTAs, a width past the register
+    instances in 512-thread CTAs with the lanes' cells in global
+    scratch, and fewer CTAs where max_ctas caps them."""
+    shape = poa_cuda.cluster_shape
+    for linear in (False, True):
+        assert shape(20001, linear=linear) == dict(
+            ctas=16, threads=320, cells=4, registers=True, words=0)
+        assert shape(32768, linear=linear) == dict(
+            ctas=16, threads=512, cells=4, registers=True, words=0)
+    for linear, planes in ((False, 7), (True, 3)):
+        sh = shape(70001, linear=linear)
+        assert not sh["registers"] and sh["ctas"] == 16
+        assert sh["threads"] == 512 and sh["cells"] == 9
+        assert sh["words"] == planes * 16 * 512 * 9
+    assert shape(4096, 2) == dict(ctas=2, threads=512, cells=4,
+                                  registers=True, words=0)
+    assert shape(100, 16)["ctas"] == 1
+
+
+def _check_forced_wide(cuda, kernel, inputs, band, max_ctas):
+    """One wide-route launch of `kernel` forced at max_ctas CTAs (0: as
+    cluster_shape picks), bit-equal to the plain version on the live
+    cells, counted once as poa_wide."""
+    max_live = poa_cuda.check_live(inputs[1], inputs[2], inputs[4],
+                                   inputs[5], band)
+    args = [torch.from_numpy(x).to(cuda) for x in inputs]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    kw = dict(band=band, o1=400, e1=30, o2=1200, e2=1)
+    n0 = cuda_build.launches()
+    got = poa_cuda._launch(kernel, *args[:5], sub, band, (400, 30, 1200, 1),
+                           args[5], max_live, "wide", max_ctas=max_ctas)
+    torch.cuda.synchronize()
+    n1 = cuda_build.launches()
+    assert n1["poa_wide"] == n0["poa_wide"] + 1 and n1[kernel] == n0[kernel]
+    ref = tpoa.poa_align_scan_affine(*args[:5], sub, **kw)
+    _assert_poa_live(got, ref, args[2], args[4], args[5], band)
+    return max_live
+
+
+@pytest.mark.parametrize("kernel", ["poa_chain", "poa_affine"])
+@pytest.mark.parametrize("ctas", [2, 4, 8, 16])
+def test_poa_wide_forced_cluster_sizes(cuda, kernel, ctas):
+    """The wide route forced at a narrow width (band 4096, queries of
+    about 5,000 bases, so the band moves) in 2, 4, 8 and 16 CTAs: DAG
+    predecessors up to hundreds of cells away, a chain's middle source
+    jumping to the end of its offsets."""
+    chain = kernel == "poa_chain"
+    inputs = chip_smoke.poa_offset_batch(ctas + 300, 2, 48, 5000, 4096,
+                                         chain=chain, n_lo=20, jump=1000,
+                                         far=30, step=100)
+    assert poa_cuda.chain_certified(inputs[1], inputs[2]) == chain
+    max_live = _check_forced_wide(cuda, kernel, inputs, 4096, ctas)
+    assert poa_cuda.poa_route(max_live) == "team"
+    assert poa_cuda.cluster_shape(max_live, ctas)["ctas"] == ctas
+
+
+@pytest.mark.parametrize("kernel", ["poa_chain", "poa_affine"])
+@pytest.mark.parametrize("lq,band", [(72000, 131072), (70000, 65536)])
+def test_poa_wide_past_the_register_instance(cuda, kernel, lq, band):
+    """Widths past the register instance's 32,768 cells (max_live 72,001
+    at band 131072; 65,536 at band 65536, where the band moves): the
+    global-scratch instance, 16 nodes."""
+    chain = kernel == "poa_chain"
+    inputs = chip_smoke.poa_offset_batch(lq + band, 1, 16, lq, band,
+                                         chain=chain, n_lo=16, jump=2500,
+                                         far=12)
+    max_live = poa_cuda.check_live(inputs[1], inputs[2], inputs[4],
+                                   inputs[5], band)
+    assert not poa_cuda.cluster_shape(max_live)["registers"]
+    _check_forced_wide(cuda, kernel, inputs, band, 0)
+
+
+def _linear_wide_case(cuda, seed, N, n, L, l_len):
+    rng = np.random.default_rng(seed)
+    bases, preds = _poa_dag(rng, N, forward=3)
+    preds[n:] = -1
+    preds[:n][preds[:n] >= n] = -1
+    q = np.full(L, 5, np.uint8)
+    q[:l_len] = _codes(rng, l_len)
+    return [torch.from_numpy(x).to(cuda) for x in (bases, preds, q)]
+
+
+def _check_linear_wide(cuda, args, n, l_len, max_ctas):
+    N, L = args[0].shape[0], args[2].shape[0]
+    kw = dict(gap=30, match=10, mismatch=-15)
+    n0 = cuda_build.launches()["poa_linear_wide"]
+    got = poa_cuda._launch_linear(*args, kw["gap"], kw["match"],
+                                  kw["mismatch"], n, l_len, "wide",
+                                  max_ctas=max_ctas)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()["poa_linear_wide"] == n0 + 1
+    ref = tpoa.poa_align_scan(*args, **kw)
+    live = poa_cuda.linear_live_mask(N, L, n, l_len, cuda)
+    assert torch.equal(got[0][live], ref[0][live])
+    assert torch.equal(got[1][live], ref[1][live])
+    if l_len == L:
+        assert torch.equal(got[2][:n], ref[2][:n])
+
+
+@pytest.mark.parametrize("ctas", [2, 4, 8, 16])
+def test_poa_linear_wide_forced_cluster_sizes(cuda, ctas):
+    """poa_linear's wide route forced at a narrow width (l_len 9,000 of a
+    query padded to 16,384, a 40-node DAG in a bin of 48) in 2, 4, 8 and
+    16 CTAs."""
+    args = _linear_wide_case(cuda, ctas, 48, 40, 16384, 9000)
+    _check_linear_wide(cuda, args, 40, 9000, ctas)
+    assert poa_cuda.cluster_shape(9001, ctas, linear=True)["ctas"] == ctas
+
+
+def test_poa_linear_wide_past_the_register_instance(cuda):
+    """poa_linear past its register instance's 32,768 columns (a 16-node
+    DAG against 70,000 bases): the global-scratch instance."""
+    assert not poa_cuda.cluster_shape(70001, linear=True)["registers"]
+    args = _linear_wide_case(cuda, 9, 16, 16, 70000, 70000)
+    _check_linear_wide(cuda, args, 16, 70000, 0)
 
 
 @pytest.mark.parametrize("cover", sorted(poa_cuda.TEAM_SHAPES["poa_linear"]))

@@ -262,10 +262,10 @@ def test_wrappers_take_every_width():
                                       70001) == 70001
 
 
-def test_align_bin_budgets_the_wide_route(monkeypatch):
-    """align_bin counts the wide kernel's history planes (8 bytes a band
-    cell) into its launch budget: a bin whose live row passes the widest
-    cover runs in chunks that each fit."""
+def _wide_bin_chunks(monkeypatch, chain, max_launch_bytes):
+    """The chunks (problems, max_live) align_bin runs a bin of three
+    problems (8 nodes, a query of 20,000 bases, band 32768) in: chains,
+    or the same with a second predecessor on nodes 4-7 (a DAG)."""
     rng = np.random.default_rng(3)
     P, N, band = 3, 8, 32768
     stack = dict(bases=rng.integers(0, 4, (P, N)).astype(np.uint8),
@@ -273,20 +273,42 @@ def test_align_bin_budgets_the_wide_route(monkeypatch):
                  off=np.zeros((P, N), np.int32),
                  q_ext=np.full((P, 20001), 5, np.uint8))
     stack["preds"][:, 1:, 0] = np.arange(N - 1)
+    if not chain:
+        stack["preds"][:, 4:, 1] = 1
+    assert poa_cuda.chain_certified(stack["preds"], stack["off"]) == chain
     l_len = np.full(P, 20000, np.int32)
     chunks = []
-    real = poa_cuda.poa_chain
+    name = "poa_chain" if chain else "poa_affine"
+    real = getattr(poa_cuda, name)
 
     def spy(*args, **kw):
         chunks.append((args[0].shape[0], kw["max_live"]))
         return real(*args, **kw)
 
-    monkeypatch.setattr(poa_cuda, "poa_chain", spy)
-    per = N * band * (poa_cuda.POA_AFFINE_OUT_BYTES_PER_CELL
-                      + poa_cuda.POA_WIDE_SCRATCH_BYTES_PER_CELL)
+    monkeypatch.setattr(poa_cuda, name, spy)
     poa_cuda.align_bin(stack, l_len, SUB, band, **GAPS, device="cpu",
-                       max_launch_bytes=2 * per)
-    assert chunks == [(2, 20001), (1, 20001)]
+                       max_launch_bytes=max_launch_bytes)
+    return chunks
+
+
+def test_align_bin_budgets_the_wide_route(monkeypatch):
+    """align_bin counts the wide route's history rows on a DAG (H, F1, F2
+    of the live cells: POA_WIDE_SCRATCH_BYTES_PER_CELL, 12 bytes a band
+    cell) into its launch budget: a bin whose live row passes the widest
+    cover runs in chunks that each fit."""
+    per = 8 * 32768 * (poa_cuda.POA_AFFINE_OUT_BYTES_PER_CELL
+                       + poa_cuda.POA_WIDE_SCRATCH_BYTES_PER_CELL)
+    assert _wide_bin_chunks(monkeypatch, False, 2 * per) == [(2, 20001),
+                                                            (1, 20001)]
+
+
+def test_align_bin_budgets_the_wide_chain_route(monkeypatch):
+    """The wide route's chain launches keep no history rows: align_bin
+    budgets their outputs alone."""
+    per = 8 * 32768 * poa_cuda.POA_AFFINE_OUT_BYTES_PER_CELL
+    assert _wide_bin_chunks(monkeypatch, True, 2 * per) == [(2, 20001),
+                                                           (1, 20001)]
+    assert _wide_bin_chunks(monkeypatch, True, 3 * per) == [(3, 20001)]
 
 
 # ------------------------------------------------- plain versions vs JAX
