@@ -26,38 +26,86 @@
 //     NEG, which is what the plain version holds there on every row;
 //   - cells with j > n and rows past m feed no live cell.
 // Row i's live window is b_lo(i) = max(0, -i - lo) .. b_hi(i) =
-// min(B - 1, n - i - lo); it slides one band cell left a row.  The D chain
+// min(B - 1, n - i - lo); it slides one band cell left a row while
+// -i - lo > 0.  In banded_dp_kernel's max-scan form the D chain
 // of the skipped cells left of b_lo, all H = NEG, contributes
 // max_{c < b_lo} (NEG + extend * (c + 1)) = NEG + extend * b_lo to the
 // scan's seed: with NEG alone, bit 3 of the j = 0 cell would differ from
-// the plain version.  Row 0 is initialised only on the band cells a live
-// cell reads: from b_lo(m) (the j = -1 cell read by row m's j = 0 cell)
-// up to b_hi(1) + 1 (the I predecessor of row 1's last live cell).
+// the plain version.  banded_dp_kernel initialises row 0 only on the
+// band cells a live cell reads: from b_lo(m) (the j = -1 cell read by
+// row m's j = 0 cell) up to b_hi(1) + 1 (the I predecessor of row 1's
+// last live cell).
 //
 // What bounds it on an H100: integer operations.  The recurrence needs
 // 22 int32 operations a live cell (max/compare/select/add/clamp), 15
 // where Hopper's DPX instructions fuse them (see
 // ops/banded_cuda.py::BANDED_OPS_PER_CELL), and writes one byte a live
 // cell, so the ALUs, not the 3.35 TB/s of device memory, set the floor.
-// This kernel does more than that per cell (two passes and a scan of the
-// D chain) and uses no DPX instruction.  The design keeps all DP state on
-// chip: one thread block per pair, each row's live window split across
-// the block's threads into contiguous runs of C = ceil(min(B, n + 1) /
-// threads) cells from the window's left end (C is fixed per pair, so a
-// row needs no division).  The previous row's H/I/D live in shared
-// memory with band indexing (12 bytes a band cell, 192 KB at
-// B = 16384); only the direction bytes of the live window go to device
-// memory, staged in shared memory and stored with 16-byte vector writes
-// (the 16-byte chunks that hold the window, so a few dead bytes at its
-// ends are written too).
+// A launch of a few long pairs is bound instead by one pair's chain of
+// rows: each row's D chain runs through the whole live window.
+//
+// Two kernels, by the launch's widest live row W = max_live
+// (banded_dp_launch): banded_dp_warp_kernel for W <= kWarpMaxLive (256;
+// the band-128 gap fills and the BAR short ends), banded_dp_kernel for
+// wider rows.  Both keep all DP state on chip and store only the live
+// direction bytes.
+//
+// banded_dp_warp_kernel: one warp a pair, a block each, and no block
+// barrier.  Lane L holds C = max(2, ceil(W / 32)) <= 8 consecutive cells
+// k = L*C .. L*C + C - 1 of each row's live window (band index
+// b = b_lo(i) + k) in registers, with its previous row's H, I and D.
+// Between rows the window moves by delta(i) = b_lo(i - 1) - b_lo(i) in
+// {0, 1}, the same for every lane: cell k's H predecessor is the previous
+// row's window index k - delta, its I predecessor k + 1 - delta, so one
+// map covers the BAR short ends (whose window slides a cell a row) and
+// the long gap fills (whose window stands still).  The D chain is a
+// recursion, not a scan:
+//   Dunc[b] = max(Hl[b] - open - extend, Dunc[b - 1] - extend),
+// Hl[b] the row's unclamped H at b - 1, which is the plain version's
+// Y[b] - open - extend * (b + 1) exactly (max is exact in int32); it
+// starts at b_lo from the skipped cells' seed (NEG + extend * b_lo in
+// the scan's form), and d_fresh compares Dunc with Hl - open - extend.
+// The lanes run a skewed wavefront: lane L computes row i at step
+// i - 1 + L, one round of warp shuffles a step, every lane busy once the
+// pipe is full (m + 31 steps at most).  Lane L - 1's row i (its chain
+// carry and last H) came one step before, and its row i - 1 (the H
+// predecessor of L's first cell where the window slides) two.  Where the
+// window stands still, L's last cell reads lane L + 1's first cell of
+// row i - 1, which L + 1 computes at the same step: L computes that
+// cell too (the ghost, H and I only), from L + 1's row i - 2 (cells 0
+// and 1, hence C >= 2) and its score, and from L's own chain.  A step
+// of the skew-2 schedule (lane L on row i at step 2 (i - 1) + L, the
+// I predecessor a step old) takes as many instruction slots as a row of
+// this one, since half the warp waits at each: PERF.md section 6
+// measures both.  The steps whose lanes all stand on rows
+// 2 - lo .. m - 1 (most of a long gap fill) run a step compiled without
+// the sliding window, the first and the last row.  One pair a block:
+// four pairs sharing an SM's shuffle and load units ran slower a row.
+// q and t_shift bytes are loaded two steps ahead and looked up in the
+// score table a step ahead, every lane at once; each lane stores its C
+// direction bytes directly, in one vector store where they lie aligned
+// inside the band (staging rows in shared memory for 16-byte stores was
+// slower, PERF.md section 6).  No DPX instruction: with __vibmax_s32
+// (max and its a >= b predicate) and __viaddmax_s32 (max(a + b, c)) in
+// max_ge and add_max the kernel ran ~7% slower (PERF.md section 6 has
+// both timings).
+//
+// banded_dp_kernel (W > 256): one thread block per pair, each row's live
+// window split across the block's threads into contiguous runs of
+// C = ceil(min(B, n + 1) / threads) cells from the window's left end (C
+// is fixed per pair, so a row needs no division).  The previous row's
+// H/I/D live in shared memory with band indexing (12 bytes a band cell,
+// 192 KB at B = 16384); only the direction bytes of the live window go
+// to device memory, staged in shared memory and stored with 16-byte
+// vector writes (the 16-byte chunks that hold the window, so a few dead
+// bytes at its ends are written too).
 // The D chain (an inclusive max-scan along the band on the TPU) is a
 // sequential max inside each thread plus one warp-shuffle / shared-memory
 // exclusive max-scan of the per-thread maxima; max is exact in int32, so
 // any scan order gives the same bits.  The block's width follows the
 // widest live row of the launch (max_live): about four live cells a
 // thread when the launch has enough pairs to fill the card, one a thread
-// (up to 256 threads) when it has few, so a short-pair launch runs one
-// warp a pair and a wide one keeps 256 threads.
+// (up to 256 threads) when it has few.
 //
 // banded_traceback is device code with no Pallas counterpart: it replaces
 // the vmapped lax.while_loop of
@@ -89,6 +137,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -266,6 +315,320 @@ banded_dp_kernel(const uint8_t* __restrict__ q,
       }
     }
   }
+}
+
+// ---------------------------------------------------------------- warp
+
+constexpr int kWarpMaxLive = 256;      // ops/banded_cuda.py WARP_MAX_LIVE
+
+// max(a, b), and a_ge = a >= b (DPX's __vibmax_s32 computes the same and
+// ran slower here, PERF.md section 6)
+__device__ __forceinline__ int max_ge(int a, int b, bool& a_ge) {
+  a_ge = a >= b;
+  return a_ge ? a : b;
+}
+
+// max(a + b, c) (DPX's __viaddmax_s32, likewise)
+__device__ __forceinline__ int add_max(int a, int b, int c) {
+  return imax(a + b, c);
+}
+
+// A row's bytes for lane cells b0 .. b0 + C - 1 (band indices): t_shift
+// at i - 1 + b, clamped into the band (cells past it are dead), and q.
+template <int C>
+__device__ __forceinline__ void warp_load_row(const uint8_t* qp,
+                                              const uint8_t* tp, int i,
+                                              int b0, int B, int& qb,
+                                              int (&tb)[C]) {
+  qb = __ldg(qp + i - 1);
+#pragma unroll
+  for (int c = 0; c < C; ++c) tb[c] = __ldg(tp + i - 1 + min(b0 + c, B - 1));
+}
+
+// One lane's C cells of row i.  kSlide: the window moved one band cell
+// left since the previous row (delta = 1), so cell c's H/D predecessor
+// is the previous row's cell c - 1 (lH/lI/lD, lane - 1's last cell, for
+// c = 0) and its I predecessor cell c; else cell c and c + 1 (gH/gI,
+// lane + 1's first cell, for c = C - 1).  dch / hl: the D chain's value
+// at the lane's first cell and the unclamped H left of it.  H/I/D become
+// row i's clamped values, Hu the unclamped H, dir the direction bytes;
+// returns the chain's value at the next lane's first cell.
+template <int C, bool kSlide>
+__device__ __forceinline__ int warp_row(int (&H)[C], int (&I)[C], int (&D)[C],
+                                        int (&Hu)[C], int (&dir)[C],
+                                        const int (&sc)[C], int lH, int lI,
+                                        int lD, int gH, int gI, int dch,
+                                        int hl, bool j0, int i, int go,
+                                        int ge) {
+  const int oe = go + ge;
+  int In[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int Hp = kSlide ? (c ? H[c - 1] : lH) : H[c];
+    const int Ip = kSlide ? (c ? I[c - 1] : lI) : I[c];
+    const int Dp = kSlide ? (c ? D[c - 1] : lD) : D[c];
+    const int Hq = kSlide ? H[c] : (c + 1 < C ? H[c + 1] : gH);
+    const int Iq = kSlide ? I[c] : (c + 1 < C ? I[c + 1] : gI);
+    bool h_ge_i, hi_ge_d, i_fresh;
+    const int hi = max_ge(Hp, Ip, h_ge_i);
+    const int best = max_ge(hi, Dp, hi_ge_d);
+    Hu[c] = best + sc[c];
+    In[c] = max_ge(Hq - go, Iq, i_fresh);
+    dir[c] = (hi_ge_d ? (h_ge_i ? 0 : 1) : 2) | (i_fresh ? 4 : 0);
+  }
+  if (j0) {                            // cell 0 is j = 0: the DP boundary
+    Hu[0] = kNeg;
+    In[0] = -(go + i * ge) + ge;       // I = -(open + i * extend)
+  }
+  int d = dch;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int hlt = (c ? Hu[c - 1] : hl) - oe;
+    if (c) d = add_max(d, -ge, hlt);
+    dir[c] |= d == hlt ? 8 : 0;
+    D[c] = (c == 0 && j0) ? kNeg : imax(d, kNeg);
+    H[c] = imax(Hu[c], kNeg);
+    I[c] = add_max(In[c], -ge, kNeg);
+  }
+  return add_max(d, -ge, Hu[C - 1] - oe);
+}
+
+// V direction bytes from dir[u] as one little-endian word (V <= 4)
+template <int V, int C>
+__device__ __forceinline__ uint32_t pack_bytes(const int (&dir)[C], int u) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int x = 0; x < V; ++x) w |= (uint32_t)dir[u + x] << (8 * x);
+  return w;
+}
+
+// dir's C bytes to dst in stores of V bytes (dst aligned to V)
+template <int V, int C>
+__device__ __forceinline__ void store_bytes(uint8_t* dst,
+                                            const int (&dir)[C]) {
+#pragma unroll
+  for (int u = 0; u < C; u += V) {
+    if constexpr (V == 8) {
+      *reinterpret_cast<uint2*>(dst + u) =
+          make_uint2(pack_bytes<4>(dir, u), pack_bytes<4>(dir, u + 4));
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<uint32_t*>(dst + u) = pack_bytes<4>(dir, u);
+    } else if constexpr (V == 2) {
+      *reinterpret_cast<uint16_t*>(dst + u) = (uint16_t)pack_bytes<2>(dir, u);
+    } else {
+      dst[u] = (uint8_t)dir[u];
+    }
+  }
+}
+
+// One block of one warp a pair.  C >= 2 cells a lane: a lane's ghost of
+// lane + 1's first cell reads lane + 1's second cell of the row before.
+template <int C>
+__global__ void __launch_bounds__(32)
+banded_dp_warp_kernel(const uint8_t* __restrict__ q,
+                      const uint8_t* __restrict__ t_shift,
+                      const int* __restrict__ m_len,
+                      const int* __restrict__ n_len,
+                      const int* __restrict__ lo,
+                      const int* __restrict__ submat,
+                      int M, int B, int W, int gap_open,
+                      int gap_extend, uint8_t* __restrict__ dirs,
+                      int* __restrict__ end_scores,
+                      int* __restrict__ end_mat) {
+  static_assert(C >= 2, "the ghost cell reads lane + 1's second cell");
+  constexpr unsigned kFull = 0xffffffffu;
+  // the widest power of two (up to 8 bytes) that divides a lane's C bytes
+  constexpr int V = (C & -C) > 8 ? 8 : (C & -C);
+  __shared__ int sub[36];
+  const int lane = threadIdx.x;
+  const int p = blockIdx.x;
+  for (int k = lane; k < 36; k += 32) sub[k] = submat[k];
+  __syncwarp();
+  const int lo_p = lo[p];
+  const int m = m_len[p];
+  const int n = n_len[p];
+  const int b_end = n - m - lo_p;
+  // no cell holds the end (malformed input; n < 0 has no live cell and
+  // the plain version's end is NEG there too): report NEG, compute nothing
+  if (b_end < 0 || b_end >= B || m < 0 || m > M || n < 0) {
+    if (lane == 0) write_end(end_scores, end_mat, p, kNeg, kNeg, kNeg);
+    return;
+  }
+  const int go = gap_open, ge = gap_extend;
+  if (m == 0) {                        // the end is on row 0, j = n
+    if (lane == 0)
+      write_end(end_scores, end_mat, p, n == 0 ? 0 : kNeg, kNeg,
+                n > 0 ? -(go + n * ge) : kNeg);
+    return;
+  }
+  const uint8_t* qp = q + (size_t)p * M;
+  const uint8_t* tp = t_shift + (size_t)p * (M + B);
+  uint8_t* dp = dirs + (size_t)p * M * B;
+  // lanes with live cells: a row has at most min(B, n + 1) of them
+  const int nl = (min(W, min(B, n + 1)) + C - 1) / C;
+  const int k0 = lane * C;
+
+  // row 0 in registers, band index b = b_lo(0) + k; lanes without live
+  // cells and cells past the band hold NEG
+  const int bl0 = max(0, -lo_p);
+  int H[C], I[C], D[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int b = bl0 + k0 + c, j0 = lo_p + b;
+    const bool in = lane < nl && b < B;
+    H[c] = in && j0 == 0 ? 0 : kNeg;
+    I[c] = kNeg;
+    D[c] = in && j0 > 0 ? -(go + j0 * ge) : kNeg;
+  }
+  // lane - 1's last cell of the previous row (row 0 here), the H/D
+  // predecessor of this lane's first cell when the window slides; NEG
+  // left of the window (lane 0 keeps it)
+  int lH, lI = kNeg, lD;
+  {
+    const int b = bl0 + k0 - 1, j0 = lo_p + b;
+    lH = b >= 0 && j0 == 0 ? 0 : kNeg;
+    lD = b >= 0 && j0 > 0 ? -(go + j0 * ge) : kNeg;
+  }
+  // this lane's last cell of the row before its last computed one: the
+  // H/D predecessor of the ghost cell (below) where the window slides
+  int pH = kNeg, pI = kNeg, pD = kNeg;
+  // the D chain past this lane's last cell and the unclamped H there
+  int Dn = kNeg, Hl = kNeg;
+  // lane L computes row i at step i - 1 + L; q / t_shift bytes and
+  // scores go two and one steps ahead, every lane at once
+  auto row_of = [&](int s) { return min(max(s - lane + 1, 1), m); };
+  int sc[C], sc2[C], tb[C], qb;
+  warp_load_row<C>(qp, tp, row_of(0), max(0, -row_of(0) - lo_p) + k0, B,
+                   qb, tb);
+#pragma unroll
+  for (int c = 0; c < C; ++c) sc[c] = sub[6 * qb + tb[c]];
+  warp_load_row<C>(qp, tp, row_of(1), max(0, -row_of(1) - lo_p) + k0, B,
+                   qb, tb);
+#pragma unroll
+  for (int c = 0; c < C; ++c) sc2[c] = sub[6 * qb + tb[c]];
+  warp_load_row<C>(qp, tp, row_of(2), max(0, -row_of(2) - lo_p) + k0, B,
+                   qb, tb);
+
+  // rows start V-aligned: one store of V bytes where b0 is aligned too
+  const bool vec_ok = V > 1 && (reinterpret_cast<uintptr_t>(dp) % V) == 0 &&
+                      (B % V) == 0;
+  const int steps = m + nl - 1;
+  // One step of the wavefront.  kFast: every lane with live cells is on a
+  // row 2 - lo <= i <= m - 1 (and lanes past them on any row), so the
+  // window and the ghost's stand still (b_lo = 0), no lane is on row 1 or
+  // m, and lanes past nl store nothing: the step skips those cases.
+  auto step = [&](int s, auto fast) {
+    constexpr bool kFast = decltype(fast)::value;
+    // from lane - 1, its row i (this lane's row): the chain and last H,
+    // and its last cell for this lane's next row; from lane + 1, its row
+    // i - 2 (cells 0 and 1) and its score of row i - 1, for the ghost
+    const int upDn = __shfl_up_sync(kFull, Dn, 1);
+    const int upHl = __shfl_up_sync(kFull, Hl, 1);
+    int upH = kNeg, upI = kNeg, upD = kNeg;
+    if constexpr (!kFast) {
+      upH = __shfl_up_sync(kFull, H[C - 1], 1);
+      upI = __shfl_up_sync(kFull, I[C - 1], 1);
+      upD = __shfl_up_sync(kFull, D[C - 1], 1);
+    }
+    const int rH0 = __shfl_down_sync(kFull, H[0], 1);
+    const int rI0 = __shfl_down_sync(kFull, I[0], 1);
+    const int rD0 = __shfl_down_sync(kFull, D[0], 1);
+    const int rH1 = __shfl_down_sync(kFull, H[1], 1);
+    const int rI1 = __shfl_down_sync(kFull, I[1], 1);
+    const int rS0 = __shfl_down_sync(kFull, sc[0], 1);
+    // lanes past nl compute rows too: their cells are dead or past the
+    // band, so no live cell reads them, and they store nothing
+    const int i = s - lane + 1;
+    if (kFast || (i >= 1 && i <= m)) {
+      const int jz = -i - lo_p;        // the band index of j = 0
+      const int bl = kFast ? 0 : max(0, jz);
+      const int b0 = bl + k0;
+      const bool slide = !kFast && jz >= 0;  // b_lo(i - 1) = b_lo(i) + 1
+      // where the window stands still, the I predecessor of this lane's
+      // last cell is lane + 1's first cell of row i - 1, which lane + 1
+      // computes at this very step: the lane computes it too (the ghost),
+      // from lane + 1's row i - 2 (row 0: its first cell as it is)
+      int gH = rH0, gI = rI0;
+      if (kFast || (!slide && i > 1)) {
+        const int gz = jz + 1;         // row i - 1's j = 0 band index
+        const bool gslide = !kFast && gz >= 0;
+        bool x0, x1, x2;
+        const int Hp = gslide ? pH : rH0, Ip = gslide ? pI : rI0;
+        const int Dp = gslide ? pD : rD0;
+        const int Hq = gslide ? rH0 : rH1, Iq = gslide ? rI0 : rI1;
+        gH = imax(max_ge(max_ge(Hp, Ip, x0), Dp, x1) + rS0, kNeg);
+        gI = add_max(max_ge(Hq - go, Iq, x2), -ge, kNeg);
+        if ((kFast ? 0 : max(0, gz)) + k0 + C >= B) gH = gI = kNeg;
+      }
+      int dch, hl;
+      if (lane == 0) {
+        // Dunc[b_lo] from the skipped cells' seed: Y[b_lo] = NEG +
+        // max(0, extend * b_lo) (every Hl up to b_lo is NEG)
+        hl = kNeg;
+        dch = kNeg + imax(0, ge * bl) - go - ge * (bl + 1);
+      } else {
+        hl = upHl;
+        dch = upDn;
+      }
+      if constexpr (!kFast) {
+        pH = H[C - 1];
+        pI = I[C - 1];
+        pD = D[C - 1];
+      }
+      int Hu[C], dir[C];
+      const bool j0 = !kFast && lane == 0 && jz >= 0;
+      Dn = slide ? warp_row<C, true>(H, I, D, Hu, dir, sc, lH, lI, lD, gH,
+                                     gI, dch, hl, j0, i, go, ge)
+                 : warp_row<C, false>(H, I, D, Hu, dir, sc, lH, lI, lD, gH,
+                                      gI, dch, hl, j0, i, go, ge);
+      Hl = Hu[C - 1];
+      if (b0 + C > B) {                // cells past the band read as NEG
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (b0 + c >= B) H[c] = I[c] = kNeg;
+      }
+      if (!kFast && i == m) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          if (b0 + c == b_end)
+            write_end(end_scores, end_mat, p, H[c], I[c], D[c]);
+      }
+      if (!kFast && lane) {
+        lH = upH;
+        lI = upI;
+        lD = upD;
+      }
+      // the live direction bytes: one vector store where the lane's
+      // bytes lie aligned inside the band (dead bytes there are
+      // unspecified), else a byte a live cell
+      const int b_hi = min(B - 1, n + jz);
+      uint8_t* drow = dp + (size_t)(i - 1) * B;
+      if (b0 <= b_hi && (!kFast || lane < nl)) {
+        if (vec_ok && b0 + C <= B && (b0 % V) == 0) {
+          store_bytes<V>(drow + b0, dir);
+        } else {
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            if (b0 + c <= b_hi) drow[b0 + c] = (uint8_t)dir[c];
+        }
+      }
+    }
+    // the next step's scores; the bytes of the step after it
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      sc[c] = sc2[c];
+      sc2[c] = sub[6 * qb + tb[c]];
+    }
+    const int r3 = row_of(s + 3);
+    warp_load_row<C>(qp, tp, r3, max(0, -r3 - lo_p) + k0, B, qb, tb);
+  };
+  // the steps whose every lane with live cells is on a row of
+  // max(2, 2 - lo) .. m - 1 run the fast step
+  const int s1 = min(steps, max(nl, nl + max(0, -lo_p)));
+  const int s2 = max(s1, m - 1);
+  for (int s = 0; s < s1; ++s) step(s, std::false_type{});
+  for (int s = s1; s < s2; ++s) step(s, std::true_type{});
+  for (int s = s2; s < steps; ++s) step(s, std::false_type{});
 }
 
 // banded_traceback's tiles: a warp's shared slice is a K x pitch tile
@@ -449,6 +812,33 @@ size_t banded_dp_smem_bytes(int B, int T) {
   return ((size_t)3 * B + T) * sizeof(int) + ((B + 15) / 16) * 16;
 }
 
+// W clamped to 1..B
+int clamp_live(int B, int W) { return W < 1 ? 1 : (W > B ? B : W); }
+
+// The warp kernel's cells a lane for a launch whose widest live row is
+// W (at least 2), or 0 where rows are wider than kWarpMaxLive (the
+// block kernel).
+int warp_cells(int B, int W) {
+  W = clamp_live(B, W);
+  return W <= kWarpMaxLive ? max(2, (W + 31) / 32) : 0;
+}
+
+using WarpKernel = void (*)(const uint8_t*, const uint8_t*, const int*,
+                            const int*, const int*, const int*, int, int,
+                            int, int, int, uint8_t*, int*, int*);
+
+WarpKernel warp_kernel(int C) {
+  switch (C) {
+    case 2: return banded_dp_warp_kernel<2>;
+    case 3: return banded_dp_warp_kernel<3>;
+    case 4: return banded_dp_warp_kernel<4>;
+    case 5: return banded_dp_warp_kernel<5>;
+    case 6: return banded_dp_warp_kernel<6>;
+    case 7: return banded_dp_warp_kernel<7>;
+    default: return banded_dp_warp_kernel<8>;
+  }
+}
+
 // The tile of a traceback launch: tile_w = min(kTileW, B, S) band
 // columns (a walk of at most S moves spans at most S columns), a pitch
 // with room for the 16-byte chunks that hold them, and K rows within
@@ -475,10 +865,13 @@ const char* cuda_error_string(int code) {
 }
 
 // Threads a block for P pairs of band B whose widest live row is W
-// (max_live): about four live cells a thread when the launch fills the
-// card (P >= 4 blocks an SM), else one, in warps, 32 to 256.
+// (max_live).  The warp kernel (W <= kWarpMaxLive): one warp, a pair.
+// The block kernel: about four live cells a thread when the
+// launch fills the card (P >= 4 blocks an SM), else one, in warps, 32 to
+// 256.
 int banded_dp_threads(int B, int W, int P) {
-  W = W < 1 ? 1 : (W > B ? B : W);
+  if (warp_cells(B, W)) return 32;
+  W = clamp_live(B, W);
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -490,37 +883,57 @@ int banded_dp_threads(int B, int W, int P) {
 // Resident blocks an SM for that launch (the occupancy the launcher
 // gets), or minus the CUDA error code.
 int banded_dp_occupancy(int B, int W, int P) {
+  int blocks = 0;
+  cudaError_t err;
+  if (const int C = warp_cells(B, W)) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, warp_kernel(C), 32, 0);
+    return err != cudaSuccess ? -(int)err : blocks;
+  }
   const int T = banded_dp_threads(B, W, P);
   const size_t smem = banded_dp_smem_bytes(B, T);
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  err = cudaFuncSetAttribute(banded_dp_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return -(int)err;
-  int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks,
                                                       banded_dp_kernel, T,
                                                       smem);
   return err != cudaSuccess ? -(int)err : blocks;
 }
 
+// The warp kernel for W <= kWarpMaxLive, the block kernel for wider rows.
 int banded_dp_launch(const void* q, const void* t_shift, const void* m_len,
                      const void* n_len, const void* lo, const void* submat,
                      int P, int M, int B, int W, int gap_open, int gap_extend,
                      void* dirs, void* end_scores, void* end_mat,
                      void* stream) {
   if (P <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto q_ = static_cast<const uint8_t*>(q);
+  const auto t_ = static_cast<const uint8_t*>(t_shift);
+  const auto m_ = static_cast<const int*>(m_len);
+  const auto n_ = static_cast<const int*>(n_len);
+  const auto lo_ = static_cast<const int*>(lo);
+  const auto sub_ = static_cast<const int*>(submat);
+  const auto dirs_ = static_cast<uint8_t*>(dirs);
+  const auto ends_ = static_cast<int*>(end_scores);
+  const auto mat_ = static_cast<int*>(end_mat);
+  if (const int C = warp_cells(B, W)) {
+    warp_kernel(C)<<<P, 32, 0, s>>>(q_, t_, m_, n_, lo_, sub_, M, B,
+                                    clamp_live(B, W), gap_open, gap_extend,
+                                    dirs_, ends_, mat_);
+    return (int)cudaGetLastError();
+  }
   const int T = banded_dp_threads(B, W, P);
   const size_t smem = banded_dp_smem_bytes(B, T);
   cudaError_t err = cudaFuncSetAttribute(
       banded_dp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  banded_dp_kernel<<<P, T, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t_shift),
-      static_cast<const int*>(m_len), static_cast<const int*>(n_len),
-      static_cast<const int*>(lo), static_cast<const int*>(submat), M, B,
-      gap_open, gap_extend, static_cast<uint8_t*>(dirs),
-      static_cast<int*>(end_scores), static_cast<int*>(end_mat));
+  banded_dp_kernel<<<P, T, smem, s>>>(q_, t_, m_, n_, lo_, sub_, M, B,
+                                      gap_open, gap_extend, dirs_, ends_,
+                                      mat_);
   return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,9 @@ Source: csrc/banded.cu (see its header for the design).
   pair's live cells (`live_mask`), and matches the plain version bit for
   bit on those cells' direction bytes and on the end scores and states.
   Bound on an H100: int32 operations (BANDED_OPS_PER_CELL a live cell;
-  one byte a live cell to memory).
+  one byte a live cell to memory).  Two kernels by the launch's widest
+  live row (`dp_kernel`): one warp a pair on a register wavefront up to
+  WARP_MAX_LIVE cells, one block a pair past it.
 - banded_traceback replaces the on-device while_loop traceback
   (cactus_tpu/ops/banded.py::traceback_band_batch_device) with the host
   semantics of ops/banded.py::traceback_band: count -1 when the walk
@@ -32,7 +34,7 @@ from . import cuda_build
 from .banded import banded_align_batch, traceback_band
 
 # int32 operations a live DP cell needs, whatever the kernel's design (the
-# kernel itself does more: two passes and a scan of the D chain).  Each
+# block kernel itself does more: two passes and a scan of the D chain).  Each
 # of H, I and D is a max, an add or two and a NEG clamp, and each of
 # them leaves its direction bits: H = max(H, I, D) + s with its source
 # (2 max, 2 compares, 1 add, 1 clamp, 2 selects: 8); I = max(H - open, I)
@@ -51,6 +53,10 @@ from .banded import banded_align_batch, traceback_band
 # skipped the dead cells: chip_smoke.py logs it beside the live one.)
 BANDED_OPS_PER_CELL = 15
 BANDED_OPS_PER_PAIR = 4
+
+# the widest live row banded_dp_warp_kernel takes (csrc/banded.cu
+# kWarpMaxLive): 8 cells a lane of one warp
+WARP_MAX_LIVE = 256
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -112,9 +118,18 @@ def check_max_live(n_len, band: int, max_live: int | None) -> int:
     return min(max_live, band)
 
 
+def dp_kernel(max_live: int) -> str:
+    """The kernel a banded_dp launch takes for max_live (clipped to the
+    band), as csrc/banded.cu banded_dp_launch picks it: "warp"
+    (banded_dp_warp_kernel, one warp a pair) up to WARP_MAX_LIVE cells,
+    else "block" (banded_dp_kernel, one block a pair)."""
+    return "warp" if max_live <= WARP_MAX_LIVE else "block"
+
+
 def launch_threads(band: int, max_live: int, pairs: int) -> int:
     """Threads a block banded_dp launches with (csrc/banded.cu
-    banded_dp_threads; needs the card)."""
+    banded_dp_threads; needs the card): 32, one pair, for the warp
+    kernel."""
     return int(_lib().banded_dp_threads(band, max_live, pairs))
 
 
@@ -142,9 +157,10 @@ def banded_dp(q, t_shift, m_len, n_len, lo, submat, band: int,
     traceback reads: it walks cells with 1 <= i <= m and 1 <= j <= n.
     On a CPU tensor the plain version fills every byte.
 
-    max_live bounds every row's live width (default: the band); the
-    kernel sizes its blocks by it.  A max_live below some pair's
-    min(band, n + 1) (`live_width`) raises, on either device, before
+    max_live bounds every row's live width (default: the band); it picks
+    the kernel (`dp_kernel`: one warp a pair up to WARP_MAX_LIVE cells,
+    else one block a pair) and sizes its blocks.  A max_live below some
+    pair's min(band, n + 1) (`live_width`) raises, on either device, before
     anything is launched: reading n_len back is a device sync where
     max_live is below the band.  `launch_banded_dp` is the launch after
     that check."""

@@ -21,7 +21,10 @@ the children's gaps.
    bands 8-1024 on the live-cell edge cases (m = 0, n = 0, n < m,
    |n - m| = band - 1), with max_live as the path passes it (end scores,
    end states and the live cells' direction bytes bit-equal; it logs the
-   live cells beside the band cells), banded_traceback against the host
+   kernel each check takes, the warp kernel up to 256 live cells a row,
+   and the live cells beside the band cells), the same band-512 pairs on
+   both kernels (max_live 256 and 257, bit-equal to each other and to the
+   plain version), banded_traceback against the host
    traceback_band (equal), pairhmm_fwd/pairhmm_bwd at bands 512 and 2048
    with pieces of up to 2048 rows (posterior max |diff| <= HMM_ATOL, logZ
    within LOGZ_RTOL, and the forward values log(fM) + lsF within FWD_LOG_ATOL
@@ -42,7 +45,10 @@ the children's gaps.
    kernel and its plain version with CUDA events on the largest inputs
    the path gave that kernel, beside the bound for the same work (for
    banded_dp also its band-cell bound and its occupancy), and replays
-   every call of the path one at a time, kernel by kernel: banded_dp;
+   every call of the path one at a time, kernel by kernel: banded_dp,
+   by band and kernel, with its ops bound, its latency line (the longest
+   wavefront's steps, one shuffle round and C dependent add-max pairs
+   each) at its largest and its longest-row call, and the band-128 total;
    banded_traceback on each banded_dp call's outputs made again, with
    the S the path derives (each held equal to the host traceback; it
    logs the steps walked, and times its longest-walk call beside a
@@ -320,6 +326,9 @@ INT32_OPS_PER_S = 16.7e12
 # assumption, not measured here) before the next address is known; the
 # pair-HMM's latency line counts a warp shuffle at the same latency
 SMEM_STEP_CYCLES = 30
+# a dependent int32 add or max on Hopper, for the banded DP warp
+# kernel's latency line (an assumption, not measured here)
+INT_OP_CYCLES = 4
 # the untimed phases (child_phases()), a child process a group, all
 # groups at once once the timed ones are done: run one after the other
 # they took 659 s of a 951 s script on an H100 80GB HBM3 at 700 W, most
@@ -392,7 +401,8 @@ def time_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def replay_calls(name, calls, timed, group_of, shape_of, unit):
+def replay_calls(name, calls, timed, group_of, shape_of, unit,
+                 by_group=None):
     """A path's calls of one kernel again, one at a time on the idle card:
     the kernel's own time, without the other ancestor thread's work or
     host gaps inside the path's events.  timed(args, kw) does what the
@@ -400,8 +410,9 @@ def replay_calls(name, calls, timed, group_of, shape_of, unit):
     makes its inputs) and returns the function to time; each is timed by
     time_ms with 3 launches after a warm-up.  Logs the calls, the replayed
     total, the total by group (band or bin) and the longest call with its
-    shape; returns the total in ms."""
-    by_group: dict = {}
+    shape; returns the total in ms, and fills by_group, where given, with
+    {group: (ms, calls)}."""
+    by_group = {} if by_group is None else by_group
     longest = (-1.0, None)
     for args, kw in calls:
         ms = time_ms(timed(args, kw), 3)
@@ -428,16 +439,40 @@ def traceback_cap(m_len, n_len) -> int:
     return max(32, 1 << (smax - 1).bit_length())
 
 
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock in MHz (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
 def smem_step_ns() -> tuple[float, str]:
     """One dependent shared-memory step of a traceback walk, in ns: an
     assumed SMEM_STEP_CYCLES cycles at the card's maximum SM clock (read
     with nvidia-smi).  Returns (ns, what it assumed)."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60).stdout
-    mhz = float(out.strip().splitlines()[0])
+    mhz = sm_clock_mhz()
     return (SMEM_STEP_CYCLES / mhz * 1e3,
             f"{SMEM_STEP_CYCLES} cycles at {mhz:.0f} MHz")
+
+
+def banded_warp_latency(m_len, n_len, band, max_live) -> tuple[float, str]:
+    """The latency line of a banded_dp launch on the warp kernel
+    (max_live <= WARP_MAX_LIVE): its longest wavefront, m + lanes - 1
+    steps for a pair of m rows whose rows fill `lanes` lanes of C =
+    max(2, ceil(max_live / 32)) cells, each step one round of warp
+    shuffles (SMEM_STEP_CYCLES) and C dependent add-max pairs on the D
+    chain (INT_OP_CYCLES each op), at the card's maximum SM clock.
+    Returns (ms, what it counted)."""
+    C = max(2, (max_live + 31) // 32)
+    width = (n_len.long() + 1).clamp(max=min(band, max_live))
+    lanes = (width + C - 1) // C
+    steps = int((m_len.long() + lanes - 1)[m_len > 0].max())
+    cycles = SMEM_STEP_CYCLES + 2 * C * INT_OP_CYCLES
+    mhz = sm_clock_mhz()
+    return (steps * cycles / mhz / 1e3,
+            f"{steps} steps x ({SMEM_STEP_CYCLES} + 2 x {C} x "
+            f"{INT_OP_CYCLES}) cycles at {mhz:.0f} MHz")
 
 
 class Recorder:
@@ -611,7 +646,8 @@ def check_banded(pairs, band, sub_d, dev, errs, what):
         raise AssertionError(f"banded_dp {what}: differs from the plain "
                              "version on the live cells")
     live = banded_cuda.live_cells(*args[2:], M, band)
-    log(f"banded_dp {what} ({P} pairs x {M} rows, max_live {live_w}, "
+    log(f"banded_dp {what} ({P} pairs x {M} rows, max_live {live_w}, the "
+        f"{banded_cuda.dp_kernel(live_w)} kernel, "
         f"{banded_cuda.launch_threads(band, live_w, P)} threads): live "
         f"cells, end scores and states bit-equal; {live} live cells of "
         f"{P * M * band} band cells ({int(args[2].sum()) * band} in rows "
@@ -627,6 +663,34 @@ def check_banded(pairs, band, sub_d, dev, errs, what):
     errs["banded_traceback"] = 0.0
     log(f"banded_traceback {what}: equal to host traceback_band "
         f"({int((ct < 0).sum())} walks left the band)")
+
+
+def check_warp_vs_block(sub_d, dev):
+    """The same band-512 pairs (n <= 255) through banded_dp at max_live
+    256 (the warp kernel) and 257 (the block kernel): bit-equal to each
+    other and to the plain version on the live cells, the end scores and
+    the end states."""
+    from cactus_tpu_torch.ops import banded as tb
+    from cactus_tpu_torch.ops import banded_cuda
+    band = 512
+    pairs = [pr for pr in ragged_pairs(band, 24, 20, 250, band)
+             if len(pr[1]) <= 255] + edge_pairs(64, 64)
+    args = to_device(tb.pack_band_batch(pairs, band, min_batch=1), dev)
+    kw = dict(band=band, gap_open=400, gap_extend=30)
+    ref = tb.banded_align_batch(*args, sub_d, **kw)
+    got = {}
+    for max_live in (256, 257):
+        got[max_live] = banded_cuda.banded_dp(*args, sub_d, **kw,
+                                              max_live=max_live)
+        if not banded_live_equal(got[max_live], ref, *args[2:]):
+            raise AssertionError(f"banded_dp at max_live {max_live} differs "
+                                 "from the plain version on the live cells")
+    if not banded_live_equal(got[256], got[257], *args[2:]):
+        raise AssertionError("banded_dp's warp and block kernels differ")
+    log(f"banded_dp band {band}, {len(pairs)} pairs of n <= 255: max_live 256 "
+        f"(the {banded_cuda.dp_kernel(256)} kernel) and 257 (the "
+        f"{banded_cuda.dp_kernel(257)} kernel) bit-equal to each other and "
+        "to the plain version on the live cells, end scores and states")
 
 
 def check_hmm(fM, lsF, logZ, post, fM_r, lsF_r, logZ_r, post_r, what,
@@ -699,6 +763,7 @@ def phase_kernels_vs_plain(dev, errs):
     for band in (8, 24, 40, 1000, 1024):
         check_banded(edge_pairs(band, band), band, sub_d, dev, errs,
                      f"band {band} edge cases")
+    check_warp_vs_block(sub_d, dev)
 
     p = tp.HmmParams()
     em = torch.from_numpy(p.emissions()).to(dev)
@@ -863,9 +928,11 @@ def phase_main_path(dev):
     log("banded_dp event time by band: " + ", ".join(
         f"{band}: {ms:.1f} ms in {n_b} calls"
         for band, (ms, n_b) in sorted(by_band.items())))
-    log("longest banded_dp calls (ms [P, M] band max_live): " + "; ".join(
-        f"{ms:.3f} {shape} {band} {live}"
-        for ms, shape, band, live in sorted(dp_calls, reverse=True)[:6]))
+    log("longest banded_dp calls (ms [P, M] band max_live kernel): "
+        + "; ".join(f"{ms:.3f} {shape} {band} {live} "
+                    f"{banded_cuda.dp_kernel(live)}"
+                    for ms, shape, band, live in sorted(dp_calls,
+                                                        reverse=True)[:6]))
     for name in DEFAULT_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
@@ -982,7 +1049,8 @@ def measure(recorders, launches, errs, dev):
     rows_, used = int(m.sum()), int((m > 0).sum())
     live = banded_cuda.live_cells(m, n, lo, M, B)
     max_live = kw["max_live"]
-    log(f"banded_dp at [{P}, {M}, {B}]: max_live {max_live}, "
+    log(f"banded_dp at [{P}, {M}, {B}]: max_live {max_live}, the "
+        f"{banded_cuda.dp_kernel(max_live)} kernel, "
         f"{banded_cuda.launch_threads(B, max_live, P)} threads a block, "
         f"{banded_cuda.occupancy(B, max_live, P)} resident blocks an SM; "
         f"{live} live cells of {P * M * B} band cells ({rows_ * B} in rows "
@@ -1000,9 +1068,12 @@ def measure(recorders, launches, errs, dev):
     def dp_shape(a, k):
         return list(a[0].shape) + [k["band"]]
 
+    # each call's kernel as banded_dp_launch picks it from max_live
+    dp_groups: dict = {}
     dp_replayed = replay_calls(
         "banded_dp", calls, lambda a, k: (lambda: fn(*a, **k)),
-        lambda a, k: k["band"], dp_shape, "band")
+        lambda a, k: (k["band"], banded_cuda.dp_kernel(k["max_live"])),
+        dp_shape, "band and kernel", dp_groups)
     # the live cells: q's bases of the rows 1..m, the t_shift bytes they
     # read (columns j = 0..n), the scalars and the matrix in; a direction
     # byte a live cell and the end scores out
@@ -1013,6 +1084,31 @@ def measure(recorders, launches, errs, dev):
         banded_cuda.BANDED_OPS_PER_CELL * live
         + banded_cuda.BANDED_OPS_PER_PAIR * P, INT32_OPS_PER_S,
         [P, M, B], dp_replayed)
+    # beside the ops bound: the latency line of this call and of the
+    # path's longest-row call (the band-128 gap fills), and the replayed
+    # band-128 total
+    band128 = [v for g, v in dp_groups.items() if g[0] == 128]
+    lat_ms, lat_what = (banded_warp_latency(m, n, B, max_live)
+                        if banded_cuda.dp_kernel(max_live) == "warp"
+                        else (None, "the block kernel"))
+    log(f"banded_dp row: bound {rows[-1]['bound_ms']:.4f} ms (operations); "
+        + (f"latency line {lat_ms:.4f} ms ({lat_what}), {ms / lat_ms:.2f}x; "
+           if lat_ms else f"no latency line ({lat_what}); ")
+        + f"band-128 calls replayed {sum(v[0] for v in band128):.3f} ms in "
+        f"{sum(v[1] for v in band128)} calls")
+    warp_calls = [c for c in calls
+                  if banded_cuda.dp_kernel(c[1]["max_live"]) == "warp"]
+    if warp_calls:
+        a, k = max(warp_calls, key=lambda c: int(c[0][2].max()))
+        long_ms = time_ms(lambda: fn(*a, **k), 20)
+        long_rows = int(a[2].max())
+        long_lat, long_what = banded_warp_latency(a[2], a[3], k["band"],
+                                                  k["max_live"])
+        log(f"banded_dp at the longest-row call {dp_shape(a, k)} max_live "
+            f"{k['max_live']} (the warp kernel): {long_ms:.4f} ms, "
+            f"{long_ms * 1e3 / long_rows:.4f} us a row of {long_rows}; "
+            f"latency line {long_lat:.4f} ms ({long_what}), "
+            f"{long_ms / long_lat:.2f}x")
 
     # banded_traceback: each call's inputs are banded_dp's outputs on the
     # same call, made again, with S as _align_pairs_cuda derives it
@@ -3059,8 +3155,11 @@ def check_banded_calls(run, dp, launches, dev) -> list[str]:
                            f"{i} at {list(a[0].shape)} differs from the "
                            "host traceback")
         del ref
-    log(f"  {run}: {len(dp.calls)} banded_dp calls, each launched again on "
-        f"its recorded inputs with banded_traceback on its output: "
+    kernels = [banded_cuda.dp_kernel(k["max_live"]) for _a, k in dp.calls]
+    log(f"  {run}: {len(dp.calls)} banded_dp calls ({kernels.count('warp')} "
+        f"on the warp kernel, {kernels.count('block')} on the block kernel), "
+        f"each launched again on its recorded inputs with banded_traceback "
+        f"on its output: "
         f"{'every one equal to' if not bad else 'NOT all equal to'} the "
         f"plain versions ({len(groups)} plain banded batches "
         f"{plain_s[0]:.1f} s, host tracebacks {plain_s[1]:.1f} s)")

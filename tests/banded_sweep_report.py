@@ -17,19 +17,24 @@ like the default path's largest launch, the BAR star engine's short ends
 (15171 pairs of 1-32 query bases whose targets are at most 23 bases
 longer, band 1024).  Where the tree's banded_dp takes max_live, every
 shape runs with the batch's live width, as the path passes it, and the
-short ends also with max_live 128, 256, 512 and 1024 (32, 64, 128 and
-256 threads a block).  banded_traceback is timed at every shape on
+short ends also with max_live 128 and 256 (the warp kernel, at 4 and 8
+cells a lane) and 512 and 1024 (the block kernel, 128 and 256 threads a
+block).  banded_traceback is timed at every shape on
 banded_dp's outputs, with the move capacity S the path gives it
 (chip_smoke.traceback_cap).  With --replay, also every banded_dp call of
 the default path that `python3 chip_smoke.py --dump-banded FILE` saved,
 one at a time (--reps launches each after a warm-up), and
 banded_traceback on each call's outputs, summed by band, with the steps
-walked and the longest walk.  Prints the card's name and power limit and
-one JSON line per timing (CUDA events, mean of --reps launches after one
-warm-up, through the wrapper, or banded_dp's launch function where the
-tree has one); banded_traceback's lines also carry its kernel's device
-time from torch.profiler (`device_ms`), which leaves out the wrapper's
-host work.  Needs a CUDA device.
+walked and the longest walk; each band-128 call also on a line of its
+own, with its longest pair's rows and the time a row.  Prints the card's
+name and power limit and one JSON line per timing (CUDA events, mean of
+--reps launches after one warm-up, through the wrapper, or banded_dp's
+launch function where the tree has one); every banded_dp line names the
+kernels the call launched (`kernel`, from torch.profiler's trace of two
+calls: banded_dp_warp_kernel<C> or banded_dp_kernel), and
+banded_traceback's lines carry its kernel's device time from
+torch.profiler (`device_ms`), which leaves out the wrapper's host work.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -134,6 +139,8 @@ def main() -> int:
             print(json.dumps(dict(
                 root=os.path.relpath(root, HERE), case=name,
                 shape=[P, M, band], max_live=max_live, threads=threads,
+                kernel=launched_kernels(
+                    lambda: banded_cuda.banded_dp(*dargs, sub, **kw)),
                 ms=ms, live_cells=live_cells(packed, n, band),
                 band_cells=int(packed["m_len"][:n].sum()) * band)),
                 flush=True)
@@ -157,6 +164,31 @@ def main() -> int:
         replay(args.replay, banded_cuda, smoke, dev,
                os.path.relpath(root, HERE), args.reps)
     return 0
+
+
+def launched_kernels(fn):
+    """The banded_dp kernels a call of fn launches, by name from
+    torch.profiler's trace of two calls (banded_dp_warp_kernel<4>),
+    comma-separated; None where the profiler records none."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            fn()
+            torch.cuda.synchronize()
+    except (RuntimeError, AssertionError) as err:   # no CUPTI tracing
+        print(f"banded_sweep_report: profiler: {err}", file=sys.stderr)
+        return None
+    names = set()
+    for e in prof.key_averages():
+        m = re.search(r"banded_dp_\w*kernel(<\d+>)?", e.key)
+        if m:
+            names.add(m.group(0))
+    return ",".join(sorted(names)) or None
 
 
 def kernel_device_ms(fn, reps, kernel):
@@ -201,8 +233,18 @@ def replay(path, banded_cuda, smoke, dev, root, reps):
             fn = banded_cuda.banded_dp
             kw = {k: v for k, v in kw.items() if k != "max_live"}
         ms = smoke.time_ms(lambda: fn(*dargs, sub, **kw), reps)
-        ms_b, n_b = by_band.get(kw["band"], (0.0, 0))
-        by_band[kw["band"]] = (ms_b + ms, n_b + 1)
+        kernel = launched_kernels(lambda: fn(*dargs, sub, **kw))
+        group = f"{kw['band']} {kernel}"
+        ms_b, n_b = by_band.get(group, (0.0, 0))
+        by_band[group] = (ms_b + ms, n_b + 1)
+        if kw["band"] == 128:
+            rows = int(dargs[2].max())
+            print(json.dumps(dict(
+                root=root, case="main path replay, band 128",
+                shape=list(dargs[0].shape) + [kw["band"]],
+                max_live=kw.get("max_live"), kernel=kernel, ms=ms,
+                longest_rows=rows, us_per_row=ms * 1e3 / max(1, rows))),
+                flush=True)
         dirs, _scores, end_mat = fn(*dargs, sub, **kw)
         tb_args = (dirs, dargs[2], dargs[3], dargs[4], end_mat,
                    smoke.traceback_cap(dargs[2], dargs[3]))
@@ -222,8 +264,9 @@ def replay(path, banded_cuda, smoke, dev, root, reps):
     print(json.dumps(dict(
         root=root, case="main path replay", calls=len(saved["calls"]),
         ms=sum(v[0] for v in by_band.values()),
-        by_band={str(b): v for b, v in sorted(by_band.items())})),
-        flush=True)
+        band128_ms=sum(v[0] for g, v in by_band.items()
+                       if g.split()[0] == "128"),
+        by_band_and_kernel=dict(sorted(by_band.items())))), flush=True)
     print(json.dumps(dict(
         root=root, case="main path replay", kernel="banded_traceback",
         calls=len(saved["calls"]), ms=sum(v[0] for v in tb_by_band.values()),

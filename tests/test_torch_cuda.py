@@ -27,6 +27,8 @@ import pytest
 import torch
 
 import chip_smoke
+from banded_warp_cases import CASES as WARP_CASES
+from banded_warp_cases import case as warp_case
 from cactus_tpu_torch.config import PoaParams
 from cactus_tpu_torch.ops import banded as tb
 from cactus_tpu_torch.ops import (banded_cuda, cuda_build, pairhmm5_cuda,
@@ -149,7 +151,7 @@ def test_banded_dp_live_edge_cases(cuda, band):
 
 def test_banded_dp_many_short_pairs(cuda):
     """The BAR star engine's short ends: thousands of pairs of at most 32
-    bases at band 1024, one warp a pair."""
+    bases at band 1024, one warp a pair (the warp kernel)."""
     band = 1024
     rng = np.random.default_rng(11)
     pairs = []
@@ -162,12 +164,87 @@ def test_banded_dp_many_short_pairs(cuda):
     kw = dict(band=band, gap_open=400, gap_extend=30)
     live = banded_cuda.live_width(args[3], band)
     assert live < 64
+    assert banded_cuda.dp_kernel(live) == "warp"
     assert banded_cuda.launch_threads(band, live, len(pairs)) == 32
     assert banded_cuda.occupancy(band, live, len(pairs)) >= 1
     got = banded_cuda.banded_dp(*args, sub, **kw, max_live=live)
     torch.cuda.synchronize()
     _check_banded_live(got, args + [sub], band, kw)
     _check_traceback(got[0], args, got[2], 128)
+
+
+def _launch_checked(args, sub, band, max_live, kernel):
+    """banded_dp at max_live, which takes `kernel`, held to the plain
+    version (live cells, end scores and states) and its traceback to the
+    host's; returns its outputs."""
+    assert banded_cuda.dp_kernel(max_live) == kernel
+    kw = dict(band=band, gap_open=400, gap_extend=30)
+    n0 = cuda_build.launches()["banded_dp"]
+    got = banded_cuda.banded_dp(*args, sub, **kw, max_live=max_live)
+    torch.cuda.synchronize()
+    assert cuda_build.launches()["banded_dp"] == n0 + 1
+    _check_banded_live(got, args + [sub], band, kw)
+    S = chip_smoke.traceback_cap(args[2], args[3])
+    _check_traceback(got[0], args, got[2], S)
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(WARP_CASES))
+def test_banded_dp_warp_kernel_cases(cuda, name):
+    """The warp kernel at C = 2..8 cells a lane: long band-128 and
+    band-256 pairs (window standing still), short ends at band 1024
+    (window sliding), windows that stop sliding, the edge cases; the
+    shapes tests/test_torch_banded_warp.py models on the CPU."""
+    packed, band, W = warp_case(name)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    assert banded_cuda.launch_threads(band, W, len(packed["q"])) == 32
+    _launch_checked(args, sub, band, W, "warp")
+
+
+def test_banded_dp_warp_kernel_long_pair(cuda):
+    """One 8,192-row band-128 pair, the default path's longest call's
+    rows, and a 6,000-row pair beside it."""
+    band = 128
+    rng = np.random.default_rng(8192)
+    pairs = []
+    for m in (8192, 6000):
+        q = rng.integers(0, 4, m).astype(np.uint8)
+        pairs.append((q, _mutate(rng, q, sub=0.1, indel=0.02)[:m + 40]))
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    _launch_checked(args, sub, band, banded_cuda.live_width(args[3], band),
+                    "warp")
+
+
+def test_banded_dp_warp_kernel_bar_short_ends(cuda):
+    """The default path's largest launch: 15,171 BAR short ends at band
+    1024 with max_live their live width."""
+    from banded_sweep_report import short_end_pairs
+    band = 1024
+    pairs = short_end_pairs(chip_smoke)
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = [torch.from_numpy(packed[k][:len(pairs)]).to(cuda) for k in KEYS]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    _launch_checked(args, sub, band, banded_cuda.live_width(args[3], band),
+                    "warp")
+
+
+def test_banded_dp_warp_and_block_kernels_agree(cuda):
+    """The same band-512 pairs (n <= 255) at max_live 256 (the warp
+    kernel) and 257 (the block kernel): bit-equal to each other and to
+    the plain version on the live cells, the end scores and states."""
+    band = 512
+    pairs = [pr for pr in _pairs(512, 40, 250, band) if len(pr[1]) <= 255]
+    pairs += _edge_pairs(257, 64)
+    packed = tb.pack_band_batch(pairs, band, min_batch=1)
+    args = [torch.from_numpy(packed[k]).to(cuda) for k in KEYS]
+    sub = torch.from_numpy(SUBMAT).to(cuda)
+    assert banded_cuda.live_width(args[3], band) <= 256
+    warp = _launch_checked(args, sub, band, 256, "warp")
+    block = _launch_checked(args, sub, band, 257, "block")
+    assert chip_smoke.banded_live_equal(warp, block, *args[2:])
 
 
 def test_banded_dp_max_live_too_small_raises(cuda):
