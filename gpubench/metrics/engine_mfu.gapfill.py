@@ -1,0 +1,7 @@
+"""engine_mfu.gapfill: engine_mfu (engine_mfu.py) in the
+gap-fill cell.  That cell has no steady rate or tail end to end, so
+there it moves setup_s, whose warm-up is one pass of the same calls."""
+
+from gpubench.manifest import reader
+
+read = reader("engine_mfu")

@@ -1,0 +1,8 @@
+"""pairhmm5_bwd_roofline: pairhmm5_bwd's least time (gpubench/roofline.py, on the traced
+window's pairs) over its device time in the trace, in %."""
+
+from gpubench.roofline import kernel_share
+
+
+def read(ctx):
+    return kernel_share(ctx, "pairhmm5_bwd")
