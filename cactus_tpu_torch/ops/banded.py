@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..trace import span
 from . import resolve_device
 
 NEG = -(1 << 28)  # -inf substitute, safe against int32 accumulation
@@ -327,11 +328,12 @@ def _align_pairs_cuda(pairs, submat, gap: GapParams, band: int,
         for c in range(0, len(idxs), max_pairs):
             chunk = idxs[c:c + max_pairs]
             batch = [pairs[k] for k in chunk]
-            packed = pack_band_batch(batch, band)
+            with span("cactus.pack"):
+                packed = pack_band_batch(batch, band)
+                t = _to_device(packed, len(batch), dev)
             # the kernel sizes its blocks by the widest live row, taken
             # here from the host arrays
             live = live_width(packed["n_len"][:len(batch)], band)
-            t = _to_device(packed, len(batch), dev)
             dirs, end_scores, end_mat = banded_dp(
                 t["q"], t["t_shift"], t["m_len"], t["n_len"], t["lo"], sub,
                 band=band, gap_open=gap.gap_open, gap_extend=gap.gap_extend,
@@ -341,18 +343,58 @@ def _align_pairs_cuda(pairs, submat, gap: GapParams, band: int,
             moves, counts = banded_traceback(dirs, t["m_len"], t["n_len"],
                                              t["lo"], end_mat, S)
             del dirs
-            moves = moves.cpu().numpy()
-            counts = counts.cpu().numpy()
+            with span("cactus.fetch"):
+                moves = moves.cpu().numpy()
+                counts = counts.cpu().numpy()
+                end_scores = end_scores.cpu().numpy()
+                end_mat = end_mat.cpu().numpy()
+            with span("cactus.unpack"):
+                for row, k in enumerate(chunk):
+                    if counts[row] < 0:
+                        # the walk left the band: same fallback as the
+                        # host traceback's RuntimeError
+                        out[k] = gap_fallback(len(pairs[k][0]),
+                                              len(pairs[k][1]))
+                    else:
+                        out[k] = (int(end_scores[row, end_mat[row]]),
+                                  moves_to_ops(moves[row], int(counts[row])))
+    return out
+
+
+def _align_pairs_plain(pairs, submat, gap: GapParams, band: int, backend,
+                       max_batch_bytes: int, dev):
+    """Every pair through `backend` (banded_align_batch's signature) and
+    the host traceback, in batches whose dirs tensor (P x Mmax x band
+    bytes) stays under max_batch_bytes: a single bin of long, wide-band
+    pairs could otherwise demand >100 GB."""
+    max_m = max(len(q) for q, _t in pairs)
+    est_m = max(32, 1 << (max_m - 1).bit_length())
+    max_pairs = max(1, int(max_batch_bytes // (est_m * band)))
+    sub = torch.from_numpy(np.ascontiguousarray(submat, np.int32)).to(dev)
+    out = []
+    for c in range(0, len(pairs), max_pairs):
+        batch = pairs[c:c + max_pairs]
+        with span("cactus.pack"):
+            packed = pack_band_batch(batch, band)
+            t = _to_device(packed, len(packed["q"]), dev)
+        dirs, end_scores, end_mat = backend(
+            t["q"], t["t_shift"], t["m_len"], t["n_len"], t["lo"], sub,
+            band=band, gap_open=gap.gap_open, gap_extend=gap.gap_extend)
+        with span("cactus.fetch"):
+            dirs = dirs.cpu().numpy()
             end_scores = end_scores.cpu().numpy()
             end_mat = end_mat.cpu().numpy()
-            for row, k in enumerate(chunk):
-                if counts[row] < 0:
-                    # the walk left the band: same fallback as the host
-                    # traceback's RuntimeError
-                    out[k] = gap_fallback(len(pairs[k][0]), len(pairs[k][1]))
-                else:
-                    out[k] = (int(end_scores[row, end_mat[row]]),
-                              moves_to_ops(moves[row], int(counts[row])))
+        with span("cactus.unpack"):
+            for p in range(len(batch)):
+                m, n = int(packed["m_len"][p]), int(packed["n_len"][p])
+                score = int(end_scores[p, end_mat[p]])
+                try:
+                    ops = traceback_band(dirs[p], m, n, int(packed["lo"][p]),
+                                         int(end_mat[p]))
+                except RuntimeError:
+                    out.append(gap_fallback(m, n))
+                    continue
+                out.append((score, ops))
     return out
 
 
@@ -366,59 +408,28 @@ def align_pairs_banded(pairs, submat, gap: GapParams, band: int = 128,
     CPU, batches under NATIVE_MAX_CELLS run the native C++ kernel and the
     rest the plain PyTorch DP with the host traceback; `backend` (a
     function with banded_align_batch's signature) forces that path, for
-    tests on the CPU only.
+    tests on the CPU only.  The whole call is the span
+    `cactus.align_pairs_banded` (cactus_tpu_torch/trace.py).
     """
     if not pairs:
         return []
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        if backend is not None:
-            raise ValueError("backend is a CPU test hook: on a CUDA device "
-                             "every batch runs the banded_dp kernel")
-        return _align_pairs_cuda(pairs, submat, gap, band, max_batch_bytes,
-                                 dev)
-    if backend is None:
-        true_cells = sum(len(q) for q, _t in pairs) * band
-        if true_cells < NATIVE_MAX_CELLS:
-            out = align_pairs_native(pairs, submat, gap, band)
-            if out is not None:
-                return out
-        backend = banded_align_batch
-    # split oversized batches: the dirs tensor is P×Mmax×band bytes and a
-    # single bin of long, wide-band pairs can otherwise demand >100 GB
-    max_m = max(len(q) for q, _t in pairs)
-    est_m = max(32, 1 << (max_m - 1).bit_length())
-    per_pair_bytes = est_m * band
-    max_pairs = max(1, int(max_batch_bytes // per_pair_bytes))
-    if len(pairs) > max_pairs:
-        out = []
-        for i in range(0, len(pairs), max_pairs):
-            out.extend(align_pairs_banded(pairs[i:i + max_pairs], submat,
-                                          gap, band=band, backend=backend,
-                                          max_batch_bytes=max_batch_bytes,
-                                          device=dev))
-        return out
-    packed = pack_band_batch(pairs, band)
-    t = _to_device(packed, len(packed["q"]), dev)
-    dirs, end_scores, end_mat = backend(
-        t["q"], t["t_shift"], t["m_len"], t["n_len"], t["lo"],
-        torch.from_numpy(np.ascontiguousarray(submat, np.int32)).to(dev),
-        band=band, gap_open=gap.gap_open, gap_extend=gap.gap_extend)
-    dirs = dirs.cpu().numpy()
-    end_scores = end_scores.cpu().numpy()
-    end_mat = end_mat.cpu().numpy()
-    out = []
-    for p in range(len(pairs)):
-        m, n = int(packed["m_len"][p]), int(packed["n_len"][p])
-        score = int(end_scores[p, end_mat[p]])
-        try:
-            ops = traceback_band(dirs[p], m, n, int(packed["lo"][p]),
-                                 int(end_mat[p]))
-        except RuntimeError:
-            out.append(gap_fallback(m, n))
-            continue
-        out.append((score, ops))
-    return out
+    if dev.type == "cuda" and backend is not None:
+        raise ValueError("backend is a CPU test hook: on a CUDA device "
+                         "every batch runs the banded_dp kernel")
+    with span("cactus.align_pairs_banded"):
+        if dev.type == "cuda":
+            return _align_pairs_cuda(pairs, submat, gap, band,
+                                     max_batch_bytes, dev)
+        if backend is None:
+            true_cells = sum(len(q) for q, _t in pairs) * band
+            if true_cells < NATIVE_MAX_CELLS:
+                out = align_pairs_native(pairs, submat, gap, band)
+                if out is not None:
+                    return out
+            backend = banded_align_batch
+        return _align_pairs_plain(pairs, submat, gap, band, backend,
+                                  max_batch_bytes, dev)
 
 
 def align_pairs_windowed(pairs, submat, gap: GapParams,

@@ -18,7 +18,8 @@ Source: csrc/banded.cu (see its header for the design).
   pair, see `banded_traceback`).
 
 Each wrapper checks its tensors, launches on the current CUDA stream and
-adds one to its count in cuda_build.LAUNCHES.  A CPU tensor gets the
+adds one to its count in cuda_build.LAUNCHES (banded_dp adds its P x M x
+band cells to cuda_build.CELLS).  A CPU tensor gets the
 plain PyTorch version instead (that is what the CPU tests run); a CUDA
 tensor always gets the kernel, or an error.
 """
@@ -199,7 +200,7 @@ def launch_banded_dp(q, t_shift, m_len, n_len, lo, submat, band: int,
         int(gap_open), int(gap_extend), dirs.data_ptr(),
         end_scores.data_ptr(), end_mat.data_ptr(), cuda_build.stream(dev))
     cuda_build.check(lib, code, "banded_dp")
-    cuda_build.count_launch("banded_dp")
+    cuda_build.count_launch("banded_dp", P * M * band)
     return dirs, end_scores, end_mat
 
 

@@ -46,6 +46,10 @@ KERNELS = ("banded_dp", "banded_traceback", "pairhmm_fwd", "pairhmm_bwd",
            "pairhmm5_fwd_wide", "pairhmm5_bwd_wide", "poa_linear_wide",
            "poa_wide")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# DP cells computed by each kernel's launches: P x rows x band as
+# launched, padding included (the DP launches pass them: banded_dp and
+# the pair-HMM forward passes, narrow and wide)
+CELLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 
 def nvcc() -> str:
@@ -163,21 +167,30 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def count_launch(name: str) -> None:
-    """Add one to LAUNCHES[name] under the lock: the progressive driver
-    runs ancestor steps on several threads."""
+def count_launch(name: str, cells: int = 0) -> None:
+    """Add one to LAUNCHES[name] and the launch's computed cells to
+    CELLS[name] under the lock: the progressive driver runs ancestor
+    steps on several threads."""
     with _LOCK:
         LAUNCHES[name] += 1
+        CELLS[name] += cells
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch and cell counts to 0."""
     with _LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+            CELLS[name] = 0
 
 
 def launches() -> dict[str, int]:
     """A snapshot of every kernel's launch count."""
     with _LOCK:
         return dict(LAUNCHES)
+
+
+def cells() -> dict[str, int]:
+    """A snapshot of every kernel's computed cells."""
+    with _LOCK:
+        return dict(CELLS)

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..trace import span
 from . import resolve_device
 
 TINY = 1e-30
@@ -324,17 +325,19 @@ def banded_hits(post, pairs, lo, gamma: float):
     offsets (numpy)."""
     best_b_all, pr_all = _row_argmax(post)
     del post
-    best_b_all = best_b_all.cpu().numpy()
-    pr_all = pr_all.cpu().numpy()
+    with span("cactus.fetch"):
+        best_b_all = best_b_all.cpu().numpy()
+        pr_all = pr_all.cpu().numpy()
     out = []
-    for p, (qs, ts) in enumerate(pairs):
-        m = len(qs)
-        best_b = best_b_all[p, :m]
-        pr = pr_all[p, :m]
-        j = np.arange(1, m + 1) + int(lo[p]) + best_b     # 1-based target
-        keep = (pr >= gamma) & (j >= 1) & (j <= len(ts))
-        idx = np.flatnonzero(keep)
-        out.append([(int(i), int(j[i] - 1), float(pr[i])) for i in idx])
+    with span("cactus.unpack"):
+        for p, (qs, ts) in enumerate(pairs):
+            m = len(qs)
+            best_b = best_b_all[p, :m]
+            pr = pr_all[p, :m]
+            j = np.arange(1, m + 1) + int(lo[p]) + best_b  # 1-based target
+            keep = (pr >= gamma) & (j >= 1) & (j <= len(ts))
+            idx = np.flatnonzero(keep)
+            out.append([(int(i), int(j[i] - 1), float(pr[i])) for i in idx])
     return out
 
 
@@ -347,16 +350,19 @@ def posterior_pairs_banded(pairs, params: HmmParams, band: int = 128,
     Pairs are dispatched in pow2 query-length bins (dispatch_by_length);
     max_batch>0 caps a dispatch's pair count, and max_batch_bytes caps
     its two (P, rows, band) float32 tensors.  A pair's hits do not
-    depend on the rest of its batch."""
+    depend on the rest of its batch.  The call from its emission table
+    on is the span `cactus.posterior_pairs_banded`
+    (cactus_tpu_torch/trace.py); each batch opens `cactus.pack` here and
+    `cactus.fetch` and `cactus.unpack` in banded_hits."""
     if not pairs:
         return []
     from .pairhmm_cuda import pairhmm_route
     dev = resolve_device(device)
-    em = torch.from_numpy(params.emissions()).to(dev)
 
     def run(chunk):
-        packed, t = pack_to_device(chunk, band, dev, min_batch=min_batch,
-                                   min_rows=min_rows_bin)
+        with span("cactus.pack"):
+            packed, t = pack_to_device(chunk, band, dev, min_batch=min_batch,
+                                       min_rows=min_rows_bin)
         # the wide route's widest live row, from the host lengths (the
         # narrow kernels take the band whole and need none)
         live = (max(min(band, len(tt) + 1) for _q, tt in chunk)
@@ -366,6 +372,8 @@ def posterior_pairs_banded(pairs, params: HmmParams, band: int = 128,
                                    epsilon=params.epsilon, max_live=live),
             chunk, packed["lo"], gamma)
 
-    return dispatch_by_length(pairs, band, run, min_rows=min_rows_bin,
-                              max_batch=max_batch,
-                              max_batch_bytes=max_batch_bytes)
+    with span("cactus.posterior_pairs_banded"):
+        em = torch.from_numpy(params.emissions()).to(dev)
+        return dispatch_by_length(pairs, band, run, min_rows=min_rows_bin,
+                                  max_batch=max_batch,
+                                  max_batch_bytes=max_batch_bytes)

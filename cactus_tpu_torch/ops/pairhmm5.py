@@ -32,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..trace import span
 from . import resolve_device
 from .pairhmm import banded_hits, dispatch_by_length, pack_to_device
 
@@ -379,14 +380,16 @@ def posterior_pairs_banded5(pairs, params: Hmm5Params, band: int = 128,
     so one long pair cannot pad the whole batch to its row count, and
     each bin splits so that a dispatch's two (P, rows, band) float32
     tensors stay under max_batch_bytes.  A pair's hits do not depend on
-    the rest of its batch."""
+    the rest of its batch.  Spans (cactus_tpu_torch/trace.py) as
+    pairhmm.posterior_pairs_banded's, the call's named
+    `cactus.posterior_pairs_banded5`."""
     if not pairs:
         return []
     dev = resolve_device(device)
-    em = torch.from_numpy(params.emissions()).to(dev)
 
     def run(chunk):
-        packed, t = pack_to_device(chunk, band, dev)
+        with span("cactus.pack"):
+            packed, t = pack_to_device(chunk, band, dev)
         # the widest live row, from the host lengths (no device sync)
         live = max(min(band, len(tt) + 1) for _q, tt in chunk)
         return banded_hits(
@@ -394,5 +397,7 @@ def posterior_pairs_banded5(pairs, params: Hmm5Params, band: int = 128,
                                     max_live=live),
             chunk, packed["lo"], gamma)
 
-    return dispatch_by_length(pairs, band, run,
-                              max_batch_bytes=max_batch_bytes)
+    with span("cactus.posterior_pairs_banded5"):
+        em = torch.from_numpy(params.emissions()).to(dev)
+        return dispatch_by_length(pairs, band, run,
+                                  max_batch_bytes=max_batch_bytes)

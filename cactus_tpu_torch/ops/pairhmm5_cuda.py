@@ -31,7 +31,8 @@ Source: csrc/pairhmm5.cu (see its header for the design).
   cannot schedule raises.
 
 Each wrapper checks its tensors, launches on the current CUDA stream and
-adds one to its count in cuda_build.LAUNCHES.  A CPU tensor gets the
+adds one to its count in cuda_build.LAUNCHES (the forward pass adds its
+P x M x band cells to cuda_build.CELLS).  A CPU tensor gets the
 plain PyTorch version instead (that is what the CPU tests run); a CUDA
 tensor always gets the kernel, or an error.
 """
@@ -197,7 +198,7 @@ def _launch_fwd(q, t_shift, m_len, n_len, lo, em, band: int,
         name = "pairhmm5_fwd"
         code = lib.pairhmm5_fwd_launch(*ins, *_transitions(params), *outs)
     cuda_build.check(lib, code, name)
-    cuda_build.count_launch(name)
+    cuda_build.count_launch(name, P * M * band)
     return fM, lsF, logZ
 
 

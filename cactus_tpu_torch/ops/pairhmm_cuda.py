@@ -30,7 +30,8 @@ Source: csrc/pairhmm.cu (see its header for the design).
   the card cannot schedule raises.  The narrow route ignores max_live.
 
 Each wrapper checks its tensors, launches on the current CUDA stream and
-adds one to its count in cuda_build.LAUNCHES.  A CPU tensor gets the
+adds one to its count in cuda_build.LAUNCHES (the forward pass adds its
+P x M x band cells to cuda_build.CELLS).  A CPU tensor gets the
 plain PyTorch version instead (that is what the CPU tests run); a CUDA
 tensor always gets the kernel, or an error.
 """
@@ -181,7 +182,7 @@ def _launch_fwd(q, t_shift, m_len, n_len, lo, em, band: int, delta: float,
         name = "pairhmm_fwd"
         code = lib.pairhmm_fwd_launch(*ins, *_params(delta, epsilon), *outs)
     cuda_build.check(lib, code, name)
-    cuda_build.count_launch(name)
+    cuda_build.count_launch(name, P * M * band)
     return fM, lsF, logZ
 
 

@@ -683,17 +683,9 @@ def run_tasks(tasks: list[StrandTask], cfg: BlastParams,
     assembly.  Output is identical to per-task processing; device
     round-trips drop from O(tasks) to O(shape bins).
     """
-    import os as _os
-    import time as _time
-    _prof = _os.environ.get("CACTUS_BLAST_PROF")
-    _t = _time.time()
     submat = score_matrix_6(PoaParams().sub_matrix)
     anchors = anchors_for_tasks(tasks, cfg, mesh=mesh, log=log,
                                 device=device)
-    if _prof:
-        print(f"[blast-prof] anchors({len(tasks)} tasks): "
-              f"{_time.time() - _t:.2f}s", flush=True)
-        _t = _time.time()
     # run-merge span must match the k the anchoring path used: the
     # host path scales k by task size; the device/mesh path is pinned
     # at the int32-hash limit (k=15)
@@ -709,10 +701,6 @@ def run_tasks(tasks: list[StrandTask], cfg: BlastParams,
     runs_list = [_task_runs(t, qp, tp, cfg, span=_span(t))
                  for t, (qp, tp) in zip(tasks, anchors)]
     chained = chain_ops.chain_anchors_batch(runs_list, max_gap=8192)
-    if _prof:
-        print(f"[blast-prof] chain({sum(len(r) for r in runs_list)} runs): "
-              f"{_time.time() - _t:.2f}s", flush=True)
-        _t = _time.time()
 
     sp = cfg.seed
     gap_params = GapParams(cfg.extend.gap_open, cfg.extend.gap_extend)
@@ -745,17 +733,9 @@ def run_tasks(tasks: list[StrandTask], cfg: BlastParams,
             cids.append(int(rank))
         all_layouts.append((layouts, cids))
 
-    if _prof:
-        print(f"[blast-prof] layouts: {_time.time() - _t:.2f}s", flush=True)
-        _t = _time.time()
     filled = _fill_gaps_banded(all_pending,
                                [t.q for t in tasks], [t.t for t in tasks],
                                submat, gap_params, device=device)
-    if _prof:
-        _cells = sum((g.q1 - g.q0) for g in all_pending)
-        print(f"[blast-prof] fill({len(all_pending)} gaps, {_cells} qbp): "
-              f"{_time.time() - _t:.2f}s", flush=True)
-        _t = _time.time()
 
     records: list[PafRecord] = []
     for i, task in enumerate(tasks):
@@ -772,9 +752,6 @@ def run_tasks(tasks: list[StrandTask], cfg: BlastParams,
         # segments in layout order (identical to the all-python path)
         keyed.sort(key=lambda kr: kr[0])
         records.extend(r for _k, r in keyed)
-    if _prof:
-        print(f"[blast-prof] emit({len(records)} records): "
-              f"{_time.time() - _t:.2f}s", flush=True)
     return records
 
 

@@ -1073,18 +1073,6 @@ def run_reference(caf: CafResult, gcodes: np.ndarray, tree: Tree,
     see overlay_outgroup_observations).  Large Felsenstein windows run
     on `device` (None = the current CUDA device).
     """
-    import os as _os
-    import time as _time
-    _prof = _os.environ.get("CACTUS_REF_PROF")
-    _t = _time.time()
-
-    def _mark(tag):
-        nonlocal _t
-        if _prof:
-            print(f"[ref-prof] {tag}: {_time.time() - _t:.2f}s",
-                  flush=True)
-            _t = _time.time()
-
     event_names = [n.name for n in tree.preorder()]
     lens = caf.blocks.block_length()
     live = np.flatnonzero(caf.alive)
@@ -1132,15 +1120,12 @@ def run_reference(caf: CafResult, gcodes: np.ndarray, tree: Tree,
                                                event_names, device=device)
         i0 = i1
 
-    _mark(f"felsenstein({total_cols} cols)")
     block_codes = {}
     for b, o in col_off.items():
         block_codes[b] = root_codes[o:o + int(lens[b])]
 
     threads = order_blocks(caf, cfg, tree)
-    _mark(f"order_blocks({len(live)} blocks)")
     weights = _end_adjacency_weights(caf)
-    _mark("adjacency_weights")
 
     # break adjacencies lacking direct sequence support (buildReference.c
     # step 6: minNumberOfSequencesToSupportAdjacency; top-level flowers
@@ -1194,7 +1179,6 @@ def run_reference(caf: CafResult, gcodes: np.ndarray, tree: Tree,
             prev = (b, orient)
         sequences[name] = Sequence(name=name, codes=np.concatenate(parts)
                                    if parts else np.zeros(0, np.uint8))
-    _mark("assembly")
     return ReferenceResult(event=ancestor_event, threads=threads,
                            block_codes=block_codes, block_coord=block_coord,
                            sequences=sequences)

@@ -28,6 +28,7 @@ from .phases import bar as bar_phase
 from .phases import blast as blast_phase
 from .phases import reference as ref_phase
 from .phases.caf import CafResult, run_caf
+from .trace import span
 from .utils.trees import Tree
 
 
@@ -435,9 +436,10 @@ class ProgressiveAligner:
         # per-phase wall-clock + peak-RSS telemetry (the reference's
         # st_logInfo elapsed-seconds lines and CACTUS_LOG_MEMORY
         # peak-RSS reporting; pipeline/cactus_consolidated.c:366-555,
-        # shared/common.py:819-825,928-955)
+        # shared/common.py:819-825,928-955): each phase is a span
+        # (cactus.blast, .caf, .bar, .reference; trace.py) whose wall
+        # time fills `timings`
         import resource as _resource
-        import time as _time
         timings: dict[str, float] = {}
         mem_mb: dict[str, float] = {}
 
@@ -454,10 +456,10 @@ class ProgressiveAligner:
 
         self.log(f"{node.name}: blast starting (preset {preset}, "
                  f"{len(seqs)} seqs, og={outgroups})")
-        t0 = _time.time()
-        records = self._blast(node, children, outgroups, preset,
-                              chunk_size=chunk_size)
-        timings["blast"] = _time.time() - t0
+        with span("cactus.blast") as sp:
+            records = self._blast(node, children, outgroups, preset,
+                                  chunk_size=chunk_size)
+        timings["blast"] = sp.seconds
         mem_mb["blast"] = _rss_mb()
 
         # outgroup alignments are OVERLAY evidence (reconstruction votes),
@@ -492,81 +494,82 @@ class ProgressiveAligner:
         self.log(f"{node.name}: caf starting ({len(in_records)} ingroup + "
                  f"{len(og_records)} og records)")
 
-        t0 = _time.time()
-        event_tree = self._event_tree(node, outgroups)
-        if cfg.caf.pinch_outgroups:
-            # reference semantics (caf/impl/caf.c:238-284): outgroup
-            # records pinch as real threads, so the singleCopyOutgroup
-            # policy family + minimumOutgroupDegree act structurally;
-            # og-only blocks still die at minimumIngroupDegree, and the
-            # HAL/maps layers already skip non-child events
-            caf_seqs = dict(in_seqs)
-            for n, c in og_codes.items():
-                caf_seqs[n] = Sequence(n, c)
-            caf_records = in_records + og_records
-            caf_og_events = og_set
-        else:
-            caf_seqs = in_seqs
-            caf_records = in_records
-            caf_og_events = set()
-        lengths = {n: len(s) for n, s in caf_seqs.items()}
-        caf = run_caf(caf_records, lengths, cfg.caf, preset=preset,
-                      ingroup_events=set(children),
-                      outgroup_events=caf_og_events,
-                      min_chain_override=self.min_chain_override,
-                      event_tree=event_tree)
-        timings["caf"] = _time.time() - t0
+        with span("cactus.caf") as sp:
+            event_tree = self._event_tree(node, outgroups)
+            if cfg.caf.pinch_outgroups:
+                # reference semantics (caf/impl/caf.c:238-284): outgroup
+                # records pinch as real threads, so the singleCopyOutgroup
+                # policy family + minimumOutgroupDegree act structurally;
+                # og-only blocks still die at minimumIngroupDegree, and the
+                # HAL/maps layers already skip non-child events
+                caf_seqs = dict(in_seqs)
+                for n, c in og_codes.items():
+                    caf_seqs[n] = Sequence(n, c)
+                caf_records = in_records + og_records
+                caf_og_events = og_set
+            else:
+                caf_seqs = in_seqs
+                caf_records = in_records
+                caf_og_events = set()
+            lengths = {n: len(s) for n, s in caf_seqs.items()}
+            caf = run_caf(caf_records, lengths, cfg.caf, preset=preset,
+                          ingroup_events=set(children),
+                          outgroup_events=caf_og_events,
+                          min_chain_override=self.min_chain_override,
+                          event_tree=event_tree)
+        timings["caf"] = sp.seconds
         mem_mb["caf"] = _rss_mb()
         self.log(f"{node.name}: bar starting "
                  f"({int(caf.alive.sum())} live blocks)")
 
-        t0 = _time.time()
-        if cfg.nested_refinement:
-            # second decomposition inside large unaligned link
-            # interiors, BEFORE bar fills adjacency gaps (the
-            # reference's recursive flower layers run at the CAF level
-            # and bar works the hierarchy's leaves —
-            # cactus_consolidated.c:426-460; phases/nested.py)
-            from .phases import nested as nested_phase
-            # iterate to fixpoint (depth cap): the reference recurses
-            # layer-by-layer until leaf flowers
-            # (cactus_consolidated.c:439-460, caf/impl/finishing.c:438);
-            # a level-2 tangle (an inversion inside an insertion inside
-            # an insertion) only becomes visible on the graph REBUILT by
-            # level 1, so one pass can miss it (tests/test_nested.py)
-            for depth in range(cfg.nested_max_depth):
-                n0 = int(caf.alive.sum())
-                caf = nested_phase.refine_nested(
-                    caf, caf_seqs, cfg, preset, set(children),
-                    caf_og_events, log=lambda m: self.log(
-                        f"{node.name}: {m}"), device=self.device)
-                n1 = int(caf.alive.sum())
-                if n1 == n0:
-                    break
-                self.log(f"{node.name}: nested refinement level "
-                         f"{depth + 1}: {n0} -> {n1} live blocks")
-        caf = bar_phase.run_bar(caf, caf_seqs, cfg.bar,
-                                ingroup_events=set(children),
-                                outgroup_events=caf_og_events,
-                                device=self.device)
-        if cfg.bar.rescue and og_records and not cfg.caf.pinch_outgroups:
-            n0 = caf.blocks.n_blocks
-            caf = bar_phase.rescue_outgroup_covered(caf, og_records, cfg.bar)
-            if caf.blocks.n_blocks > n0:
-                self.log(f"{node.name}: rescued "
-                         f"{caf.blocks.n_blocks - n0} outgroup-covered "
-                         f"segments (bar rescue)")
-        timings["bar"] = _time.time() - t0
+        with span("cactus.bar") as sp:
+            if cfg.nested_refinement:
+                # second decomposition inside large unaligned link
+                # interiors, BEFORE bar fills adjacency gaps (the
+                # reference's recursive flower layers run at the CAF level
+                # and bar works the hierarchy's leaves —
+                # cactus_consolidated.c:426-460; phases/nested.py)
+                from .phases import nested as nested_phase
+                # iterate to fixpoint (depth cap): the reference recurses
+                # layer-by-layer until leaf flowers
+                # (cactus_consolidated.c:439-460, caf/impl/finishing.c:438);
+                # a level-2 tangle (an inversion inside an insertion inside
+                # an insertion) only becomes visible on the graph REBUILT by
+                # level 1, so one pass can miss it (tests/test_nested.py)
+                for depth in range(cfg.nested_max_depth):
+                    n0 = int(caf.alive.sum())
+                    caf = nested_phase.refine_nested(
+                        caf, caf_seqs, cfg, preset, set(children),
+                        caf_og_events, log=lambda m: self.log(
+                            f"{node.name}: {m}"), device=self.device)
+                    n1 = int(caf.alive.sum())
+                    if n1 == n0:
+                        break
+                    self.log(f"{node.name}: nested refinement level "
+                             f"{depth + 1}: {n0} -> {n1} live blocks")
+            caf = bar_phase.run_bar(caf, caf_seqs, cfg.bar,
+                                    ingroup_events=set(children),
+                                    outgroup_events=caf_og_events,
+                                    device=self.device)
+            if cfg.bar.rescue and og_records and not cfg.caf.pinch_outgroups:
+                n0 = caf.blocks.n_blocks
+                caf = bar_phase.rescue_outgroup_covered(caf, og_records,
+                                                        cfg.bar)
+                if caf.blocks.n_blocks > n0:
+                    self.log(f"{node.name}: rescued "
+                             f"{caf.blocks.n_blocks - n0} outgroup-covered "
+                             f"segments (bar rescue)")
+        timings["bar"] = sp.seconds
         mem_mb["bar"] = _rss_mb()
 
-        t0 = _time.time()
-        gcodes = bar_phase.global_codes(caf.table, caf_seqs)
-        ref = ref_phase.run_reference(
-            caf, gcodes, event_tree, node.name, cfg.reference,
-            # og evidence is structural when pinched; overlay otherwise
-            og_records=[] if cfg.caf.pinch_outgroups else og_records,
-            og_codes=og_codes, device=self.device)
-        timings["reference"] = _time.time() - t0
+        with span("cactus.reference") as sp:
+            gcodes = bar_phase.global_codes(caf.table, caf_seqs)
+            ref = ref_phase.run_reference(
+                caf, gcodes, event_tree, node.name, cfg.reference,
+                # og evidence is structural when pinched; overlay otherwise
+                og_records=[] if cfg.caf.pinch_outgroups else og_records,
+                og_codes=og_codes, device=self.device)
+        timings["reference"] = sp.seconds
         mem_mb["reference"] = _rss_mb()
         # the full ancestor genome (incl. dust threads) stays available
         # for export/maps; the parent's blast packs small contigs into

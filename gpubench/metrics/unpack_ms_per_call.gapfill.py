@@ -1,0 +1,8 @@
+"""unpack_ms_per_call.gapfill: unpack_ms_per_call
+(unpack_ms_per_call.py) in the gap-fill cell.  That cell has no steady
+rate or tail end to end, so there it moves setup_s, whose warm-up is one
+pass of the same calls."""
+
+from gpubench.manifest import reader
+
+read = reader("unpack_ms_per_call")
