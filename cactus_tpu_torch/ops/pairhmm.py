@@ -26,6 +26,7 @@ kernels are ops/pairhmm_cuda.py::pairhmm_fwd and ::pairhmm_bwd, which
 from __future__ import annotations
 
 from dataclasses import dataclass
+from itertools import accumulate
 
 import numpy as np
 import torch
@@ -320,25 +321,32 @@ def pack_to_device(pairs, band: int, dev, min_batch: int = 8,
 def banded_hits(post, pairs, lo, gamma: float):
     """(qpos, tpos, posterior) per pair from a (P, Mmax, B) posterior: each
     query row's first band argmax, kept where its posterior reaches gamma
-    and it lands inside the target.  The band reduction runs on the
-    device; only the (P, Mmax) rows leave it.  lo: the pairs' band
-    offsets (numpy)."""
-    best_b_all, pr_all = _row_argmax(post)
+    and it lands inside the target, in row order.  Rows past a pair's
+    query and pairs past len(pairs) (batch padding) are never kept.  The
+    band reduction runs on the device and only the (P, Mmax) rows leave
+    it; the whole batch's hits are then chosen in one numpy pass over the
+    pairs' rows and split by pair.  lo: the pairs' band offsets (numpy)."""
+    best_b, pr = _row_argmax(post)
     del post
+    rows = pr.shape[1]
     with span("cactus.fetch"):
-        best_b_all = best_b_all.cpu().numpy()
-        pr_all = pr_all.cpu().numpy()
-    out = []
+        best_b = best_b.cpu().numpy().ravel()
+        pr = pr.cpu().numpy().ravel()
     with span("cactus.unpack"):
-        for p, (qs, ts) in enumerate(pairs):
-            m = len(qs)
-            best_b = best_b_all[p, :m]
-            pr = pr_all[p, :m]
-            j = np.arange(1, m + 1) + int(lo[p]) + best_b  # 1-based target
-            keep = (pr >= gamma) & (j >= 1) & (j <= len(ts))
-            idx = np.flatnonzero(keep)
-            out.append([(int(i), int(j[i] - 1), float(pr[i])) for i in idx])
-    return out
+        n = len(pairs)
+        lens = np.fromiter((k for q, t in pairs for k in (len(q), len(t))),
+                           np.int64, 2 * n).reshape(n, 2)
+        m = lens[:, 0]
+        p = np.repeat(np.arange(n), m)  # the pair of each query row
+        i = np.arange(len(p)) - (np.cumsum(m) - m)[p]  # and its row
+        flat = p * rows + i
+        pv = pr[flat]
+        tpos = i + np.asarray(lo[:n], np.int64)[p] + best_b[flat]
+        keep = (pv >= gamma) & (tpos >= 0) & (tpos < lens[p, 1])
+        hits = list(zip(i[keep].tolist(), tpos[keep].tolist(),
+                        pv[keep].tolist()))
+        counts = np.bincount(p[keep], minlength=n).tolist()
+        return [hits[e - c:e] for e, c in zip(accumulate(counts), counts)]
 
 
 def posterior_pairs_banded(pairs, params: HmmParams, band: int = 128,
