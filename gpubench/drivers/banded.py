@@ -12,6 +12,7 @@ class Driver:
     kernels = {"banded_dp": ("banded_dp_warp_kernel", "banded_dp_kernel"),
                "banded_traceback": ("banded_traceback_kernel",)}
     launch = ("cactus_tpu_torch.ops.banded_cuda", "banded_dp")
+    entry_span = "cactus.align_pairs_banded"
     spans = (("cactus_tpu_torch.ops.banded", "pack_band_batch"),
              ("cactus_tpu_torch.ops.banded", "_to_device"),
              ("cactus_tpu_torch.ops.banded", "moves_to_ops"))

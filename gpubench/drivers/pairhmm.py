@@ -15,6 +15,7 @@ class Driver(HmmDriver):
                "pairhmm_bwd": ("pairhmm_bwd_kernel",
                                "pairhmm_bwd_cluster_kernel")}
     launch = ("cactus_tpu_torch.ops.pairhmm_cuda", "pairhmm_fwd")
+    entry_span = "cactus.posterior_pairs_banded"
     spans = (("cactus_tpu_torch.ops.pairhmm", "pack_to_device"),
              ("cactus_tpu_torch.ops.pairhmm", "banded_hits"))
 

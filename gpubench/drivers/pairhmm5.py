@@ -15,6 +15,7 @@ class Driver(HmmDriver):
                "pairhmm5_bwd": ("pairhmm5_bwd_kernel",
                                 "pairhmm5_bwd_cluster_kernel")}
     launch = ("cactus_tpu_torch.ops.pairhmm5_cuda", "pairhmm5_fwd")
+    entry_span = "cactus.posterior_pairs_banded5"
     spans = (("cactus_tpu_torch.ops.pairhmm5", "pack_to_device"),
              ("cactus_tpu_torch.ops.pairhmm5", "banded_hits"))
 

@@ -106,17 +106,23 @@ def choose_sample(workload: dict, variants, seed: int):
     return out
 
 
+def launch_cells(args, kwargs) -> int:
+    """P x M x band of one launch of a pair engine's wrapper: its first
+    argument is (P, M), its band a keyword."""
+    q = args[0]
+    return int(q.shape[0]) * int(q.shape[1]) * int(kwargs["band"])
+
+
 @contextlib.contextmanager
-def shape_counter(target, ctx):
-    """Wrap the driver's launch wrapper to add P x M x band of each launch
-    to ctx.computed_cells."""
+def shape_counter(target, ctx, cells=launch_cells):
+    """Wrap the driver's launch wrapper to add the cells of each launch,
+    cells(args, kwargs), to ctx.computed_cells."""
     mod = importlib.import_module(target[0])
     fn = getattr(mod, target[1])
 
-    def counted(q, *a, **k):
-        ctx.computed_cells += int(q.shape[0]) * int(q.shape[1]) * int(
-            k["band"])
-        return fn(q, *a, **k)
+    def counted(*a, **k):
+        ctx.computed_cells += cells(a, k)
+        return fn(*a, **k)
 
     setattr(mod, target[1], counted)
     try:
@@ -127,7 +133,8 @@ def shape_counter(target, ctx):
 
 def keep(kept_pair, answer):
     """Keep an answer of a sampled pair unless it equals one kept before
-    (a sound program repeats its answer for the same inputs)."""
+    (a sound program repeats its answer for the same inputs).  Answers
+    compare with `==` to a bool (drivers/__init__.py)."""
     if len(kept_pair) < MAX_DISTINCT and not any(
             answer == seen for seen in kept_pair):
         kept_pair.append(answer)
@@ -171,7 +178,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     stack = contextlib.ExitStack()
     if trace:
         stack.enter_context(tracing.spans(drv.spans))
-        stack.enter_context(shape_counter(drv.launch, ctx))
+        stack.enter_context(shape_counter(
+            drv.launch, ctx, getattr(drv, "launch_cells", launch_cells)))
         act = torch.profiler.ProfilerActivity
         prof = torch.profiler.profile(
             activities=[act.CPU] + ([act.CUDA] if on_card else []))

@@ -9,7 +9,7 @@ the program's place on the same sampled pairs).  One JSON line a seed
 and side, then the largest program reading and the smallest control
 reading of each number.
 
-    python3 gpubench/readings.py --workload mammals-nested \\
+    python3 gpubench/readings.py --workload pecan-posterior \\
         --seeds 11,12,... [--control-seeds 11,12,13]
 
 The benchmark's runs never run this file; gpubench/tests runs it at a

@@ -14,6 +14,9 @@ from gpubench import guard, manifest
 
 def test_manifest_meets_the_schema():
     assert manifest.problems(manifest.load()) == []
+    # and with the retired cells put back
+    assert manifest.problems(gpubench_small.with_retired(
+        manifest.load())) == []
 
 
 def test_schema_catches_bad_names_units_and_bounds():
@@ -58,7 +61,10 @@ def test_cells_are_found_by_name(name):
 
 
 def test_every_metric_file_is_named_in_the_manifest():
-    names = {m["name"] for m in manifest.load()["per_layer"]}
+    """In BENCHMARK.json, or among a retired cell's own metrics."""
+    names = {m["name"] for m in manifest.load()["per_layer"]} | {
+        m["name"] for cell in gpubench_small.retired()
+        for m in cell["per_layer"]}
     files = {f[:-3] for f in os.listdir(os.path.join(manifest.HERE,
                                                      "metrics"))
              if f.endswith(".py")}
@@ -115,7 +121,7 @@ def test_run_exits_without_a_result_outside_a_checkout(tmp_path):
     shutil.copytree(manifest.HERE, tmp_path / "gpubench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     proc = subprocess.run(
-        [sys.executable, "gpubench/run.py", "--workload", "mammals-nested",
+        [sys.executable, "gpubench/run.py", "--workload", "mammals-gapfill",
          "--seed", "3", "--seconds", "1", "--trace", "0"],
         cwd=tmp_path, capture_output=True, text=True)
     assert proc.returncode != 0

@@ -17,8 +17,9 @@ STAGE_METRICS = ("pack_ms_per_call", "fetch_ms_per_call",
 NEW = STAGE_METRICS + ("entry_self_ms_per_call",)
 
 
-def _ctx(host):
-    return SimpleNamespace(trace=tracing.Trace(host=list(host)))
+def _ctx(host, entry="cactus.posterior_pairs_banded"):
+    return SimpleNamespace(trace=tracing.Trace(host=list(host)),
+                           driver=SimpleNamespace(entry_span=entry))
 
 
 def _read(name, ctx):
@@ -65,11 +66,29 @@ def test_a_call_without_stage_spans_reads_0():
     host = [("gpubench.call", 0, 100), ("cactus.align_pairs_banded", 5, 95),
             ("gpubench.call", 200, 300),
             ("cactus.align_pairs_banded", 210, 290)]
-    ctx = _ctx(host)
+    ctx = _ctx(host, entry="cactus.align_pairs_banded")
     for name in STAGE_METRICS:
         assert _read(name, ctx) == 0.0
     assert _read("entry_self_ms_per_call", ctx) == pytest.approx(
         (90 + 80) / 2 / 1e3)
+
+
+@pytest.mark.parametrize("entry, want", [
+    ("cactus.posterior_pairs_banded", (80 - 65 + 90 - 30) / 2 / 1e3),
+    ("cactus.align_pairs_banded", (20 - 0) / 2 / 1e3),
+    ("cactus.posterior_pairs_banded5", None),
+    (None, None)])
+def test_the_entry_span_is_the_drivers(entry, want):
+    """Only the span the window's driver names counts as the entry: a
+    span of another entry inside a call is ignored, and a driver whose
+    entry has no span in the window (or names none) reads None."""
+    host = HOST + [("cactus.fetch", 40, 50),
+                   ("cactus.align_pairs_banded", 60, 80)]
+    ctx = _ctx(host, entry=entry)
+    got = _read("entry_self_ms_per_call", ctx)
+    assert got == (None if want is None else pytest.approx(want))
+    pack = _read("pack_ms_per_call", _ctx(host, entry=entry))
+    assert (pack is None) == (want is None)
 
 
 def test_a_program_without_the_spans_reads_none():
